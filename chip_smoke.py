@@ -11,11 +11,12 @@ no kernels line.
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 
-1. build the CUDA kernels from ``tch_geometric_tpu_torch/csrc`` (nvcc);
-2. kernel checks: B1, B2 and the hot split against their plain versions on
-   the card, on the kernel-gate testbed and three layout edge cases, in
-   float32 (5e-4, TF32 off) and bfloat16 (per-kernel limits of
-   ``utils/kernel_gates.py``);
+1. build the CUDA kernels from ``tch_geometric_tpu_torch/csrc`` (nvcc, one
+   process per source, all at once);
+2. kernel checks: B1, B2, the hot split and B3 (both modes) against their
+   plain versions on the card, on the kernel-gate testbed and three layout
+   edge cases (B3 also at one head of 47 columns), in float32 (5e-4, TF32
+   off) and bfloat16 (per-kernel limits of ``utils/kernel_gates.py``);
 3. the GraphSAGE serving path at ogbn-products size (synthetic graph with
    the dataset's node/edge counts, 100 features, 47 classes; model
    hidden=256, 3 layers, random weights from a seed):
@@ -31,6 +32,18 @@ prints no result line):
    only; the port never calls it), and the serving outputs are checked:
    finite, (b) and (c) agree, and on a 5% node subgraph ``blocked_forward``
    agrees with the plain ``forward`` and the card's sampler with the CPU's.
+4. the GAT serving path on the same graph and layout (model
+   ``GAT(100, 256, 47, 3 layers, 4 heads)``: H=4, D=64, then one head of
+   47; random weights from a seed): (a) 8 requests of 1024 seeds through
+   ``sample_and_gather`` + ``tree_forward``, and one request each through
+   GCN and GIN (hidden 256, 3 layers); (b) the full-graph pass, the three
+   ``GATConv(blocked=...)`` layers with ELU between them (the composition
+   of ``GAT.forward``), in float32, which launches B3.  B3's launch count is
+   zeroed just before (a)-(b) and read just after.  Then B3's wrapper is
+   checked against its plain version at both layer shapes, both modes and
+   both dtypes, and timed; the outputs are checked finite, and on a 5%
+   node subgraph the blocked pass agrees with ``GAT.forward`` (segment
+   ops) in float32.
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -101,6 +114,7 @@ def phase_kernel_checks(device):
     for dtype, thr in ((torch.float32, kg.F32_THRESHOLD),
                        (torch.bfloat16, kg.BF16_THRESHOLDS)):
         errs = kg.run_kernel_gates(dtype, device=device)
+        errs.update(kg.run_gat_gates(dtype, device=device))
         ok, worst = kg.gate(errs, thr)
         log(f"kernel checks {str(dtype)[6:]} (limits {thr}): "
             f"nearest its limit {worst}")
@@ -211,18 +225,12 @@ def check_serving(res, n):
     return err
 
 
-def check_subgraph(p, device, frac=0.05):
-    """On a random 5% node subgraph: blocked_forward (f32 and bf16) against
-    the plain forward, and the card's sampled request against the CPU's
-    (same key -> identical sample; logits allclose)."""
+def subgraph(data, device, frac=0.05):
+    """A random ``frac`` node subgraph: its CSC arrays, features, graph and
+    blocked layout on ``device``, and the numpy generator that drew it."""
     from tch_geometric_tpu_torch.data.graph import make_graph
     from tch_geometric_tpu_torch.data.storage import to_csc
     from tch_geometric_tpu_torch.ops.spmm_blocked import build_blocked
-    from tch_geometric_tpu_torch.parallel.train import make_gnn_trainer
-    from tch_geometric_tpu_torch.sampling import rng
-    from tch_geometric_tpu_torch.utils.kernel_gates import (
-        F32_THRESHOLD, FORWARD_BF16_THRESHOLD)
-    data, model = p["data"], p["model"]
     n = data.num_nodes
     r = np.random.default_rng(2)
     keep = np.sort(r.choice(n, size=max(int(n * frac), 64), replace=False))
@@ -232,22 +240,37 @@ def check_subgraph(p, device, frac=0.05):
     ei = ei[:, (ei >= 0).all(axis=0)]
     ns = len(keep)
     cp, ri, _ = to_csc(ei, ns)
-    xs = torch.from_numpy(data.x[keep]).to(device)
-    g = make_graph(cp, ri, num_src=ns, num_dst=ns, device=device)
-    b = build_blocked(cp, ri, rows_per_block=W, device=device)
+    return dict(cp=cp, ri=ri, ns=ns, edges=int(ei.shape[1]), r=r,
+                xs=torch.from_numpy(data.x[keep]).to(device),
+                g=make_graph(cp, ri, num_src=ns, num_dst=ns, device=device),
+                b=build_blocked(cp, ri, rows_per_block=W, device=device))
+
+
+def check_subgraph(p, sub):
+    """On a random 5% node subgraph: blocked_forward (f32 and bf16) against
+    the plain forward, and the card's sampled request against the CPU's
+    (same key -> identical sample; logits allclose)."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.parallel.train import make_gnn_trainer
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.utils.kernel_gates import (
+        F32_THRESHOLD, FORWARD_BF16_THRESHOLD)
+    model = p["model"]
+    cp, ri, ns, r, xs, g, b = (sub[k] for k in
+                               ("cp", "ri", "ns", "r", "xs", "g", "b"))
     out = {}
     with torch.no_grad():
         ref = model(xs, g)
         e32 = maxerr(model.blocked_forward(xs, b, compute_dtype=torch.float32),
                      ref)
         e16 = maxerr(model.blocked_forward(xs, b), ref)
-        log(f"check: {ns} nodes / {ei.shape[1]} edges subgraph: "
+        log(f"check: {ns} nodes / {sub['edges']} edges subgraph: "
             f"blocked_forward vs forward f32 {e32:.3e} bf16 {e16:.3e} "
             f"(limits {F32_THRESHOLD}, {FORWARD_BF16_THRESHOLD}; logits max "
             f"|value| {float(ref.abs().max()):.3e})")
         check(e32 <= F32_THRESHOLD, "subgraph blocked f32 vs plain")
         check(e16 <= FORWARD_BF16_THRESHOLD, "subgraph blocked bf16 vs plain")
-        out.update(subgraph_nodes=ns, subgraph_edges=int(ei.shape[1]),
+        out.update(subgraph_nodes=ns, subgraph_edges=sub["edges"],
                    blocked_vs_plain_f32=e32, blocked_vs_plain_bf16=e16)
 
         cpu_model = copy.deepcopy(model).cpu()
@@ -386,6 +409,177 @@ def kernel_numbers(p, launches, device):
     return rows, gather_bound
 
 
+GAT_HEADS = 4
+OTHER_MODELS = ("gcn", "gin")
+
+
+def gat_models(p, device):
+    """GAT (4 heads), GCN and GIN, each hidden 256, 3 layers, 47 outputs,
+    with weights from ``torch.Generator().manual_seed(0)``."""
+    from tch_geometric_tpu_torch.models.gnn import GAT, GCN, GIN
+    f = p["data"].x.shape[1]
+
+    def make(cls, **kw):
+        return cls(f, 256, 47, 3, generator=torch.Generator().manual_seed(0),
+                   device=device, **kw)
+    return dict(gat=make(GAT, heads=GAT_HEADS), gcn=make(GCN), gin=make(GIN))
+
+
+def gat_blocked_pass(gat, x, blocked):
+    """``GAT.forward``'s composition over the blocked layout: each
+    ``GATConv(blocked=...)`` (B3), ELU between layers."""
+    h = x
+    for i, conv in enumerate(gat.convs):
+        h = gat._act(conv(h, blocked=blocked), i, True)
+    return h
+
+
+def serve_gat(p, models, timer):
+    """The GAT path: (a) sampled GAT requests, one GCN and one GIN request;
+    (b) the full-graph blocked GAT pass."""
+    from tch_geometric_tpu_torch.parallel.train import make_gnn_trainer
+    from tch_geometric_tpu_torch.sampling import rng
+    graph, x_table = p["graph"], p["x_table"]
+    n = x_table.shape[0]
+    gen = torch.Generator().manual_seed(4)
+    req_ms, logits, other = [], [], {}
+    with torch.no_grad():
+        for name in ("gat",) * REQUESTS + OTHER_MODELS:
+            model = models[name]
+            trainer = make_gnn_trainer(model, FANOUTS)
+            seeds = torch.randint(0, n, (SEEDS_PER_REQUEST,), generator=gen)
+            key = rng.fold(rng.key(1), len(req_ms) + len(other))
+
+            def request():
+                sample, x = trainer.sample_and_gather(key, graph, x_table,
+                                                      seeds)
+                return model.tree_forward(sample, x)
+            out, ms = timer(request)
+            if name == "gat":
+                req_ms.append(ms)
+                logits.append(out)
+            else:
+                other[name] = (out, ms)
+        out_full, ms_full = timer(lambda: gat_blocked_pass(
+            models["gat"], x_table, p["blocked"]))
+    return dict(req_ms=req_ms, logits=logits, other=other, out=out_full,
+                ms=ms_full)
+
+
+def steady_gat_ms(p, models, timer):
+    """Warm full-graph GAT passes (after the main path, so not counted in
+    its launches)."""
+    with torch.no_grad():
+        return [timer(lambda: gat_blocked_pass(models["gat"], p["x_table"],
+                                               p["blocked"]))[1]
+                for _ in range(FORWARD_REPS)]
+
+
+def check_gat_serving(res, n):
+    for lg in res["logits"] + [o for o, _ in res["other"].values()]:
+        check(lg.shape == (SEEDS_PER_REQUEST, 47), f"request shape {lg.shape}")
+        check(bool(torch.isfinite(lg).all()), "request logits finite")
+    check(res["out"].shape == (n, 47), f"GAT pass shape {res['out'].shape}")
+    check(bool(torch.isfinite(res["out"]).all()), "GAT pass finite")
+
+
+def check_gat_subgraph(models, sub):
+    """On the 5% node subgraph: the blocked GAT pass (B3, float32) against
+    ``GAT.forward`` (gather + segment softmax + segment sum)."""
+    from tch_geometric_tpu_torch.utils.kernel_gates import F32_THRESHOLD
+    gat = models["gat"]
+    with torch.no_grad():
+        ref = gat(sub["xs"], sub["g"])
+        e = maxerr(gat_blocked_pass(gat, sub["xs"], sub["b"]), ref)
+    log(f"check: subgraph blocked GAT pass vs GAT.forward f32 {e:.3e} "
+        f"(limit {F32_THRESHOLD}; logits max |value| "
+        f"{float(ref.abs().max()):.3e})")
+    check(e <= F32_THRESHOLD, "subgraph blocked GAT vs segment-op GAT")
+    return e
+
+
+def gat_kernel_numbers(p, launches, device):
+    """B3 at the main path's shapes: layers 1-2 (H=4, D=64) and layer 3
+    (H=1, D=47) of the products GAT.  The wrapper is held against the plain
+    version in both modes (alpha_src table; the in-kernel GATv1 projection,
+    which GATConv uses) and both dtypes; then the vec mode is timed at both
+    shapes in both dtypes, and the plain version at H=4, D=64 in float32 (the
+    main path's widest call).  Returns the JSON row."""
+    from tch_geometric_tpu_torch.ops.attention_blocked import (
+        gat_attend_blocked_packed, gat_attend_blocked_packed_cuda)
+    from tch_geometric_tpu_torch.utils.kernel_gates import (BF16_THRESHOLDS,
+                                                            F32_THRESHOLD)
+    key = "gat_attend_blocked_packed_cuda"
+    b = p["blocked"]
+    n = p["x_table"].shape[0]
+    T, C = b.edge_src.shape
+    valid = int(b.edge_valid.sum())
+    gen = torch.Generator().manual_seed(5)
+    errs, ms, shapes = {}, {}, {}
+    for H, D in ((GAT_HEADS, 256 // GAT_HEADS), (1, 47)):
+        h = torch.randn((n, H, D), generator=gen).to(device)
+        a_s = torch.randn((n, H), generator=gen).to(device)
+        a_d = torch.randn((n, H), generator=gen).to(device)
+        vec = (torch.randn((H, D), generator=gen) / D ** 0.5).to(device)
+        for dt, thr in ((torch.float32, F32_THRESHOLD),
+                        (torch.bfloat16, BF16_THRESHOLDS[key])):
+            for mode, table, v in (("table", a_s, None), ("vec", None, vec)):
+                kw = dict(alpha_src_vec=v, compute_dtype=dt)
+                got = gat_attend_blocked_packed_cuda(b, h, table, a_d, **kw)
+                ref = gat_attend_blocked_packed(b, h, table, a_d, **kw)
+                check(got.shape == ref.shape == (n, H, D),
+                      f"B3 output shape {tuple(got.shape)}")
+                e = errs[H, D, mode, str(dt)[6:]] = maxerr(got, ref)
+                log(f"check: B3 wrapper vs plain at H={H} D={D} {mode} "
+                    f"{str(dt)[6:]}: max |diff| {e:.3e} (limit {thr}; "
+                    f"max |value| {float(ref.abs().max()):.3e})")
+                check(e <= thr, f"B3 H={H} D={D} {mode} {dt}: {e:.3e}")
+                del got, ref
+            hc = h.to(dt)
+            ms[f"H{H}_D{D}_{str(dt)[6:]}"] = cuda_ms(
+                lambda: gat_attend_blocked_packed_cuda(
+                    b, hc, None, a_d, alpha_src_vec=vec, compute_dtype=dt),
+                10)
+        if H == GAT_HEADS:
+            main = (h, a_d, vec)
+    h, a_d, vec = main
+    H, D = h.shape[1:]
+    plain_ms = cuda_ms(lambda: gat_attend_blocked_packed(
+        b, h, None, a_d, alpha_src_vec=vec, compute_dtype=torch.float32), 2)
+    # bytes bound, counted as B1's: the kernel's inputs read once — h in the
+    # compute dtype, the lane metadata (edge_src, local_row; pad lanes
+    # included) and block_start, alpha_dst and the projection vector — and
+    # the (B*W, H*D) float32 output written once
+    out_bytes = b.num_blocks * b.rows_per_block * H * D * 4
+    in_bytes = (n * H * D * 4 + T * C * 8 + b.block_start.numel() * 4
+                + n * H * 4 + H * D * 4)
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    # operations on this run's data: per valid lane and head the logit
+    # (add, leaky_relu, subtract, exp, the z add) and a multiply-add per
+    # column; the projection's multiply-add per node and column
+    t_ops = (valid * H * (5 + 2 * D) + 2 * n * H * D) / F32_FLOP_PER_S * 1e3
+    main_ms = ms[f"H{H}_D{D}_float32"]
+    err32 = max(v for k, v in errs.items() if k[3] == "float32")
+    err16 = max(v for k, v in errs.items() if k[3] == "bfloat16")
+    log(f"kernel {key} (B3): T={T} C={C} H={H} D={D} lanes valid {valid}: "
+        f"{main_ms:.3f} ms in float32 (bound {max(t_bytes, t_ops):.3f} ms "
+        f"by {'bytes' if t_bytes >= t_ops else 'operations'}), plain "
+        f"{plain_ms:.3f} ms; all timings (vec mode) {ms}; launches on the "
+        f"GAT path {launches[key]}; worst wrapper err f32 {err32:.2e} bf16 "
+        f"{err16:.2e}")
+    return dict(
+        name=f"{key} (B3)", route="cuda",
+        source="tch_geometric_tpu_torch/csrc/gat_packed.cu",
+        replaces="tch_geometric_tpu/ops/attention_blocked.py:765",
+        launches=launches[key], max_abs_err=err32, ms=main_ms,
+        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, max_abs_err_bf16=err16, ms_by_shape=ms,
+        shape=dict(T=T, C=C, W=b.rows_per_block, H=H, D=D, N=n,
+                   valid_lanes=valid, dtype="float32", mode="vec"),
+        library_call=None)
+
+
 def _csr(ptr, col, val, size):
     """(float32, bfloat16) torch CSR matrices of the same entries."""
     return tuple(torch.sparse_csr_tensor(ptr, col, val.to(dt), size=size,
@@ -437,9 +631,11 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import tch_geometric_tpu_torch  # noqa: F401  (fails outside a checkout)
-    from tch_geometric_tpu_torch.ops.attention_blocked import \
-        spmm_blocked_weighted_cuda
+    from tch_geometric_tpu_torch.ops.attention_blocked import (
+        gat_attend_blocked_packed_cuda, spmm_blocked_weighted_cuda)
     from tch_geometric_tpu_torch.ops.spmm_kernels import spmm_blocked_cuda
+    wrappers = (spmm_blocked_cuda, spmm_blocked_weighted_cuda,
+                gat_attend_blocked_packed_cuda)
 
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 checks need IEEE
@@ -472,8 +668,8 @@ def main(argv=None) -> int:
         return out, (time.perf_counter() - t0) * 1e3
 
     torch.cuda.reset_peak_memory_stats()
-    spmm_blocked_cuda.launches = 0
-    spmm_blocked_weighted_cuda.launches = 0
+    for fn in wrappers:
+        fn.launches = 0
     res = serve(p, device, timer)
     launches = {"spmm_blocked_cuda": spmm_blocked_cuda.launches,
                 "spmm_blocked_weighted_cuda":
@@ -492,8 +688,34 @@ def main(argv=None) -> int:
                     for k, v in steady.items()))
 
     serving_err = check_serving(res, n)
-    sub = check_subgraph(p, device)
+
+    models = gat_models(p, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers:
+        fn.launches = 0
+    gres = serve_gat(p, models, timer)
+    gat_launches = {"gat_attend_blocked_packed_cuda":
+                    gat_attend_blocked_packed_cuda.launches}
+    gat_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"GAT path launches: {gat_launches}")
+    for k, v in gat_launches.items():
+        check(v > 0, f"kernel {k} ran on the GAT path")
+    log("GAT requests ms: " + ", ".join(f"{m:.1f}" for m in gres["req_ms"])
+        + "; " + ", ".join(f"{k.upper()} request {ms:.1f} ms"
+                           for k, (_, ms) in gres["other"].items()))
+    log(f"full-graph blocked GAT pass {gres['ms']:.1f} ms (first call); "
+        f"peak device memory {gat_peak_gb:.2f} GiB")
+    gat_steady = steady_gat_ms(p, models, timer)
+    log(f"full-graph blocked GAT pass, warm, {FORWARD_REPS} runs: "
+        + ", ".join(f"{m:.1f}" for m in gat_steady))
+    check_gat_serving(gres, n)
+
+    sg = subgraph(p["data"], device)
+    sub = check_subgraph(p, sg)
+    gat_sub_err = check_gat_subgraph(models, sg)
     kernels, gather_bound = kernel_numbers(p, launches, device)
+    kernels.append(gat_kernel_numbers(p, gat_launches, device))
 
     summary = dict(
         card=card, scale=args.scale, nodes=n, edges=p["graph"].num_edges,
@@ -504,6 +726,12 @@ def main(argv=None) -> int:
         forward_ms_warm=steady,
         blocked_vs_hot_max_diff=serving_err, peak_device_gib=peak_gb,
         lane_gather_ms_derived=gather_bound,
+        gat_request_ms=gres["req_ms"],
+        gat_request_ms_steady_mean=float(np.mean(gres["req_ms"][1:])),
+        other_request_ms={k: ms for k, (_, ms) in gres["other"].items()},
+        gat_blocked_pass_ms=gres["ms"], gat_blocked_pass_ms_warm=gat_steady,
+        gat_peak_device_gib=gat_peak_gb,
+        gat_blocked_vs_segment_f32=gat_sub_err,
         total_s=time.perf_counter() - t_all, **sub)
     log("serving: " + json.dumps(summary))
     if args.scale == 1.0:

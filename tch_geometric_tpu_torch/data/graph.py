@@ -74,6 +74,11 @@ class SparseGraph:
     def num_edges(self) -> int:
         return self.indices.shape[0]
 
+    def degree(self, nodes) -> torch.Tensor:
+        """Batched row degree."""
+        nodes = torch.as_tensor(nodes, device=self.device)
+        return self.indptr[nodes + 1] - self.indptr[nodes]
+
     def neighbors_range(self, nodes: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Batched (start, end) edge-pointer windows."""

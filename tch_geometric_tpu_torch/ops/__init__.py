@@ -1,5 +1,17 @@
-from .attention_blocked import spmm_blocked_weighted_cuda
-from .segment import csr_row_ids, segment_mean, segment_sum
+from .attention_blocked import (
+    blocked_dst_rows,
+    gat_attend_blocked_packed,
+    gat_attend_blocked_packed_cuda,
+    gat_edge_logits_blocked,
+    spmm_blocked_weighted_cuda,
+)
+from .segment import (
+    csr_row_ids,
+    segment_max,
+    segment_mean,
+    segment_softmax,
+    segment_sum,
+)
 from .spmm import spmm
 from .spmm_blocked import (
     BlockedCsr,

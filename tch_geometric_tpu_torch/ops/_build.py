@@ -33,6 +33,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
                                   _i, _i, _i, _i, _vp, _vp]),
         "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
+    "gat_packed": {
+        "tgt_gat_packed": (_i, [_vp, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp,
+                                _i, _i, _i, _i, _i, _i, ctypes.c_float,
+                                _vp, _vp]),
+        "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

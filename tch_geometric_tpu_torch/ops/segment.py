@@ -1,7 +1,9 @@
 """Segment reductions over CSR edge structures.
 
-Counterpart of the SpMM-facing part of ``tch_geometric_tpu/ops/segment.py``:
-the plain gather + segment-sum formulation behind ``GraphSAGE.__call__``.
+Counterpart of ``tch_geometric_tpu/ops/segment.py`` (its numpy CSC edge
+transforms are not ported yet): the plain gather + segment-reduce
+formulation behind the full-graph ``__call__`` of GraphSAGE, GCN, GIN and
+GAT.
 """
 from __future__ import annotations
 
@@ -28,3 +30,31 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
     cnt = segment_sum(data.new_ones(data.shape[:1]), segment_ids,
                       num_segments)
     return s / cnt.clamp(min=1)[(...,) + (None,) * (data.dim() - 1)]
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Per-segment max; a segment with no entries gets -inf (the identity
+    of ``jax.ops.segment_max``)."""
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]),
+                        float("-inf"))
+    idx = segment_ids.reshape((-1,) + (1,) * (data.dim() - 1))
+    return out.scatter_reduce(0, idx.expand_as(data), data, "amax")
+
+
+def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int, mask=None) -> torch.Tensor:
+    """Per-segment softmax of ``scores`` (E,) or (E, H); masked-out entries
+    get weight 0.  A segment's max is taken with masked entries at -inf and
+    replaced by 0 where it is not finite; the denominator is floored at
+    1e-16."""
+    if mask is not None:
+        m = mask[:, None] if scores.dim() == 2 else mask
+        scores = torch.where(m, scores, float("-inf"))
+    smax = segment_max(scores, segment_ids, num_segments)
+    smax = torch.where(torch.isfinite(smax), smax, 0.0)
+    ex = torch.exp(scores - smax[segment_ids])
+    if mask is not None:
+        ex = torch.where(m, ex, 0.0)
+    den = segment_sum(ex, segment_ids, num_segments)
+    return ex / den[segment_ids].clamp(min=1e-16)

@@ -8,6 +8,6 @@ from .config import (
     WeightedEdgeSampler,
     validate_mixeddata,
 )
-from .params import sage_params_from_flax
+from .params import gnn_params_from_flax, sage_params_from_flax
 from .types import (NAN_TIMESTAMP, EdgeType, NodeType, RelType, TypeIndex,
                     rel_key, split_rel_key, to_edge_types)

@@ -2,14 +2,19 @@
 
 Mirror of ``tch_geometric_tpu/utils/kernel_gates.py`` for the kernels ported
 so far: B1 (``spmm_blocked_cuda``, alone and as the cold half of the hot
-split) and B2 (``spmm_blocked_weighted_cuda``, alone and as the hot half).
-Each kernel runs on the given device and is compared with its plain version
-(``spmm_blocked``) on the same inputs, computed on the same device.  On a
-CPU device both sides are the plain version; the gates matter on the card.
+split), B2 (``spmm_blocked_weighted_cuda``, alone and as the hot half) —
+:func:`run_kernel_gates` — and B3 (``gat_attend_blocked_packed_cuda``) —
+:func:`run_gat_gates`.  Each kernel runs on the given device and is
+compared with its plain version (``spmm_blocked``,
+``gat_attend_blocked_packed``) on the same inputs, computed on the same
+device.  On a CPU device both sides are the plain version; the gates matter
+on the card.
 
-Layouts: the power-law testbed of the JAX gates (n=4096, e=65536, F=128,
-W=256) and three edge cases — rows (and whole blocks) with no edges, one
-block spanning many chunks, and ``num_rows % W != 0``.
+Layouts: the power-law testbed of the JAX gates (n=4096, e=65536, F=128 or
+H=4 heads of D=32, W=256) and three edge cases — rows (and whole blocks)
+with no edges, one block spanning many chunks, and ``num_rows % W != 0``;
+B3 also runs one head of D=47 on the testbed (GAT's last layer at
+ogbn-products width, an odd row width).
 """
 from __future__ import annotations
 
@@ -25,11 +30,15 @@ import torch
 # differ only by summation order; B2 multiplies its float32 weight in
 # float32 while the plain version rounds it to bfloat16 first (2**-9
 # relative), which with U(0, 1) weights over ~16 mean-degree rows of N(0, 1)
-# features reaches about 2e-2.  Each limit sits well above the card's reading
-# and well below the values compared (PERF.md, PR 1).
+# features reaches about 2e-2.  B3 rounds at the same points as its plain
+# version (h, each lane's weight and their product in bfloat16, every sum in
+# float32), so it differs by summation order and the rare term whose
+# rounding flips.  Each limit sits well above the card's reading and well
+# below the values compared (PERF.md, Findings).
 F32_THRESHOLD = 5e-4
 BF16_THRESHOLDS = {"spmm_blocked_cuda": 1e-3, "spmm_hot_split": 1e-3,
-                   "spmm_blocked_weighted_cuda": 5e-2}
+                   "spmm_blocked_weighted_cuda": 5e-2,
+                   "gat_attend_blocked_packed_cuda": 1e-3}
 # Whole bfloat16 forwards (logits of a 3-layer SAGE): blocked against hot
 # split, and blocked against the plain forward.
 FORWARD_BF16_THRESHOLD = 1e-2
@@ -40,13 +49,27 @@ def build_testbed(n: int = 4096, e: int = 65536, f: int = 128,
     """Power-law sources, uniform sorted destinations: ``(indptr, src, x)``
     (the JAX gates' testbed)."""
     rng = np.random.default_rng(seed)
+    indptr, src = _powerlaw_graph(rng, n, e)
+    return indptr, src, rng.normal(size=(n, f)).astype(np.float32)
+
+
+def _powerlaw_graph(rng, n: int, e: int):
     pop = (1.0 / (np.arange(n) + 10.0)) ** 0.8
     pop /= pop.sum()
     src = rng.choice(n, size=e, p=pop).astype(np.int64)
     dst = np.sort(rng.integers(0, n, e)).astype(np.int64)
-    indptr = np.searchsorted(dst, np.arange(n + 1)).astype(np.int64)
-    x = rng.normal(size=(n, f)).astype(np.float32)
-    return indptr, src, x
+    return np.searchsorted(dst, np.arange(n + 1)).astype(np.int64), src
+
+
+def build_gat_testbed(n: int = 4096, e: int = 65536, heads: int = 4,
+                      d: int = 32, seed: int = 0):
+    """``(indptr, src, h (n, heads, d), alpha_src (n, heads), alpha_dst,
+    vec (heads, d))``: the JAX gates' GAT testbed (the same draws), and a
+    GATv1 projection vector scaled so its logits are N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    indptr, src = _powerlaw_graph(rng, n, e)
+    rng.normal(size=(n, 128))                       # the JAX testbed's x
+    return (indptr, src) + _gat_inputs(rng, n, heads, d)
 
 
 def edge_case_graphs(f: int = 32, seed: int = 1
@@ -133,6 +156,49 @@ def run_kernel_gates(compute_dtype=torch.float32, device="cuda"
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return errs
+
+
+def run_gat_gates(compute_dtype=torch.float32, device="cuda"
+                  ) -> Dict[str, float]:
+    """``{case[mode]/gat_attend_blocked_packed_cuda: max_abs_err}`` of B3
+    against its plain version on ``device``, in both modes (``table``: an
+    (N, H) alpha_src; ``vec``: the GATv1 projection GATConv uses)."""
+    from ..ops.attention_blocked import (gat_attend_blocked_packed,
+                                         gat_attend_blocked_packed_cuda)
+    from ..ops.spmm_blocked import build_blocked
+
+    indptr, src, h, a_s, a_d, vec = build_gat_testbed()
+    cases = [("testbed", indptr, src, 256, None, (h, a_s, a_d, vec))]
+    for name, ip, s, _, W, C in edge_case_graphs():
+        r = np.random.default_rng(len(ip))
+        cases.append((name, ip, s, W, C, _gat_inputs(r, len(ip) - 1, 4, 32)))
+    r = np.random.default_rng(47)
+    cases.append(("testbed_h1_d47", indptr, src, 256, None,
+                  _gat_inputs(r, len(indptr) - 1, 1, 47)))
+    errs: Dict[str, float] = {}
+    with _strict_f32():
+        for name, ip, s, W, C, arrays in cases:
+            b = build_blocked(ip, s, rows_per_block=W, chunk_edges=C,
+                              device=device)
+            hh, asrc, adst, v = (torch.from_numpy(a).to(device)
+                                 for a in arrays)
+            for mode, table, vv in (("table", asrc, None), ("vec", None, v)):
+                kw = dict(alpha_src_vec=vv, compute_dtype=compute_dtype)
+                errs[f"{name}[{mode}]/gat_attend_blocked_packed_cuda"] = \
+                    _maxerr(gat_attend_blocked_packed_cuda(b, hh, table,
+                                                           adst, **kw),
+                            gat_attend_blocked_packed(b, hh, table, adst,
+                                                      **kw))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return errs
+
+
+def _gat_inputs(rng, n: int, heads: int, d: int):
+    return (rng.normal(size=(n, heads, d)).astype(np.float32),
+            rng.normal(size=(n, heads)).astype(np.float32),
+            rng.normal(size=(n, heads)).astype(np.float32),
+            (rng.normal(size=(heads, d)) / np.sqrt(d)).astype(np.float32))
 
 
 def gate(errs: Dict[str, float], threshold: Union[float, Dict[str, float]]

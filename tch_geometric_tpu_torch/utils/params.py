@@ -12,6 +12,18 @@ import numpy as np
 import torch
 
 
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _dense(dense: Mapping, prefix: str, out: Dict[str, torch.Tensor]):
+    """A flax ``Dense`` into ``<prefix>.weight`` (transposed) and
+    ``<prefix>.bias``."""
+    out[f"{prefix}.weight"] = _f32(np.asarray(dense["kernel"]).T)
+    if "bias" in dense:
+        out[f"{prefix}.bias"] = _f32(dense["bias"])
+
+
 def sage_params_from_flax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     """flax ``GraphSAGE`` params -> ``GraphSAGE.state_dict()`` keys.
 
@@ -24,11 +36,35 @@ def sage_params_from_flax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     while f"conv{i}" in p:
         conv = p[f"conv{i}"]
         for lin in ("lin_self", "lin_neigh"):
-            dense = conv[lin]
-            out[f"convs.{i}.{lin}.weight"] = torch.from_numpy(
-                np.array(np.asarray(dense["kernel"]).T, dtype=np.float32))
-            if "bias" in dense:
-                out[f"convs.{i}.{lin}.bias"] = torch.from_numpy(
-                    np.array(dense["bias"], dtype=np.float32))
+            _dense(conv[lin], f"convs.{i}.{lin}", out)
         i += 1
+    return out
+
+
+def gnn_params_from_flax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``GAT``, ``GCN`` or ``GIN`` params -> the port's
+    ``state_dict()`` keys.
+
+    ``GATConv_i``: ``Dense_0`` -> ``convs.i.lin``, ``a_src``/``a_dst``
+    ``(H, D)`` as they are; ``GCNConv_i``: ``Dense_0`` -> ``convs.i.lin``;
+    ``GINConv_i``: scalar ``eps`` as it is, ``Dense_0``/``Dense_1`` ->
+    ``convs.i.lin1``/``lin2``.  Each ``Dense`` kernel ``(in, out)`` becomes
+    a ``Linear.weight`` ``(out, in)``.  Accepts the tree with or without its
+    top-level ``"params"`` entry."""
+    p = flax_params.get("params", flax_params)
+    out: Dict[str, torch.Tensor] = {}
+    for kind in ("GATConv", "GCNConv", "GINConv"):
+        i = 0
+        while f"{kind}_{i}" in p:
+            conv, pre = p[f"{kind}_{i}"], f"convs.{i}"
+            if kind == "GINConv":
+                out[f"{pre}.eps"] = _f32(conv["eps"])
+                _dense(conv["Dense_0"], f"{pre}.lin1", out)
+                _dense(conv["Dense_1"], f"{pre}.lin2", out)
+            else:
+                _dense(conv["Dense_0"], f"{pre}.lin", out)
+            if kind == "GATConv":
+                out[f"{pre}.a_src"] = _f32(conv["a_src"])
+                out[f"{pre}.a_dst"] = _f32(conv["a_dst"])
+            i += 1
     return out

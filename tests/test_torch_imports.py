@@ -30,6 +30,13 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+MODULES = ["tch_geometric_tpu_torch.models.gnn",
+           "tch_geometric_tpu_torch.ops.attention_blocked",
+           "tch_geometric_tpu_torch.ops.segment",
+           "tch_geometric_tpu_torch.utils.kernel_gates",
+           "tch_geometric_tpu_torch.utils.params"]
+
+
 def test_import_loads_no_jax():
     # compare before/after: an interpreter start-up hook may load jax itself
     code = ("import sys\n"
@@ -37,6 +44,22 @@ def test_import_loads_no_jax():
             f"{sorted(FORBIDDEN)!r}}}\n"
             "before = bad()\n"
             "import tch_geometric_tpu_torch\n"
+            "print(sorted(bad() - before))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_module_import_loads_no_jax(module):
+    """Each module of the GAT/GCN/GIN slice, imported alone in a fresh
+    interpreter, loads no JAX and nothing of the JAX package."""
+    code = ("import sys, importlib\n"
+            f"bad = lambda: {{m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r}}}\n"
+            "before = bad()\n"
+            f"importlib.import_module({module!r})\n"
             "print(sorted(bad() - before))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
