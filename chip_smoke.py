@@ -13,10 +13,12 @@ prints no result line):
 
 1. build the CUDA kernels from ``tch_geometric_tpu_torch/csrc`` (nvcc, one
    process per source, all at once);
-2. kernel checks: B1, B2, the hot split and B3 (both modes) against their
+2. kernel checks: B1, B2, the hot split, B3 (both modes), B5, B6, the
+   composed attend (B5, B6, B2), B10 and B4 (both stat modes) against their
    plain versions on the card, on the kernel-gate testbed and three layout
-   edge cases (B3 also at one head of 47 columns), in float32 (5e-4, TF32
-   off) and bfloat16 (per-kernel limits of ``utils/kernel_gates.py``);
+   edge cases (B3 also at one head of 47 columns; the ragged case at 37
+   columns), in float32 (5e-4, TF32 off) and bfloat16 (per-kernel limits of
+   ``utils/kernel_gates.py``);
 3. the GraphSAGE serving path at ogbn-products size (synthetic graph with
    the dataset's node/edge counts, 100 features, 47 classes; model
    hidden=256, 3 layers, random weights from a seed):
@@ -44,6 +46,17 @@ prints no result line):
    both dtypes, and timed; the outputs are checked finite, and on a 5%
    node subgraph the blocked pass agrees with ``GAT.forward`` (segment
    ops) in float32.
+5. single-head dot-product attention (``examples/gat_attention.py``'s
+   function, x_dst = x_src) on the same graph and layout: the routes
+   ``attend_blocked_cuda`` (B5, B6, B2), ``attend_blocked_fused_cuda`` (B10)
+   and ``attend_blocked_flash_cuda`` (B4, both stat modes), each on the 100
+   features and on a seeded 256-column embedding, in bfloat16 and float32.
+   The launch counts of B2, B4, B5, B6 and B10 are zeroed just before and
+   read just after; each must have run.  The outputs are checked finite and
+   (N, F), the routes agree with one another in float32, and on the 5%
+   subgraph each agrees in float32 with ``sddmm`` -> ``segment_softmax`` ->
+   ``segment_sum``.  Then each kernel's wrapper is held against its plain
+   version at both widths and dtypes, and timed at F=256 bfloat16.
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -115,6 +128,7 @@ def phase_kernel_checks(device):
                        (torch.bfloat16, kg.BF16_THRESHOLDS)):
         errs = kg.run_kernel_gates(dtype, device=device)
         errs.update(kg.run_gat_gates(dtype, device=device))
+        errs.update(kg.run_attend_gates(dtype, device=device))
         ok, worst = kg.gate(errs, thr)
         log(f"kernel checks {str(dtype)[6:]} (limits {thr}): "
             f"nearest its limit {worst}")
@@ -580,6 +594,278 @@ def gat_kernel_numbers(p, launches, device):
         library_call=None)
 
 
+ATTEND_WIDTHS = (100, 256)
+
+
+def attend_routes():
+    """The four single-head attention routes, each called as
+    ``examples/gat_attention.py`` calls attention (x_dst = x_src)."""
+    from tch_geometric_tpu_torch.ops import attention_blocked as ab
+    return {
+        "composed": lambda b, x, dt: ab.attend_blocked_cuda(
+            b, x, x, compute_dtype=dt),
+        "fused": lambda b, x, dt: ab.attend_blocked_fused_cuda(
+            b, x, x, compute_dtype=dt),
+        "flash_row": lambda b, x, dt: ab.attend_blocked_flash_cuda(
+            b, x, x, compute_dtype=dt, row_stats=True),
+        "flash_scalar": lambda b, x, dt: ab.attend_blocked_flash_cuda(
+            b, x, x, compute_dtype=dt, row_stats=False),
+    }
+
+
+def attend_inputs(p, device):
+    """The attend phase's features: the 100-column table and a seeded
+    256-column embedding (the served models' hidden width)."""
+    gen = torch.Generator().manual_seed(6)
+    n = p["x_table"].shape[0]
+    return {100: p["x_table"],
+            256: torch.randn((n, 256), generator=gen).to(device)}
+
+
+def serve_attend(p, xs, timer):
+    """The attend path: every route over the full blocked layout, at both
+    widths, in bfloat16 (the default compute dtype) and float32.  Each
+    output is checked finite and (N, F); the float32 outputs are kept for
+    the cross-route check."""
+    b = p["blocked"]
+    n = p["x_table"].shape[0]
+    ms, outs = {}, {}
+    with torch.no_grad():
+        for width, x in xs.items():
+            for dt in (torch.bfloat16, torch.float32):
+                for name, fn in attend_routes().items():
+                    out, t = timer(lambda: fn(b, x, dt))
+                    check(out.shape == (n, width),
+                          f"attend {name} F={width} shape {tuple(out.shape)}")
+                    check(bool(torch.isfinite(out).all()),
+                          f"attend {name} F={width} {dt} finite")
+                    ms[f"{name}_F{width}_{str(dt)[6:]}"] = t
+                    if dt == torch.float32:
+                        outs[width, name] = out
+    return dict(ms=ms, outs=outs)
+
+
+def check_attend_routes(res):
+    """The four routes agree with one another in float32."""
+    from tch_geometric_tpu_torch.utils.kernel_gates import F32_THRESHOLD
+    errs = {}
+    for width in ATTEND_WIDTHS:
+        ref = res["outs"][width, "composed"]
+        for name in ("fused", "flash_row", "flash_scalar"):
+            e = errs[f"{name}_vs_composed_F{width}"] = maxerr(
+                res["outs"][width, name], ref)
+            check(e <= F32_THRESHOLD,
+                  f"attend {name} vs composed F={width}: {e:.3e}")
+    log(f"check: attend routes agree in float32 (limit {F32_THRESHOLD}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return errs
+
+
+def check_attend_subgraph(sub):
+    """On the 5% node subgraph, each route in float32 against the segment-op
+    reference: ``sddmm`` -> ``segment_softmax`` -> ``segment_sum``."""
+    from tch_geometric_tpu_torch.ops.segment import (csr_row_ids,
+                                                     segment_softmax,
+                                                     segment_sum)
+    from tch_geometric_tpu_torch.ops.spmm import sddmm
+    from tch_geometric_tpu_torch.utils.kernel_gates import F32_THRESHOLD
+    g, x, ns = sub["g"], sub["xs"], sub["ns"]
+    rows = csr_row_ids(g.indptr, g.num_edges)
+    with torch.no_grad():
+        s = sddmm(g, x, x) / x.shape[1] ** 0.5
+        att = segment_softmax(s, rows, ns)
+        ref = segment_sum(x[g.indices] * att[:, None], rows, ns)
+        errs = {name: maxerr(fn(sub["b"], x, torch.float32), ref)
+                for name, fn in attend_routes().items()}
+    log(f"check: subgraph attend vs segment ops f32 (limit {F32_THRESHOLD}; "
+        f"max |value| {float(ref.abs().max()):.3e}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    for k, v in errs.items():
+        check(v <= F32_THRESHOLD, f"subgraph attend {k} vs segment ops")
+    return errs
+
+
+def _nan_pads(b, s):
+    return torch.where(b.edge_local_row < b.rows_per_block, s, float("nan"))
+
+
+def attend_kernel_numbers(p, xs, launches, device):
+    """B5, B6, B10 and B4 at the attend path's shapes.  Each wrapper is held
+    against its plain version at F=100 and F=256 in bfloat16 and float32
+    (B6 on the scaled scores of the same features, NaN in the pad lanes;
+    B4 in both stat modes).  Then each is timed at F=256 in bfloat16 beside
+    its bound, its plain version and, for B5 and B6, one PyTorch library
+    call computing the same function (B5 also in float32, the dtype the
+    library call takes).  Returns the kernels' JSON rows."""
+    from tch_geometric_tpu_torch.ops import attention_blocked as ab
+    from tch_geometric_tpu_torch.utils.kernel_gates import (
+        BF16_THRESHOLDS, F32_THRESHOLD, SDDMM_REL_THRESHOLD)
+    b = p["blocked"]
+    n = p["x_table"].shape[0]
+    T, C = b.edge_src.shape
+    W, B = b.rows_per_block, b.num_blocks
+    valid = int(b.edge_valid.sum())
+    specs = {
+        "sddmm_blocked_cuda": (
+            lambda x, dt, s: ab.sddmm_blocked_cuda(b, x, x, compute_dtype=dt),
+            lambda x, dt, s: ab.sddmm_blocked(b, x, x, compute_dtype=dt)),
+        "edge_softmax_blocked_cuda": (
+            lambda x, dt, s: ab.edge_softmax_blocked_cuda(b, s),
+            lambda x, dt, s: ab.edge_softmax_blocked(b, s)),
+        "attend_blocked_fused_cuda": (
+            lambda x, dt, s: ab.attend_blocked_fused_cuda(
+                b, x, x, compute_dtype=dt),
+            lambda x, dt, s: ab.attend_blocked_fused(
+                b, x, x, compute_dtype=dt)),
+        "attend_blocked_flash_cuda": (
+            lambda x, dt, s: ab.attend_blocked_flash_cuda(
+                b, x, x, compute_dtype=dt, row_stats=True),
+            lambda x, dt, s: ab.attend_blocked_flash(
+                b, x, x, compute_dtype=dt, row_stats=True)),
+        "attend_blocked_flash_cuda[scalar]": (
+            lambda x, dt, s: ab.attend_blocked_flash_cuda(
+                b, x, x, compute_dtype=dt, row_stats=False),
+            lambda x, dt, s: ab.attend_blocked_flash(
+                b, x, x, compute_dtype=dt, row_stats=False)),
+    }
+    errs = {k: {} for k in specs}
+    with torch.no_grad():
+        for width, x in xs.items():
+            for dt in (torch.bfloat16, torch.float32):
+                s = _nan_pads(b, ab.sddmm_blocked(b, x, x, compute_dtype=dt)
+                              / width ** 0.5)
+                for key, (run, plain) in specs.items():
+                    thr = (F32_THRESHOLD if dt == torch.float32 else
+                           BF16_THRESHOLDS[key.split("[")[0]])
+                    got, ref = run(x, dt, s), plain(x, dt, s)
+                    check(got.shape == ref.shape,
+                          f"{key} F={width} shape {tuple(got.shape)}")
+                    e = errs[key][width, str(dt)[6:]] = maxerr(got, ref)
+                    top = float(ref.abs().max())
+                    if key == "sddmm_blocked_cuda":
+                        # scores reach a few hundred (self loops at F=256):
+                        # held relative to the largest score
+                        thr = SDDMM_REL_THRESHOLD * max(top, 1.0)
+                    log(f"check: {key} wrapper vs plain at F={width} "
+                        f"{str(dt)[6:]}: max |diff| {e:.3e} (limit {thr:.3g}; "
+                        f"max |value| {top:.3e})")
+                    check(e <= thr, f"{key} F={width} {dt}: {e:.3e} > {thr}")
+                    del got, ref
+        F = 256
+        xb = xs[F].to(torch.bfloat16)
+        s16 = _nan_pads(b, ab.sddmm_blocked_cuda(b, xb, xb) / F ** 0.5)
+        ms = {k: cuda_ms(lambda: run(xb, torch.bfloat16, s16), 10)
+              for k, (run, _) in specs.items()}
+        plain_ms = {k: cuda_ms(lambda: plain(xb, torch.bfloat16, s16), 2)
+                    for k, (_, plain) in specs.items()}
+        lib_ms, lib_call = _attend_library_ms(p, xb, s16, device)
+        # B5 in float32 too, beside a library call that refuses bfloat16
+        xf = xs[F].float()
+        ms_b5_f32 = cuda_ms(lambda: ab.sddmm_blocked_cuda(
+            b, xf, xf, compute_dtype=torch.float32), 10)
+        del xf
+
+    # bytes bounds, counted as B1's: the function's inputs read once (x, the
+    # one (N, F) bf16 input every timed call passes as both x_dst and x_src;
+    # the lane metadata edge_src and local_row of every padded lane;
+    # chunk_block or block_start) and its output written once; operations
+    # on this run's valid lanes
+    lanes, x_bytes = T * C, n * F * 2
+    bound = {
+        "sddmm_blocked_cuda": (x_bytes + lanes * 8 + T * 4 + lanes * 4,
+                               valid * 2 * F),
+        "edge_softmax_blocked_cuda": (lanes * 8 + (B + 1) * 4 + lanes * 4,
+                                      valid * 6),
+        "attend_blocked_fused_cuda": (
+            x_bytes + lanes * 8 + (B + 1) * 4 + B * W * F * 4,
+            valid * (4 * F + 6)),
+        "attend_blocked_flash_cuda": (
+            x_bytes + lanes * 8 + (B + 1) * 4 + B * W * F * 4,
+            valid * (4 * F + 6)),
+    }
+    info = {
+        "sddmm_blocked_cuda": ("B5", ":54"),
+        "edge_softmax_blocked_cuda": ("B6", ":177"),
+        "attend_blocked_fused_cuda": ("B10", ":1057"),
+        "attend_blocked_flash_cuda": ("B4", ":1147"),
+    }
+    rows = []
+    for key, (label, line) in info.items():
+        by, ops = bound[key]
+        t_bytes = by / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_FLOP_PER_S * 1e3
+        both = [errs[k] for k in (key, key + "[scalar]") if k in errs]
+        e16, e32 = (max(v for e in both for (_, d), v in e.items() if d == dt)
+                    for dt in ("bfloat16", "float32"))
+        row = dict(
+            name=f"{key} ({label})", route="cuda",
+            source="tch_geometric_tpu_torch/csrc/attend_blocked.cu",
+            replaces=f"tch_geometric_tpu/ops/attention_blocked.py{line}",
+            launches=launches[key], max_abs_err=e16, ms=ms[key],
+            plain_ms=plain_ms[key], bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib_ms.get(key), library_call=lib_call.get(key),
+            max_abs_err_f32=e32,
+            shape=dict(T=T, C=C, W=W, F=F, N=n, valid_lanes=valid,
+                       dtype="bfloat16"))
+        if key == "attend_blocked_flash_cuda":
+            row.update(ms_scalar=ms[key + "[scalar]"],
+                       plain_ms_scalar=plain_ms[key + "[scalar]"])
+        if key == "sddmm_blocked_cuda":
+            row.update(ms_f32=ms_b5_f32)
+        rows.append(row)
+        log(f"kernel {key} ({label}): T={T} C={C} F={F} lanes valid {valid}: "
+            f"{ms[key]:.3f} ms (bound {max(t_bytes, t_ops):.3f} ms), plain "
+            f"{plain_ms[key]:.3f} ms, library {lib_ms.get(key)} "
+            f"({lib_call.get(key)}), launches on the attend path "
+            f"{launches[key]}, worst wrapper err bf16 {e16:.2e} f32 "
+            f"{e32:.2e}"
+            + (f"; scalar stats {ms[key + '[scalar]']:.3f} ms, plain "
+               f"{plain_ms[key + '[scalar]']:.3f} ms"
+               if key == "attend_blocked_flash_cuda" else "")
+            + (f"; float32 rows {ms_b5_f32:.3f} ms"
+               if key == "sddmm_blocked_cuda" else ""))
+    return rows
+
+
+def _attend_library_ms(p, xb, s16, device):
+    """Library yardsticks on the graph's coalesced edges (A[dst, src]):
+    ``torch.sparse.sampled_addmm`` for B5 (bfloat16, or float32 where
+    bfloat16 is refused) and ``torch.sparse.softmax`` of a COO tensor of
+    float32 scores for B6.  Returns ({kernel: ms}, {kernel: call})."""
+    n = xb.shape[0]
+    ptr, col, _ = _coalesced_csr(p["col_ptrs"], p["row_indices"], n, device)
+    ms, call = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = xb.to(dt)
+        pattern = torch.sparse_csr_tensor(
+            ptr, col, torch.zeros(col.shape, dtype=dt, device=device),
+            size=(n, n))
+        try:
+            ms["sddmm_blocked_cuda"] = cuda_ms(
+                lambda: torch.sparse.sampled_addmm(pattern, x, x.t(),
+                                                   beta=0.0), 10)
+            call["sddmm_blocked_cuda"] = (
+                f"torch.sparse.sampled_addmm(CSR {str(dt)[6:]}, x, x.T)")
+            break
+        except RuntimeError as exc:
+            log(f"library: sampled_addmm in {dt} refused: "
+                f"{str(exc).splitlines()[0]}")
+    rows = torch.repeat_interleave(torch.arange(n, device=device), ptr.diff())
+    vals = torch.randn(col.shape, generator=torch.Generator().manual_seed(8)
+                       ).to(device)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, col]), vals, (n, n),
+                                  is_coalesced=True)
+    try:
+        ms["edge_softmax_blocked_cuda"] = cuda_ms(
+            lambda: torch.sparse.softmax(coo, dim=1), 10)
+        call["edge_softmax_blocked_cuda"] = \
+            "torch.sparse.softmax(COO float32, dim=1)"
+    except RuntimeError as exc:
+        log(f"library: sparse softmax refused: {str(exc).splitlines()[0]}")
+    return ms, call
+
+
 def _csr(ptr, col, val, size):
     """(float32, bfloat16) torch CSR matrices of the same entries."""
     return tuple(torch.sparse_csr_tensor(ptr, col, val.to(dt), size=size,
@@ -631,11 +917,15 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import tch_geometric_tpu_torch  # noqa: F401  (fails outside a checkout)
-    from tch_geometric_tpu_torch.ops.attention_blocked import (
-        gat_attend_blocked_packed_cuda, spmm_blocked_weighted_cuda)
+    from tch_geometric_tpu_torch.ops import attention_blocked as ab
     from tch_geometric_tpu_torch.ops.spmm_kernels import spmm_blocked_cuda
+    gat_attend_blocked_packed_cuda = ab.gat_attend_blocked_packed_cuda
+    spmm_blocked_weighted_cuda = ab.spmm_blocked_weighted_cuda
+    attend_kernels = (ab.sddmm_blocked_cuda, ab.edge_softmax_blocked_cuda,
+                      ab.attend_blocked_fused_cuda,
+                      ab.attend_blocked_flash_cuda)
     wrappers = (spmm_blocked_cuda, spmm_blocked_weighted_cuda,
-                gat_attend_blocked_packed_cuda)
+                gat_attend_blocked_packed_cuda) + attend_kernels
 
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 checks need IEEE
@@ -716,6 +1006,30 @@ def main(argv=None) -> int:
     gat_sub_err = check_gat_subgraph(models, sg)
     kernels, gather_bound = kernel_numbers(p, launches, device)
     kernels.append(gat_kernel_numbers(p, gat_launches, device))
+    del models
+    torch.cuda.empty_cache()
+
+    xs = attend_inputs(p, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers:
+        fn.launches = 0
+    ares = serve_attend(p, xs, timer)
+    attend_launches = {fn.__name__: fn.launches
+                       for fn in (spmm_blocked_weighted_cuda,)
+                       + attend_kernels}
+    attend_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"attend path launches: {attend_launches}")
+    for k, v in attend_launches.items():
+        check(v > 0, f"kernel {k} ran on the attend path")
+    log("attend path ms (first calls): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ares["ms"].items())
+        + f"; peak device memory {attend_peak_gb:.2f} GiB")
+    route_errs = check_attend_routes(ares)
+    del ares
+    torch.cuda.empty_cache()
+    attend_sub = check_attend_subgraph(sg)
+    kernels += attend_kernel_numbers(p, xs, attend_launches, device)
 
     summary = dict(
         card=card, scale=args.scale, nodes=n, edges=p["graph"].num_edges,
@@ -732,6 +1046,9 @@ def main(argv=None) -> int:
         gat_blocked_pass_ms=gres["ms"], gat_blocked_pass_ms_warm=gat_steady,
         gat_peak_device_gib=gat_peak_gb,
         gat_blocked_vs_segment_f32=gat_sub_err,
+        attend_routes_vs_composed_f32=route_errs,
+        attend_vs_segment_f32=attend_sub,
+        attend_peak_device_gib=attend_peak_gb,
         total_s=time.perf_counter() - t_all, **sub)
     log("serving: " + json.dumps(summary))
     if args.scale == 1.0:

@@ -9,8 +9,8 @@
 //     out[b*W + local_row] += w * x[edge_src]        (w = 1 for B1)
 //
 // with f32 accumulation, x in f32 or bf16, and pad lanes (local_row == W)
-// contributing nothing.  The output has B*W rows; every row is written,
-// rows with no edges as zeros.
+// contributing nothing.  B2 multiplies the f32 w into each row in f32.  The
+// output has B*W rows; every row is written, rows with no edges as zeros.
 //
 // What the TPU kernel did and what changes here.  The Pallas kernel takes a
 // pre-gathered (T, C, F) tensor (XLA did the gather) and carries a block's
@@ -38,34 +38,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blocked_common.cuh"
+
 namespace {
+
+using blocked::kTileF;
 
 constexpr int kThreads = 512;            // 16 warps per CUDA block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 3;            // 3 x 64 KB tiles per SM at W=256
-constexpr int kTileF = 64;               // feature columns per CUDA block
 constexpr int kUnroll = 8;               // edges loaded before their adds
-constexpr unsigned kFull = 0xffffffffu;
-
-// Each lane owns columns 2*lane and 2*lane+1 of the tile.  In shared memory
-// column j of a row sits at (j & 1) * 32 + (j >> 1), so a warp's two atomic
-// adds each touch 32 distinct banks.
-__device__ __forceinline__ int tile_slot(int j) { return (j & 1) * 32 + (j >> 1); }
-
-// Columns c and c+1 of a row as floats (0 where a column does not exist):
-// one vector load when `pair` (both exist, address aligned), else scalars.
-__device__ __forceinline__ float2 load2(const float* p, bool pair, bool has0,
-                                        bool has1) {
-  if (pair) return *reinterpret_cast<const float2*>(p);
-  return make_float2(has0 ? p[0] : 0.f, has1 ? p[1] : 0.f);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p, bool pair,
-                                        bool has0, bool has1) {
-  if (pair)
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  return make_float2(has0 ? __bfloat162float(p[0]) : 0.f,
-                     has1 ? __bfloat162float(p[1]) : 0.f);
-}
 
 template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -85,11 +67,6 @@ spmm_blocked_kernel(const T* __restrict__ x,
   for (int i = threadIdx.x; i < W * kTileF; i += kThreads) acc[i] = 0.f;
   __syncthreads();
 
-  const int c0 = f0 + 2 * lane;          // this lane's first column
-  const bool has0 = c0 < F, has1 = c0 + 1 < F;
-  // a vector load needs both columns and aligned row starts (F even)
-  const bool pair = has1 && F % 2 == 0;
-
   const int64_t e_begin = static_cast<int64_t>(block_start[b]) * C;
   const int64_t e_end = static_cast<int64_t>(block_start[b + 1]) * C;
   for (int64_t base = e_begin + static_cast<int64_t>(warp) * 32;
@@ -103,45 +80,11 @@ spmm_blocked_kernel(const T* __restrict__ x,
       my_src = edge_src[e];
       if (kWeighted) my_w = weight[e];
     }
-    // pad lanes carry local_row == W (and edge_src == 0): drop them here
-    unsigned live = __ballot_sync(kFull, my_row < W);
-    while (live) {                       // warp-uniform loop
-      int rows[kUnroll];
-      float2 v[kUnroll];
-#pragma unroll
-      for (int q = 0; q < kUnroll; ++q) {
-        rows[q] = -1;
-        if (live) {                      // warp-uniform branch
-          const int j = __ffs(live) - 1;
-          live &= live - 1;
-          rows[q] = __shfl_sync(kFull, my_row, j);
-          const int64_t src = __shfl_sync(kFull, my_src, j);
-          v[q] = load2(x + src * F + c0, pair, has0, has1);
-          if (kWeighted) {
-            const float w = __shfl_sync(kFull, my_w, j);
-            v[q].x *= w;
-            v[q].y *= w;
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kUnroll; ++q) {
-        if (rows[q] < 0) continue;
-        float* ar = acc + rows[q] * kTileF;
-        if (has0) atomicAdd(ar + lane, v[q].x);
-        if (has1) atomicAdd(ar + 32 + lane, v[q].y);
-      }
-    }
+    blocked::warp_accumulate<T, kWeighted, false, kUnroll>(
+        x, F, f0 + 2 * lane, my_row, my_src, my_w, W, lane, acc);
   }
   __syncthreads();
-
-  const int fw = min(kTileF, F - f0);
-  for (int i = threadIdx.x; i < W * kTileF; i += kThreads) {
-    const int r = i / kTileF, j = i % kTileF;
-    if (j < fw)
-      out[(static_cast<int64_t>(b) * W + r) * F + f0 + j] =
-          acc[r * kTileF + tile_slot(j)];
-  }
+  blocked::store_tile(acc, out, static_cast<int64_t>(b) * W, W, F, f0);
 }
 
 template <typename T, bool kWeighted>

@@ -1,8 +1,18 @@
 from .attention_blocked import (
+    attend_blocked,
+    attend_blocked_cuda,
+    attend_blocked_flash,
+    attend_blocked_flash_cuda,
+    attend_blocked_fused,
+    attend_blocked_fused_cuda,
     blocked_dst_rows,
+    edge_softmax_blocked,
+    edge_softmax_blocked_cuda,
     gat_attend_blocked_packed,
     gat_attend_blocked_packed_cuda,
     gat_edge_logits_blocked,
+    sddmm_blocked,
+    sddmm_blocked_cuda,
     spmm_blocked_weighted_cuda,
 )
 from .segment import (
@@ -12,7 +22,7 @@ from .segment import (
     segment_softmax,
     segment_sum,
 )
-from .spmm import spmm
+from .spmm import sddmm, spmm
 from .spmm_blocked import (
     BlockedCsr,
     HotSplitCsr,

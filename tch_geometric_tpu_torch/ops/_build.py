@@ -4,9 +4,9 @@ ctypes.
 Each source under ``csrc/`` becomes one shared library with a plain C
 interface, compiled for Hopper (``sm_90a``) into ``build/kernels/`` at the
 root of the checkout (git-ignored).  The library name carries a hash of the
-source and the flags, so an edited source is rebuilt and never mixed with a
-stale build.  All missing libraries are compiled together, one ``nvcc``
-process per source.  There is no fallback: a missing ``nvcc`` or a failed
+source, the shared headers and the flags, so an edited source or header is
+rebuilt and never mixed with a stale build.  All missing libraries are
+compiled together, one ``nvcc`` process per source.  There is no fallback: a missing ``nvcc`` or a failed
 build raises.
 """
 from __future__ import annotations
@@ -25,12 +25,23 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_vp, _i = ctypes.c_void_p, ctypes.c_int
+_vp, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # library -> {C function: (restype, argtypes)}
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "spmm_blocked": {
         "tgt_spmm_blocked": (_i, [_vp, _i, _vp, _vp, _vp, _vp,
                                   _i, _i, _i, _i, _vp, _vp]),
+        "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
+    },
+    "attend_blocked": {
+        "tgt_sddmm_blocked": (_i, [_vp, _i64, _vp, _i, _vp, _vp, _vp,
+                                   _i, _i, _i, _i, _vp, _vp]),
+        "tgt_edge_softmax_blocked": (_i, [_vp, _vp, _vp, _i, _i, _i, _vp,
+                                          _vp]),
+        "tgt_attend_fused": (_i, [_vp, _i64, _vp, _i, _vp, _vp, _vp,
+                                  _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp]),
+        "tgt_attend_flash": (_i, [_vp, _i64, _vp, _i, _i, _vp, _vp, _vp,
+                                  _i, _i, _i, _i, _vp, _vp, _vp]),
         "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
     "gat_packed": {
@@ -62,7 +73,9 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # every source includes at most the shared headers of csrc/
+    src = b"".join(f.read_bytes() for f in [CSRC / f"{name}.cu"]
+                   + sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

@@ -1,18 +1,27 @@
-"""Blocked edge attention: the weighted SpMM (B2) and head-packed GAT (B3).
+"""Blocked edge attention: weighted SpMM, head-packed GAT and single-head
+dot-product attention.
 
 Counterpart of ``tch_geometric_tpu/ops/attention_blocked.py``.  Ported so
-far:
+far (each JAX name is the plain version, the ``_cuda`` suffix its kernel
+wrapper):
 
 * :func:`spmm_blocked_weighted_cuda` — B2, the weighted blocked SpMM (the
-  hot half of ``spmm_hot_split`` and the weighted segmented path);
+  hot half of ``spmm_hot_split``, the weighted segmented path and the last
+  step of ``attend_blocked_cuda``);
 * :func:`gat_attend_blocked_packed` (plain) and
   :func:`gat_attend_blocked_packed_cuda` (B3, ``csrc/gat_packed.cu``) — the
   multi-head GATv1 aggregation that ``GATConv(blocked=...)`` runs;
+* single-head softmax(<x_dst, x_src> * scale)-weighted aggregation, kernels
+  in ``csrc/attend_blocked.cu``: :func:`sddmm_blocked` (B5, the per-lane
+  scores of ``sddmm_blocked_pallas`` and ``_v2``),
+  :func:`edge_softmax_blocked` (B6), :func:`attend_blocked` (B5, scale, B6,
+  B2), :func:`attend_blocked_fused` (B10) and :func:`attend_blocked_flash`
+  (B4, both stat modes);
 * the helpers ``_pad_dst``, :func:`blocked_dst_rows` and
   :func:`gat_edge_logits_blocked`.
 
-The other attention kernels of that module (SDDMM, edge softmax, the flash
-and composed GAT and dot-attention variants) are still to port.
+The multi-head softmax and SpMM (B7, B8) and the GAT flash kernel (B9) are
+still to port.
 
 Softmax stabilisation of B3, in the plain version and the kernel alike, is
 the JAX kernel's: per (row block, head), each chunk's logits are shifted by
@@ -234,3 +243,406 @@ def gat_attend_blocked_packed_cuda(b: BlockedCsr, h: torch.Tensor,
 
 
 gat_attend_blocked_packed_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Single-head dot-product attention: B5, B6, B2, B10 and B4
+# ---------------------------------------------------------------------------
+
+def _attend_scale(F: int, scale: Optional[float]) -> float:
+    return float(scale if scale is not None else 1.0 / (F ** 0.5))
+
+
+def _lane_rows(b: BlockedCsr, t0: int, t1: int):
+    """Local row, validity and global dst row (pad lanes clamped into their
+    block) of the lanes of chunks ``[t0, t1)``."""
+    W = b.rows_per_block
+    lr = b.edge_local_row[t0:t1]
+    rows = b.chunk_block[t0:t1, None].long() * W + lr.clamp(max=W - 1).long()
+    return lr, lr < W, rows
+
+
+def _scores(b: BlockedCsr, xd: torch.Tensor, xs: torch.Tensor, t0: int,
+            t1: int) -> torch.Tensor:
+    """``<xd[dst(e)], xs[src(e)]>`` of the lanes of chunks ``[t0, t1)`` in
+    float32 from the compute-dtype rows; 0 on pad lanes and where the dst
+    row is past ``xd``'s rows (the JAX package's zero padding)."""
+    _, valid, rows = _lane_rows(b, t0, t1)
+    nd = xd.shape[0]
+    d = xd[rows.clamp(max=max(nd - 1, 0))].float()
+    g = xs[b.edge_src[t0:t1].long()].float()
+    return torch.where(valid & (rows < nd), (d * g).sum(-1), 0.0)
+
+
+def _contract(b: BlockedCsr, b0: int, b1: int, t0: int, t1: int,
+              rhs: torch.Tensor) -> torch.Tensor:
+    """Per-row sum of the lane terms ``rhs`` (Tg, C, F) float32 of blocks
+    ``[b0, b1)`` (chunks ``[t0, t1)``): a one-hot contraction per chunk,
+    added per block.  Returns ((b1 - b0) * W, F)."""
+    W = b.rows_per_block
+    F = rhs.shape[-1]
+    lr = b.edge_local_row[t0:t1]
+    iota = torch.arange(W, device=lr.device, dtype=lr.dtype)
+    oh = (lr[:, None, :] == iota[None, :, None]).float()       # (Tg, W, C)
+    part = torch.bmm(oh, rhs)                                   # (Tg, W, F)
+    bl = b.chunk_block[t0:t1].long() - b0
+    return part.new_zeros((b1 - b0, W, F)).index_add_(0, bl, part).reshape(
+        -1, F)
+
+
+def _groups(b: BlockedCsr):
+    """``(b0, b1, t0, t1)`` block groups of about ``PLAIN_GROUP_LANES``
+    lanes."""
+    bs = b.block_start.tolist()
+    C = b.edge_src.shape[1]
+    return [(b0, b1, bs[b0], bs[b1])
+            for b0, b1 in _block_groups(bs, max(1, PLAIN_GROUP_LANES // C))]
+
+
+def sddmm_blocked(b: BlockedCsr, x_dst: torch.Tensor, x_src: torch.Tensor,
+                  *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of B5: the per-lane scores
+    ``s[e] = <x_dst[dst(e)], x_src[src(e)]>`` in the blocked layout.
+
+    Returns (T, C) float32, exactly 0 on pad lanes.  The rows are rounded
+    to ``compute_dtype`` and every sum is float32 (the JAX kernels'
+    ``preferred_element_type=f32`` dot); ``x_dst`` rows past its end read as
+    zeros.  The function of both ``sddmm_blocked_pallas`` and
+    ``sddmm_blocked_pallas_v2``."""
+    T, C = b.edge_src.shape
+    xs, xd = x_src.to(compute_dtype), x_dst.to(compute_dtype)
+    out = torch.empty((T, C), dtype=torch.float32, device=x_src.device)
+    for _, _, t0, t1 in _groups(b):
+        out[t0:t1] = _scores(b, xd, xs, t0, t1)
+    return out
+
+
+def edge_softmax_blocked(b: BlockedCsr, scores: torch.Tensor) -> torch.Tensor:
+    """Plain version of B6: the per-dst-row softmax of (T, C) scores.
+
+    Values on pad lanes are ignored, even NaN.  Returns (T, C) float32
+    weights that sum to 1 over each row's valid lanes; 0 on pad lanes and
+    wherever the row's max is not finite or its sum not positive.  The row
+    stats are taken in two sweeps (max, then the exp-sum); the JAX kernel's
+    online recurrence gives the same function up to float32 rounding."""
+    W = b.rows_per_block
+    inf = float("inf")
+    out = torch.empty(b.edge_src.shape, dtype=torch.float32,
+                      device=scores.device)
+    for b0, b1, t0, t1 in _groups(b):
+        _, valid, rows = _lane_rows(b, t0, t1)
+        rows = rows - b0 * W
+        s = torch.where(valid, scores[t0:t1].float(), -inf)
+        m = s.new_full(((b1 - b0) * W,), -inf).scatter_reduce(
+            0, rows.reshape(-1), s.reshape(-1), "amax")
+        mr = m[rows]
+        ok = valid & torch.isfinite(mr)
+        e = torch.where(ok, torch.exp(s - torch.where(ok, mr, 0.0)), 0.0)
+        z = torch.zeros_like(m).index_add_(0, rows.reshape(-1), e.reshape(-1))
+        zr = z[rows]
+        out[t0:t1] = torch.where(ok & (zr > 0), e / zr.clamp(min=1e-38), 0.0)
+    return out
+
+
+def _weighted_sum_rounded(b: BlockedCsr, x: torch.Tensor,
+                          edge_weight: torch.Tensor, *,
+                          compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The last step of the plain attend routes, as the JAX package's
+    Pallas B2 (``spmm_blocked_weighted_pallas``) computes it:
+    ``y[i] = sum_e w[e] x[src(e)]`` with each term rounded to
+    ``compute_dtype``, ``bf16(x * w)``, and float32 sums.  Pad lanes are
+    excluded.  Returns (num_rows, F) float32."""
+    W = b.rows_per_block
+    F = x.shape[-1]
+    xc = x.to(compute_dtype)
+    out = torch.empty((b.num_blocks * W, F), dtype=torch.float32,
+                      device=x.device)
+    for b0, b1, t0, t1 in _groups(b):
+        w = torch.where(b.edge_local_row[t0:t1] < W,
+                        edge_weight[t0:t1].float(), 0.0)
+        rhs = (xc[b.edge_src[t0:t1].long()].float() * w[..., None]).to(
+            compute_dtype).float()
+        out[b0 * W:b1 * W] = _contract(b, b0, b1, t0, t1, rhs)
+    return out[: b.num_rows]
+
+
+def attend_blocked(b: BlockedCsr, x_dst: torch.Tensor, x_src: torch.Tensor,
+                   *, scale: Optional[float] = None,
+                   compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """softmax(<x_dst, x_src> * scale)-weighted neighbour aggregation
+    (transformer-style graph attention, single head), composed as the JAX
+    package composes it: scores (B5), ``s * scale`` in float32 (default
+    ``1/sqrt(F)``), edge softmax (B6), weighted SpMM with ``bf16(x * w)``
+    terms (B2).  Plain version; returns (num_rows, F) float32."""
+    s = sddmm_blocked(b, x_dst, x_src, compute_dtype=compute_dtype)
+    s = s * _attend_scale(x_src.shape[-1], scale)
+    att = edge_softmax_blocked(b, s)
+    return _weighted_sum_rounded(b, x_src, att, compute_dtype=compute_dtype)
+
+
+def attend_blocked_fused(b: BlockedCsr, x_dst: torch.Tensor,
+                         x_src: torch.Tensor, *,
+                         scale: Optional[float] = None,
+                         compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of B10: :func:`attend_blocked` with the scale folded
+    into ``x_dst`` before its rounding to ``compute_dtype`` (pass A: scaled
+    scores and row stats; pass B: each lane's weight ``exp(s - m) / z`` and
+    the ``bf16(x * w)`` sum).  In bfloat16 it therefore differs from
+    :func:`attend_blocked` by rounding.  Returns (num_rows, F) float32."""
+    sc = _attend_scale(x_src.shape[-1], scale)
+    xd = (x_dst * sc).to(compute_dtype)
+    s = sddmm_blocked(b, xd, x_src, compute_dtype=compute_dtype)
+    att = edge_softmax_blocked(b, s)
+    return _weighted_sum_rounded(b, x_src, att, compute_dtype=compute_dtype)
+
+
+def attend_blocked_flash(b: BlockedCsr, x_dst: torch.Tensor,
+                         x_src: torch.Tensor, *,
+                         scale: Optional[float] = None,
+                         compute_dtype=torch.bfloat16,
+                         row_stats: bool = True) -> torch.Tensor:
+    """Plain version of B4: the attention of :func:`attend_blocked_fused`
+    in one traversal of each block's chunks, with a rescaled output
+    accumulator, then ``out / z`` where ``z > 0`` (0 elsewhere).
+
+    The recurrence is the JAX kernels', chunk by chunk in block order:
+    ``row_stats=True`` keeps a running max per row and weighs each lane by
+    ``e = exp(s - m_running)``; ``row_stats=False`` weighs every lane of a
+    chunk by ``exp(s - M)`` with ``M`` the chunk's max over its valid lanes
+    (0 for a chunk of pads only) and combines chunks with ``exp(M - m)``
+    factors, so a row ~87 below its chunk's max underflows to 0.  The
+    weight is rounded to ``compute_dtype`` before it multiplies the row
+    (``bf16(e) * x``); ``z`` sums the float32 ``e``.  Blocks are processed
+    in groups, their k-th chunks together.  Returns (num_rows, F)
+    float32."""
+    W = b.rows_per_block
+    F = x_src.shape[-1]
+    cd = compute_dtype
+    inf = float("inf")
+    xs = x_src.to(cd)
+    xd = (x_dst * _attend_scale(F, scale)).to(cd)
+    dev = x_src.device
+    iota = torch.arange(W, device=dev, dtype=torch.int32)
+    out = torch.empty((b.num_blocks * W, F), dtype=torch.float32, device=dev)
+    for b0, b1, t0, t1 in _groups(b):
+        s = _scores(b, xd, xs, t0, t1)                          # (Tg, C)
+        lr = b.edge_local_row[t0:t1]
+        src = b.edge_src[t0:t1].long()
+        first = b.block_start[b0:b1].long() - t0
+        count = b.block_start[b0 + 1:b1 + 1].long() - b.block_start[b0:b1]
+        acc = torch.zeros((b1 - b0, W, F), dtype=torch.float32, device=dev)
+        m = torch.full((b1 - b0, W), -inf, device=dev)
+        z = torch.zeros((b1 - b0, W), device=dev)
+        for k in range(int(count.max())):
+            sel = torch.nonzero(count > k).squeeze(1)           # blocks
+            t = first[sel] + k                                  # their chunk
+            ss, ll = s[t], lr[t]
+            valid = ll < W
+            oh = ll[:, None, :] == iota[None, :, None]          # (n, W, C)
+            m_old = m[sel]
+            if row_stats:
+                m_c = torch.where(oh, ss[:, None, :], -inf).amax(-1)
+                m_new = torch.maximum(m_old, m_c)
+                m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+                m_e = m_safe.gather(1, ll.clamp(max=W - 1).long())
+                e = torch.where(valid, torch.exp(ss - m_e), 0.0)
+                r_old = torch.where(torch.isfinite(m_old),
+                                    torch.exp(m_old - m_safe), 0.0)
+                r_c = torch.ones_like(r_old)
+            else:
+                M = torch.where(valid, ss, -inf).amax(-1)
+                M = torch.where(torch.isfinite(M), M, 0.0)
+                e = torch.where(valid, torch.exp(ss - M[:, None]), 0.0)
+                m_new = torch.maximum(m_old, M[:, None])
+                r_old = torch.exp(m_old - m_new)
+                r_c = torch.exp(M[:, None] - m_new)
+            ohw = torch.where(oh, e.to(cd).float()[:, None, :], 0.0)
+            part = torch.bmm(ohw, xs[src[t]].float())           # (n, W, F)
+            z_c = torch.where(oh, e[:, None, :], 0.0).sum(-1)   # (n, W)
+            acc[sel] = acc[sel] * r_old[..., None] + part * r_c[..., None]
+            z[sel] = z[sel] * r_old + z_c * r_c
+            m[sel] = m_new
+        zc = z[..., None]
+        out[b0 * W:b1 * W] = torch.where(
+            zc > 0, acc / zc.clamp(min=1e-20), 0.0).reshape(-1, F)
+    return out[: b.num_rows]
+
+
+# ---- kernel wrappers (csrc/attend_blocked.cu) -----------------------------
+
+def _attend_operands(b: BlockedCsr, x_dst: torch.Tensor, x_src: torch.Tensor,
+                     compute_dtype):
+    """``(xd, xs)``: the rows as contiguous compute-dtype CUDA tensors,
+    checked with the layout for the kernels of ``csrc/attend_blocked.cu``."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be float32 or bfloat16, got "
+                        f"{compute_dtype}")
+    if (x_src.dim() != 2 or x_dst.dim() != 2
+            or x_dst.shape[1] != x_src.shape[1]):
+        raise ValueError(f"x_dst and x_src must be (rows, F) with one F, got "
+                         f"{tuple(x_dst.shape)} and {tuple(x_src.shape)}")
+    xs = x_src.to(compute_dtype).contiguous()
+    xd = x_dst.to(compute_dtype).contiguous()
+    dev = xs.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {dev}")
+    for t, name in ((xd, "x_dst"), (xs, "x_src")):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.shape[1] % 2 == 0 and t.data_ptr() % (2 * t.element_size()):
+            # with F even the kernels load two columns at a time
+            raise ValueError(f"{name} must start at a multiple of two "
+                             f"elements")
+    T, C = b.edge_src.shape
+    _check(b.edge_src, "edge_src", torch.int32, (T, C), dev)
+    _check(b.edge_local_row, "edge_local_row", torch.int32, (T, C), dev)
+    _check(b.block_start, "block_start", torch.int32, (b.num_blocks + 1,),
+           dev)
+    return xd, xs
+
+
+def _run(dev: torch.device, fn: str, *args) -> None:
+    """Call ``fn`` of the attend library on ``dev``'s current stream; raise
+    on a launch error."""
+    lib = _build.load("attend_blocked")
+    with torch.cuda.device(dev):
+        rc = getattr(lib, fn)(*args,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        msg = lib.tgt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")
+
+
+def sddmm_blocked_cuda(b: BlockedCsr, x_dst: torch.Tensor,
+                       x_src: torch.Tensor, *,
+                       compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """B5: :func:`sddmm_blocked` through the hand-written Hopper kernel on a
+    CUDA tensor; the plain version on a CPU tensor.  Same arguments and
+    result."""
+    if x_src.device.type == "cpu":
+        return sddmm_blocked(b, x_dst, x_src, compute_dtype=compute_dtype)
+    xd, xs = _attend_operands(b, x_dst, x_src, compute_dtype)
+    T, C = b.edge_src.shape
+    _check(b.chunk_block, "chunk_block", torch.int32, (T,), xs.device)
+    out = torch.empty((T, C), dtype=torch.float32, device=xs.device)
+    _run(xs.device, "tgt_sddmm_blocked", xd.data_ptr(), xd.shape[0],
+         xs.data_ptr(), int(compute_dtype == torch.bfloat16),
+         b.edge_src.data_ptr(), b.edge_local_row.data_ptr(),
+         b.chunk_block.data_ptr(), T, C, b.rows_per_block, xs.shape[1],
+         out.data_ptr())
+    sddmm_blocked_cuda.launches += 1
+    return out
+
+
+sddmm_blocked_cuda.launches = 0
+
+
+def edge_softmax_blocked_cuda(b: BlockedCsr,
+                              scores: torch.Tensor) -> torch.Tensor:
+    """B6: :func:`edge_softmax_blocked` through the hand-written Hopper
+    kernel on a CUDA tensor (one CUDA block per row block, its W rows'
+    (m, z) in shared memory); the plain version on a CPU tensor."""
+    if scores.device.type == "cpu":
+        return edge_softmax_blocked(b, scores)
+    s = scores.to(torch.float32).contiguous()
+    dev = s.device
+    T, C = b.edge_src.shape
+    _check(s, "scores", torch.float32, (T, C), dev)
+    _check(b.edge_local_row, "edge_local_row", torch.int32, (T, C), dev)
+    _check(b.block_start, "block_start", torch.int32, (b.num_blocks + 1,),
+           dev)
+    att = torch.empty_like(s)
+    _run(dev, "tgt_edge_softmax_blocked", s.data_ptr(),
+         b.edge_local_row.data_ptr(), b.block_start.data_ptr(),
+         b.num_blocks, C, b.rows_per_block, att.data_ptr())
+    edge_softmax_blocked_cuda.launches += 1
+    return att
+
+
+edge_softmax_blocked_cuda.launches = 0
+
+
+def attend_blocked_cuda(b: BlockedCsr, x_dst: torch.Tensor,
+                        x_src: torch.Tensor, *,
+                        scale: Optional[float] = None,
+                        compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`attend_blocked` on a CUDA tensor through B5, the float32
+    scale, B6 and B2, each counting its launch; the plain version on a CPU
+    tensor.  B2 multiplies each float32 weight into its row in float32
+    where the plain version (and the JAX Pallas B2) rounds each term
+    ``bf16(x * w)``: in bfloat16 the two differ by up to 2**-9 of each
+    term (``utils/kernel_gates.py`` states the limit)."""
+    if x_src.device.type == "cpu":
+        return attend_blocked(b, x_dst, x_src, scale=scale,
+                              compute_dtype=compute_dtype)
+    s = sddmm_blocked_cuda(b, x_dst, x_src, compute_dtype=compute_dtype)
+    s = s * _attend_scale(x_src.shape[-1], scale)
+    att = edge_softmax_blocked_cuda(b, s)
+    return spmm_blocked_weighted_cuda(b, x_src, att,
+                                      compute_dtype=compute_dtype)
+
+
+def attend_blocked_fused_cuda(b: BlockedCsr, x_dst: torch.Tensor,
+                              x_src: torch.Tensor, *,
+                              scale: Optional[float] = None,
+                              compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """B10: :func:`attend_blocked_fused` through the hand-written Hopper
+    kernels (pass A: scores and row stats per row block; pass B: normalise
+    and contract per 64-column tile) on a CUDA tensor; the plain version on
+    a CPU tensor."""
+    if x_src.device.type == "cpu":
+        return attend_blocked_fused(b, x_dst, x_src, scale=scale,
+                                    compute_dtype=compute_dtype)
+    F = x_src.shape[-1]
+    xd, xs = _attend_operands(b, x_dst * _attend_scale(F, scale), x_src,
+                              compute_dtype)
+    T, C = b.edge_src.shape
+    BW = b.num_blocks * b.rows_per_block
+    dev = xs.device
+    s = torch.empty((T, C), dtype=torch.float32, device=dev)
+    m = torch.empty((BW,), dtype=torch.float32, device=dev)
+    z = torch.empty((BW,), dtype=torch.float32, device=dev)
+    out = torch.empty((BW, F), dtype=torch.float32, device=dev)
+    _run(dev, "tgt_attend_fused", xd.data_ptr(), xd.shape[0], xs.data_ptr(),
+         int(compute_dtype == torch.bfloat16), b.edge_src.data_ptr(),
+         b.edge_local_row.data_ptr(), b.block_start.data_ptr(), b.num_blocks,
+         C, b.rows_per_block, F, s.data_ptr(), m.data_ptr(), z.data_ptr(),
+         out.data_ptr())
+    attend_blocked_fused_cuda.launches += 1
+    return out[: b.num_rows]
+
+
+attend_blocked_fused_cuda.launches = 0
+
+
+def attend_blocked_flash_cuda(b: BlockedCsr, x_dst: torch.Tensor,
+                              x_src: torch.Tensor, *,
+                              scale: Optional[float] = None,
+                              compute_dtype=torch.bfloat16,
+                              row_stats: bool = True) -> torch.Tensor:
+    """B4: :func:`attend_blocked_flash` through the hand-written Hopper
+    kernel (one CUDA block per row block, its 64-column tiles in turn, the
+    scores kept in a (T, C) scratch) on a CUDA tensor; the plain version on
+    a CPU tensor."""
+    if x_src.device.type == "cpu":
+        return attend_blocked_flash(b, x_dst, x_src, scale=scale,
+                                    compute_dtype=compute_dtype,
+                                    row_stats=row_stats)
+    F = x_src.shape[-1]
+    xd, xs = _attend_operands(b, x_dst * _attend_scale(F, scale), x_src,
+                              compute_dtype)
+    T, C = b.edge_src.shape
+    dev = xs.device
+    s = torch.empty((T, C), dtype=torch.float32, device=dev)
+    out = torch.empty((b.num_blocks * b.rows_per_block, F),
+                      dtype=torch.float32, device=dev)
+    _run(dev, "tgt_attend_flash", xd.data_ptr(), xd.shape[0], xs.data_ptr(),
+         int(compute_dtype == torch.bfloat16), int(bool(row_stats)),
+         b.edge_src.data_ptr(), b.edge_local_row.data_ptr(),
+         b.block_start.data_ptr(), b.num_blocks, C, b.rows_per_block, F,
+         s.data_ptr(), out.data_ptr())
+    attend_blocked_flash_cuda.launches += 1
+    return out[: b.num_rows]
+
+
+attend_blocked_flash_cuda.launches = 0

@@ -3,18 +3,23 @@
 Mirror of ``tch_geometric_tpu/utils/kernel_gates.py`` for the kernels ported
 so far: B1 (``spmm_blocked_cuda``, alone and as the cold half of the hot
 split), B2 (``spmm_blocked_weighted_cuda``, alone and as the hot half) —
-:func:`run_kernel_gates` — and B3 (``gat_attend_blocked_packed_cuda``) —
-:func:`run_gat_gates`.  Each kernel runs on the given device and is
+:func:`run_kernel_gates` — B3 (``gat_attend_blocked_packed_cuda``) —
+:func:`run_gat_gates` — and the single-head attention kernels B5
+(``sddmm_blocked_cuda``), B6 (``edge_softmax_blocked_cuda``), B10
+(``attend_blocked_fused_cuda``), B4 (``attend_blocked_flash_cuda``, both
+stat modes) and the composed ``attend_blocked_cuda`` (B5, B6, B2) —
+:func:`run_attend_gates`.  Each kernel runs on the given device and is
 compared with its plain version (``spmm_blocked``,
-``gat_attend_blocked_packed``) on the same inputs, computed on the same
-device.  On a CPU device both sides are the plain version; the gates matter
-on the card.
+``gat_attend_blocked_packed``, ``sddmm_blocked``, ...) on the same inputs,
+computed on the same device.  On a CPU device both sides are the plain
+version; the gates matter on the card.
 
 Layouts: the power-law testbed of the JAX gates (n=4096, e=65536, F=128 or
 H=4 heads of D=32, W=256) and three edge cases — rows (and whole blocks)
 with no edges, one block spanning many chunks, and ``num_rows % W != 0``;
 B3 also runs one head of D=47 on the testbed (GAT's last layer at
-ogbn-products width, an odd row width).
+ogbn-products width, an odd row width); the ragged case's rows are 37
+columns wide.
 """
 from __future__ import annotations
 
@@ -33,12 +38,35 @@ import torch
 # features reaches about 2e-2.  B3 rounds at the same points as its plain
 # version (h, each lane's weight and their product in bfloat16, every sum in
 # float32), so it differs by summation order and the rare term whose
-# rounding flips.  Each limit sits well above the card's reading and well
-# below the values compared (PERF.md, Findings).
+# rounding flips.  B5's products of bfloat16 rows are exact in float32, so
+# in bfloat16 too it differs only by summation order (1.5e-5 on scores up
+# to about 60 on the card); B6 is float32 throughout (2.4e-7).  The fused
+# and flash routes round at their plain versions' points, but a weight
+# computed with the kernel's expf one ulp from torch's exp can round its
+# bfloat16 term (fused: bf16(x * w); flash: bf16(e)) the other way: one
+# bfloat16 ulp of the heaviest term, at most 2**-5 for |x| < 8.  The
+# composed route's last step is B2, which multiplies the float32 weight
+# into the row in float32 where its plain version (the JAX Pallas B2) rounds
+# each term bf16(x * w): each term differs by up to 2**-9 of itself, a row
+# of softmax weights (summing to 1) by up to 2**-9 * max |x|, 1.6e-2 for
+# |x| < 8, plus the flips above.  On these gates the card read up to
+# 7.9e-3 (composed), 2.0e-3 (fused), 1.4e-3 (flash, chunk max) and 8.3e-7
+# (flash, row max, whose heaviest weight is exactly 1).  Each limit sits
+# well above the card's reading and well below the values compared
+# (PERF.md, Findings).
 F32_THRESHOLD = 5e-4
 BF16_THRESHOLDS = {"spmm_blocked_cuda": 1e-3, "spmm_hot_split": 1e-3,
                    "spmm_blocked_weighted_cuda": 5e-2,
-                   "gat_attend_blocked_packed_cuda": 1e-3}
+                   "gat_attend_blocked_packed_cuda": 1e-3,
+                   "sddmm_blocked_cuda": 1e-3,
+                   "edge_softmax_blocked_cuda": 1e-5,
+                   "attend_blocked_cuda": 5e-2,
+                   "attend_blocked_fused_cuda": 5e-2,
+                   "attend_blocked_flash_cuda": 5e-2}
+# B5's scores at full width reach a few hundred (a self loop at F=256 is
+# |x|^2); there kernel and plain, float32 sums of exact products in another
+# order, are held to this fraction of the largest score, in both dtypes.
+SDDMM_REL_THRESHOLD = 1e-5
 # Whole bfloat16 forwards (logits of a 3-layer SAGE): blocked against hot
 # split, and blocked against the plain forward.
 FORWARD_BF16_THRESHOLD = 1e-2
@@ -213,3 +241,48 @@ def gate(errs: Dict[str, float], threshold: Union[float, Dict[str, float]]
     worst = max(errs, key=lambda k: errs[k] / limit(k))
     ok = all(v <= limit(k) for k, v in errs.items())
     return ok, f"{worst}={errs[worst]:.2e} (limit {limit(worst):g})"
+
+
+def run_attend_gates(compute_dtype=torch.float32, device="cuda"
+                     ) -> Dict[str, float]:
+    """``{case/kernel: max_abs_err}`` of the single-head attention kernels
+    against their plain versions on ``device``: B5 (the JAX gates' SDDMM
+    section), B6 on scores with NaN in the pad lanes, the composed attend
+    (B5, B6, B2), B10, and B4 in both stat modes (the JAX gates' flash
+    section), with x_dst = x_src as the JAX gates run them."""
+    from ..ops import attention_blocked as ab
+    from ..ops.spmm_blocked import build_blocked
+
+    indptr, src, x_np = build_testbed()
+    cases = [("testbed", indptr, src, x_np, 256, None)]
+    cases += list(edge_case_graphs())
+    errs: Dict[str, float] = {}
+    kw = dict(compute_dtype=compute_dtype)
+    with _strict_f32():
+        for name, ip, s, x_np, W, C in cases:
+            b = build_blocked(ip, s, rows_per_block=W, chunk_edges=C,
+                              device=device)
+            x = torch.from_numpy(x_np).to(device)
+            errs[f"{name}/sddmm_blocked_cuda"] = _maxerr(
+                ab.sddmm_blocked_cuda(b, x, x, **kw),
+                ab.sddmm_blocked(b, x, x, **kw))
+            scores = ab.sddmm_blocked(b, x, x, **kw) / x.shape[1] ** 0.5
+            scores = torch.where(b.edge_local_row < W, scores, float("nan"))
+            errs[f"{name}/edge_softmax_blocked_cuda"] = _maxerr(
+                ab.edge_softmax_blocked_cuda(b, scores),
+                ab.edge_softmax_blocked(b, scores))
+            errs[f"{name}/attend_blocked_cuda"] = _maxerr(
+                ab.attend_blocked_cuda(b, x, x, **kw),
+                ab.attend_blocked(b, x, x, **kw))
+            errs[f"{name}/attend_blocked_fused_cuda"] = _maxerr(
+                ab.attend_blocked_fused_cuda(b, x, x, **kw),
+                ab.attend_blocked_fused(b, x, x, **kw))
+            for rs in (True, False):
+                errs[f"{name}[row_stats={rs}]/attend_blocked_flash_cuda"] = \
+                    _maxerr(ab.attend_blocked_flash_cuda(b, x, x,
+                                                         row_stats=rs, **kw),
+                            ab.attend_blocked_flash(b, x, x, row_stats=rs,
+                                                    **kw))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return errs

@@ -31,8 +31,11 @@ def test_no_jax_imports(path):
 
 
 MODULES = ["tch_geometric_tpu_torch.models.gnn",
+           "tch_geometric_tpu_torch.ops._build",
            "tch_geometric_tpu_torch.ops.attention_blocked",
            "tch_geometric_tpu_torch.ops.segment",
+           "tch_geometric_tpu_torch.ops.spmm",
+           "tch_geometric_tpu_torch.ops.spmm_kernels",
            "tch_geometric_tpu_torch.utils.kernel_gates",
            "tch_geometric_tpu_torch.utils.params"]
 
@@ -53,8 +56,8 @@ def test_import_loads_no_jax():
 
 @pytest.mark.parametrize("module", MODULES)
 def test_module_import_loads_no_jax(module):
-    """Each module of the GAT/GCN/GIN slice, imported alone in a fresh
-    interpreter, loads no JAX and nothing of the JAX package."""
+    """Each module of the GAT/GCN/GIN and attention slices, imported alone
+    in a fresh interpreter, loads no JAX and nothing of the JAX package."""
     code = ("import sys, importlib\n"
             f"bad = lambda: {{m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}}}\n"
