@@ -13,12 +13,13 @@ prints no result line):
 
 1. build the CUDA kernels from ``tch_geometric_tpu_torch/csrc`` (nvcc, one
    process per source, all at once);
-2. kernel checks: B1, B2, the hot split, B3 (both modes), B5, B6, the
-   composed attend (B5, B6, B2), B10 and B4 (both stat modes) against their
+2. kernel checks: B1, B2, the hot split, B3 (both modes), B7, B8, the
+   composed GAT route (B7, B8), B9, B5, B6, the composed attend (B5, B6,
+   B8), B10, B4 (both stat modes) and B11 (sum and mean) against their
    plain versions on the card, on the kernel-gate testbed and three layout
-   edge cases (B3 also at one head of 47 columns; the ragged case at 37
-   columns), in float32 (5e-4, TF32 off) and bfloat16 (per-kernel limits of
-   ``utils/kernel_gates.py``);
+   edge cases (the GAT kernels also at one head of 47 columns; the ragged
+   case at 37 columns), in float32 (5e-4, TF32 off) and bfloat16
+   (per-kernel limits of ``utils/kernel_gates.py``);
 3. the GraphSAGE serving path at ogbn-products size (synthetic graph with
    the dataset's node/edge counts, 100 features, 47 classes; model
    hidden=256, 3 layers, random weights from a seed):
@@ -43,20 +44,36 @@ prints no result line):
    of ``GAT.forward``), in float32, which launches B3.  B3's launch count is
    zeroed just before (a)-(b) and read just after.  Then B3's wrapper is
    checked against its plain version at both layer shapes, both modes and
-   both dtypes, and timed; the outputs are checked finite, and on a 5%
-   node subgraph the blocked pass agrees with ``GAT.forward`` (segment
-   ops) in float32.
+   both dtypes, and timed; the outputs are checked finite.
+   Then the GAT routes: the same float32 full-graph pass three ways, each
+   layer's attention through B3, through the composed route
+   (``gat_attend_blocked_cuda``: torch gathers of the logits, B7, B8) and
+   through the flash route (``gat_attend_blocked_flash_cuda``, B9).  The
+   launch counts of B3, B7, B8 and B9 are zeroed just before and read just
+   after; each must have run.  The three passes' logits agree within 5e-4,
+   and on a 5% node subgraph each agrees with ``GAT.forward`` (segment ops)
+   within 5e-4.  B7, B8, the composed route and B9 are held against their
+   plain versions at both layer shapes (H=4, D=64 and H=1, D=47) in both
+   dtypes, and timed at layer 1's shape beside their bounds, plain
+   versions and, for B7 and B8, one PyTorch library call.
 5. single-head dot-product attention (``examples/gat_attention.py``'s
    function, x_dst = x_src) on the same graph and layout: the routes
-   ``attend_blocked_cuda`` (B5, B6, B2), ``attend_blocked_fused_cuda`` (B10)
+   ``attend_blocked_cuda`` (B5, B6, B8), ``attend_blocked_fused_cuda`` (B10)
    and ``attend_blocked_flash_cuda`` (B4, both stat modes), each on the 100
    features and on a seeded 256-column embedding, in bfloat16 and float32.
-   The launch counts of B2, B4, B5, B6 and B10 are zeroed just before and
+   The launch counts of B4, B5, B6, B8 and B10 are zeroed just before and
    read just after; each must have run.  The outputs are checked finite and
    (N, F), the routes agree with one another in float32, and on the 5%
    subgraph each agrees in float32 with ``sddmm`` -> ``segment_softmax`` ->
    ``segment_sum``.  Then each kernel's wrapper is held against its plain
    version at both widths and dtypes, and timed at F=256 bfloat16.
+6. the int8 SpMM on the SAGE layout: ``quantize_rows`` and
+   ``spmm_blocked_q8_cuda(agg="mean")`` (B11) on the 100 features and a
+   seeded 256-column embedding, its launch count zeroed before and read
+   after.  The output is held against the plain version (float32, 5e-4) and
+   against B1 on the unquantised rows in float32 (2e-2 of the largest
+   value, the quantisation limit), and B11 is timed beside B1 at both
+   widths.
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -128,7 +145,9 @@ def phase_kernel_checks(device):
                        (torch.bfloat16, kg.BF16_THRESHOLDS)):
         errs = kg.run_kernel_gates(dtype, device=device)
         errs.update(kg.run_gat_gates(dtype, device=device))
+        errs.update(kg.run_gat_route_gates(dtype, device=device))
         errs.update(kg.run_attend_gates(dtype, device=device))
+        errs.update(kg.run_q8_gates(dtype, device=device))
         ok, worst = kg.gate(errs, thr)
         log(f"kernel checks {str(dtype)[6:]} (limits {thr}): "
             f"nearest its limit {worst}")
@@ -439,12 +458,30 @@ def gat_models(p, device):
     return dict(gat=make(GAT, heads=GAT_HEADS), gcn=make(GCN), gin=make(GIN))
 
 
-def gat_blocked_pass(gat, x, blocked):
-    """``GAT.forward``'s composition over the blocked layout: each
-    ``GATConv(blocked=...)`` (B3), ELU between layers."""
+GAT_ROUTES = ("packed", "composed", "flash")
+
+
+def gat_route_pass(gat, x, blocked, route="packed"):
+    """``GAT.forward``'s composition over the blocked layout, ELU between
+    layers, each layer's attention step through one route: ``packed``, each
+    ``GATConv(blocked=...)`` (B3); ``composed``, ``gat_attend_blocked_cuda``
+    (torch gathers of the logits, B7, B8); ``flash``,
+    ``gat_attend_blocked_flash_cuda`` (B9).  The last two take the
+    layer's ``project`` and ``logit_tables`` (alpha_src as an (N, H)
+    table) in its compute dtype."""
+    from tch_geometric_tpu_torch.ops import attention_blocked as ab
+    attend = {"composed": ab.gat_attend_blocked_cuda,
+              "flash": ab.gat_attend_blocked_flash_cuda}.get(route)
     h = x
     for i, conv in enumerate(gat.convs):
-        h = gat._act(conv(h, blocked=blocked), i, True)
+        if attend is None:
+            out = conv(h, blocked=blocked)
+        else:
+            hh = conv.project(h)
+            out = attend(blocked, hh, *conv.logit_tables(hh),
+                         compute_dtype=conv.compute_dtype).reshape(
+                             -1, conv.features)
+        h = gat._act(out, i, True)
     return h
 
 
@@ -474,7 +511,7 @@ def serve_gat(p, models, timer):
                 logits.append(out)
             else:
                 other[name] = (out, ms)
-        out_full, ms_full = timer(lambda: gat_blocked_pass(
+        out_full, ms_full = timer(lambda: gat_route_pass(
             models["gat"], x_table, p["blocked"]))
     return dict(req_ms=req_ms, logits=logits, other=other, out=out_full,
                 ms=ms_full)
@@ -484,8 +521,8 @@ def steady_gat_ms(p, models, timer):
     """Warm full-graph GAT passes (after the main path, so not counted in
     its launches)."""
     with torch.no_grad():
-        return [timer(lambda: gat_blocked_pass(models["gat"], p["x_table"],
-                                               p["blocked"]))[1]
+        return [timer(lambda: gat_route_pass(models["gat"], p["x_table"],
+                                             p["blocked"]))[1]
                 for _ in range(FORWARD_REPS)]
 
 
@@ -498,18 +535,261 @@ def check_gat_serving(res, n):
 
 
 def check_gat_subgraph(models, sub):
-    """On the 5% node subgraph: the blocked GAT pass (B3, float32) against
-    ``GAT.forward`` (gather + segment softmax + segment sum)."""
+    """On the 5% node subgraph: the blocked GAT pass through each route
+    (float32) against ``GAT.forward`` (gather + segment softmax + segment
+    sum)."""
     from tch_geometric_tpu_torch.utils.kernel_gates import F32_THRESHOLD
     gat = models["gat"]
     with torch.no_grad():
         ref = gat(sub["xs"], sub["g"])
-        e = maxerr(gat_blocked_pass(gat, sub["xs"], sub["b"]), ref)
-    log(f"check: subgraph blocked GAT pass vs GAT.forward f32 {e:.3e} "
-        f"(limit {F32_THRESHOLD}; logits max |value| "
-        f"{float(ref.abs().max()):.3e})")
-    check(e <= F32_THRESHOLD, "subgraph blocked GAT vs segment-op GAT")
-    return e
+        errs = {route: maxerr(gat_route_pass(gat, sub["xs"], sub["b"], route),
+                              ref) for route in GAT_ROUTES}
+    log(f"check: subgraph blocked GAT pass vs GAT.forward f32 (limit "
+        f"{F32_THRESHOLD}; logits max |value| {float(ref.abs().max()):.3e}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    for route, e in errs.items():
+        check(e <= F32_THRESHOLD,
+              f"subgraph blocked GAT ({route}) vs segment-op GAT")
+    return errs
+
+
+def serve_gat_routes(p, models, timer):
+    """The GAT routes phase: the float32 full-graph GAT pass through each
+    route.  Each output is checked finite and (N, 47)."""
+    n = p["x_table"].shape[0]
+    outs, ms = {}, {}
+    with torch.no_grad():
+        for route in GAT_ROUTES:
+            out, ms[route] = timer(lambda: gat_route_pass(
+                models["gat"], p["x_table"], p["blocked"], route))
+            check(out.shape == (n, 47), f"GAT {route} pass shape "
+                  f"{tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), f"GAT {route} finite")
+            outs[route] = out
+    return outs, ms
+
+
+def check_gat_routes(outs):
+    """The three full-graph passes agree in float32."""
+    from tch_geometric_tpu_torch.utils.kernel_gates import F32_THRESHOLD
+    errs = {f"{r}_vs_packed": maxerr(outs[r], outs["packed"])
+            for r in ("composed", "flash")}
+    errs["flash_vs_composed"] = maxerr(outs["flash"], outs["composed"])
+    log(f"check: GAT routes agree in float32 (limit {F32_THRESHOLD}; logits "
+        f"max |value| {float(outs['packed'].abs().max()):.3e}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    for k, v in errs.items():
+        check(v <= F32_THRESHOLD, f"GAT routes {k}: {v:.3e}")
+    return errs
+
+
+# (H, D) of the products GAT's layers: layers 1 and 2, then layer 3
+GAT_LAYER_SHAPES = ((GAT_HEADS, 256 // GAT_HEADS), (1, 47))
+
+
+def _route_inputs(b, n, H, D, device):
+    """Seeded h (N, H, D), alpha_src and alpha_dst (N, H); their logits
+    (H, T, C) with NaN in the pad lanes and B7's plain weights of them; h's
+    rows in each compute dtype, as (N, H, D) and as (N, H*D)."""
+    from tch_geometric_tpu_torch.ops import attention_blocked as ab
+    gen = torch.Generator().manual_seed(9)
+    h = torch.randn((n, H, D), generator=gen).to(device)
+    a_s = torch.randn((n, H), generator=gen).to(device)
+    a_d = torch.randn((n, H), generator=gen).to(device)
+    logits = _nan_pads(b, ab.gat_edge_logits_blocked(b, a_s, a_d)
+                       .movedim(-1, 0).contiguous())
+    # rows already in each compute dtype, so that the timed calls do not
+    # cast (the wrappers' and plain versions' cast is then the identity)
+    hs = {dt: h.to(dt) for dt in (torch.float32, torch.bfloat16)}
+    return dict(a_s=a_s, a_d=a_d, logits=logits, hs=hs,
+                att=ab.edge_softmax_blocked_multihead(b, logits),
+                xs={dt: v.reshape(n, H * D) for dt, v in hs.items()})
+
+
+def gat_route_kernel_numbers(p, launches, device):
+    """B7, B8, the composed route and B9 on the products layout, on seeded
+    h, alpha_src and alpha_dst (B7 on their logits with NaN in the pad
+    lanes, B8 on B7's weights).  Each wrapper is held against its plain
+    version at both layer shapes of the GAT (H=4, D=64 and H=1, D=47) in
+    float32 and bfloat16, then timed at layer 1's shape in both dtypes
+    beside its bound, its plain version (float32, the GAT routes' dtype)
+    and, for B7 and B8, one library call.  Returns the kernels' JSON rows
+    (times in float32, bfloat16 beside them; errors the worst of both
+    shapes)."""
+    from tch_geometric_tpu_torch.ops import attention_blocked as ab
+    from tch_geometric_tpu_torch.utils.kernel_gates import (BF16_THRESHOLDS,
+                                                            F32_THRESHOLD)
+    b = p["blocked"]
+    n = p["x_table"].shape[0]
+    T, C = b.edge_src.shape
+    W, B = b.rows_per_block, b.num_blocks
+    valid = int(b.edge_valid.sum())
+    f32, b16 = torch.float32, torch.bfloat16
+    specs = {
+        "edge_softmax_blocked_multihead_cuda": (
+            lambda v, dt: ab.edge_softmax_blocked_multihead_cuda(
+                b, v["logits"]),
+            lambda v, dt: ab.edge_softmax_blocked_multihead(b, v["logits"])),
+        "spmm_blocked_multiweighted_cuda": (
+            lambda v, dt: ab.spmm_blocked_multiweighted_cuda(
+                b, v["xs"][dt], v["att"], compute_dtype=dt),
+            lambda v, dt: ab.spmm_blocked_multiweighted(
+                b, v["xs"][dt], v["att"], compute_dtype=dt)),
+        "gat_attend_blocked_cuda": (
+            lambda v, dt: ab.gat_attend_blocked_cuda(
+                b, v["hs"][dt], v["a_s"], v["a_d"], compute_dtype=dt),
+            lambda v, dt: ab.gat_attend_blocked(
+                b, v["hs"][dt], v["a_s"], v["a_d"], compute_dtype=dt)),
+        "gat_attend_blocked_flash_cuda": (
+            lambda v, dt: ab.gat_attend_blocked_flash_cuda(
+                b, v["hs"][dt], v["a_s"], v["a_d"], compute_dtype=dt),
+            lambda v, dt: ab.gat_attend_blocked_flash(
+                b, v["hs"][dt], v["a_s"], v["a_d"], compute_dtype=dt)),
+    }
+    errs = {k: {} for k in specs}
+    with torch.no_grad():
+        # layer 3's shape first, so that layer 1's inputs stay for the
+        # timings
+        for H, D in GAT_LAYER_SHAPES[::-1]:
+            v = None                # the previous shape's inputs go first
+            v = _route_inputs(b, n, H, D, device)
+            for dt in (f32, b16):
+                for key, (run, plain) in specs.items():
+                    thr = F32_THRESHOLD if dt == f32 else BF16_THRESHOLDS[key]
+                    got, ref = run(v, dt), plain(v, dt)
+                    check(got.shape == ref.shape,
+                          f"{key} shape {tuple(got.shape)}")
+                    e = errs[key][f"H{H}_D{D}_{str(dt)[6:]}"] = maxerr(got,
+                                                                      ref)
+                    log(f"check: {key} wrapper vs plain at H={H} D={D} "
+                        f"{str(dt)[6:]}: max |diff| {e:.3e} (limit {thr}; "
+                        f"max |value| {float(ref.abs().max()):.3e})")
+                    check(e <= thr, f"{key} H={H} D={D} {dt}: {e:.3e} > {thr}")
+                    del got, ref
+        ms = {k: {str(dt)[6:]: cuda_ms(lambda: run(v, dt), 10)
+                  for dt in (f32, b16)} for k, (run, _) in specs.items()}
+        plain_ms = {k: cuda_ms(lambda: plain(v, f32), 2)
+                    for k, (_, plain) in specs.items()}
+        # the composed route's logits as its wrapper makes them: torch
+        # gathers, then the (H, T, C) copy B7 reads (no kernel of the port)
+        logits_ms = cuda_ms(lambda: ab.gat_edge_logits_blocked(
+            b, v["a_s"], v["a_d"]).movedim(-1, 0).contiguous(), 10)
+        logits, x = v["logits"], v["xs"][f32]
+        del v
+        lib_ms, lib_call = _gat_library_ms(p, logits, x, device)
+        del logits, x
+    worst = {k: {dt: max(e for s, e in errs[k].items() if s.endswith(dt))
+                 for dt in ("float32", "bfloat16")} for k in specs}
+    H, D = GAT_LAYER_SHAPES[0]
+
+    # bytes bounds, counted as B1's: the function's inputs read once and its
+    # output written once; operations on this run's valid lanes
+    lanes, out_bytes = T * C, B * W * H * D * 4
+    meta = lanes * 8 + (B + 1) * 4
+    bounds = {
+        "edge_softmax_blocked_multihead_cuda": lambda eb: (
+            H * lanes * 4 + lanes * 4 + (B + 1) * 4 + H * lanes * 4,
+            valid * H * 6),
+        "spmm_blocked_multiweighted_cuda": lambda eb: (
+            n * H * D * eb + meta + H * lanes * 4 + out_bytes,
+            valid * H * D * 2),
+        "gat_attend_blocked_flash_cuda": lambda eb: (
+            n * H * D * eb + meta + 2 * n * H * 4 + out_bytes,
+            valid * H * (7 + 2 * D)),
+    }
+    info = {"edge_softmax_blocked_multihead_cuda": ("B7", ":289"),
+            "spmm_blocked_multiweighted_cuda": ("B8", ":485"),
+            "gat_attend_blocked_flash_cuda": ("B9", ":621")}
+    log(f"composed GAT route (torch logits, B7, B8) at H={H} D={D}: "
+        f"{ms['gat_attend_blocked_cuda']} ms, of which the torch logits "
+        f"{logits_ms:.3f} ms; plain {plain_ms['gat_attend_blocked_cuda']:.3f}"
+        f" ms; wrapper err {errs['gat_attend_blocked_cuda']}")
+    rows = []
+    for key, (label, line) in info.items():
+        t = {}
+        for dt, eb in (("float32", 4), ("bfloat16", 2)):
+            by, ops = bounds[key](eb)
+            t_bytes = by / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_FLOP_PER_S * 1e3
+            t[dt] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+        rows.append(dict(
+            name=f"{key} ({label})", route="cuda",
+            source="tch_geometric_tpu_torch/csrc/gat_blocked.cu",
+            replaces=f"tch_geometric_tpu/ops/attention_blocked.py{line}",
+            launches=launches[key], max_abs_err=worst[key]["float32"],
+            ms=ms[key]["float32"], plain_ms=plain_ms[key],
+            bound_ms=t["float32"][0], bound_by=t["float32"][1],
+            library_ms=lib_ms.get(key), library_call=lib_call.get(key),
+            max_abs_err_bf16=worst[key]["bfloat16"],
+            ms_bf16=ms[key]["bfloat16"], bound_ms_bf16=t["bfloat16"][0],
+            shape=dict(T=T, C=C, W=W, H=H, D=D, N=n, valid_lanes=valid,
+                       dtype="float32")))
+        log(f"kernel {key} ({label}): T={T} C={C} H={H} D={D} lanes valid "
+            f"{valid}: {ms[key]} ms (bound f32 {t['float32'][0]:.3f} ms, "
+            f"bf16 {t['bfloat16'][0]:.3f} ms, by {t['float32'][1]}), plain "
+            f"{plain_ms[key]:.3f} ms (f32), library {lib_ms.get(key)} "
+            f"({lib_call.get(key)}), launches on the GAT routes path "
+            f"{launches[key]}, worst wrapper err {errs[key]}")
+    return rows, dict(ms=ms["gat_attend_blocked_cuda"], logits_ms=logits_ms,
+                      plain_ms=plain_ms["gat_attend_blocked_cuda"],
+                      errs=errs["gat_attend_blocked_cuda"])
+
+
+def _gat_library_ms(p, logits, x, device):
+    """Library yardsticks on the graph's coalesced edges (A[dst, src]), in
+    float32: ``torch.sparse.softmax`` of a COO tensor with the heads as a
+    dense dimension for B7 (one call per head if refused), and
+    ``torch.bmm`` of an (H, N, N) COO tensor and the (H, N, D) rows for B8
+    (``torch.sparse.mm`` per head if refused).  Returns ({kernel: ms},
+    {kernel: call})."""
+    H = logits.shape[0]
+    n = x.shape[0]
+    D = x.shape[1] // H
+    ptr, col, _ = _coalesced_csr(p["col_ptrs"], p["row_indices"], n, device)
+    rows = torch.repeat_interleave(torch.arange(n, device=device), ptr.diff())
+    idx = torch.stack([rows, col])
+    del rows
+    vals = torch.randn((col.shape[0], H),
+                       generator=torch.Generator().manual_seed(11)).to(device)
+    ms, call = {}, {}
+    key = "edge_softmax_blocked_multihead_cuda"
+    try:
+        coo = torch.sparse_coo_tensor(idx, vals, (n, n, H), is_coalesced=True)
+        ms[key] = cuda_ms(lambda: torch.sparse.softmax(coo, dim=1), 10)
+        call[key] = "torch.sparse.softmax(COO float32 (N, N, H), dim=1)"
+    except RuntimeError as exc:
+        log(f"library: hybrid sparse softmax refused: "
+            f"{str(exc).splitlines()[0]}")
+        heads = [torch.sparse_coo_tensor(idx, vals[:, k].contiguous(), (n, n),
+                                         is_coalesced=True) for k in range(H)]
+        ms[key] = cuda_ms(lambda: [torch.sparse.softmax(c, dim=1)
+                                   for c in heads], 10)
+        call[key] = (f"torch.sparse.softmax(COO float32 (N, N), dim=1), "
+                     f"once per head ({H} calls)")
+    torch.cuda.empty_cache()
+    key = "spmm_blocked_multiweighted_cuda"
+    xh = x.reshape(n, H, D).permute(1, 0, 2).contiguous()
+    try:
+        hidx = torch.cat([torch.cat([torch.full_like(idx[:1], k), idx])
+                          for k in range(H)], dim=1)
+        coo3 = torch.sparse_coo_tensor(hidx, vals.t().reshape(-1), (H, n, n),
+                                       is_coalesced=True)
+        del hidx
+        ms[key] = cuda_ms(lambda: torch.bmm(coo3, xh), 10)
+        call[key] = "torch.bmm(COO float32 (H, N, N), dense (H, N, D))"
+        del coo3
+    except RuntimeError as exc:
+        log(f"library: sparse bmm refused: {str(exc).splitlines()[0]}")
+        torch.cuda.empty_cache()
+        csrs = [torch.sparse_csr_tensor(ptr, col, vals[:, k].contiguous(),
+                                        size=(n, n)) for k in range(H)]
+        ms[key] = cuda_ms(lambda: [torch.sparse.mm(c, xh[k])
+                                   for k, c in enumerate(csrs)], 10)
+        call[key] = (f"torch.sparse.mm(CSR float32, dense), once per head "
+                     f"({H} calls)")
+    torch.cuda.empty_cache()
+    return ms, call
 
 
 def gat_kernel_numbers(p, launches, device):
@@ -900,6 +1180,101 @@ def _lanes_to_csr(b, values, n):
     return ptr, col, val
 
 
+Q8_WIDTHS = (100, 256)
+
+
+def serve_q8(p, device, timer):
+    """B11's path on the SAGE layout: ``quantize_rows`` and
+    ``spmm_blocked_q8_cuda(agg="mean")`` on the 100 features and a seeded
+    256-column embedding.  Returns ``{F: (x, q, scale, out, quantize ms,
+    spmm ms)}``."""
+    from tch_geometric_tpu_torch.ops.spmm_kernels import (quantize_rows,
+                                                          spmm_blocked_q8_cuda)
+    n = p["x_table"].shape[0]
+    gen = torch.Generator().manual_seed(10)
+    xs = {100: p["x_table"],
+          256: torch.randn((n, 256), generator=gen).to(device)}
+    res = {}
+    with torch.no_grad():
+        for F, x in xs.items():
+            (q, s), t_q = timer(lambda: quantize_rows(x))
+            out, t = timer(lambda: spmm_blocked_q8_cuda(p["blocked"], q, s,
+                                                        agg="mean"))
+            res[F] = (x, q, s, out, t_q, t)
+    return res
+
+
+def q8_kernel_numbers(p, res, launches):
+    """B11 at both widths: the output checked finite and (N, F), held
+    against the plain version (float32, 5e-4) and against B1 on the
+    unquantised rows in float32 (``Q8_REL_THRESHOLD`` of the largest
+    value); then B11, B1 (bfloat16 and float32 rows) and B11's plain
+    version timed at each width.  Returns the JSON row (F=256)."""
+    from tch_geometric_tpu_torch.ops.spmm_kernels import (_launch,
+                                                          spmm_blocked_cuda,
+                                                          spmm_blocked_q8)
+    from tch_geometric_tpu_torch.utils.kernel_gates import (
+        F32_THRESHOLD, Q8_REL_THRESHOLD)
+    key = "spmm_blocked_q8_cuda"
+    b = p["blocked"]
+    n = p["x_table"].shape[0]
+    T, C = b.edge_src.shape
+    W, B = b.rows_per_block, b.num_blocks
+    valid = int(b.edge_valid.sum())
+    errs, rel, ms, b1_ms, plain_ms = {}, {}, {}, {}, {}
+    with torch.no_grad():
+        for F, (x, q, s, out, t_q, t) in res.items():
+            check(out.shape == (n, F), f"B11 F={F} shape {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), f"B11 F={F} finite")
+            e = errs[F] = maxerr(out, spmm_blocked_q8(b, q, s, agg="mean"))
+            b1 = spmm_blocked_cuda(b, x, agg="mean",
+                                   compute_dtype=torch.float32)
+            top = float(b1.abs().max())
+            r = rel[F] = maxerr(out, b1) / top
+            del b1
+            log(f"check: B11 at F={F}: vs plain max |diff| {e:.3e} (limit "
+                f"{F32_THRESHOLD}); vs B1 f32 on the unquantised rows "
+                f"{r:.3e} of the largest value {top:.3e} (limit "
+                f"{Q8_REL_THRESHOLD}); quantize_rows {t_q:.1f} ms, first "
+                f"call {t:.1f} ms")
+            check(e <= F32_THRESHOLD, f"B11 F={F} vs plain: {e:.3e}")
+            check(r <= Q8_REL_THRESHOLD, f"B11 F={F} vs B1: {r:.3e}")
+            ms[F] = cuda_ms(lambda: _launch(b, q, None, s), 10)
+            for dt in (torch.bfloat16, torch.float32):
+                xc = x.to(dt)
+                b1_ms[F, str(dt)[6:]] = cuda_ms(lambda: _launch(b, xc, None),
+                                                10)
+                del xc
+            plain_ms[F] = cuda_ms(lambda: spmm_blocked_q8(b, q, s, agg="sum"),
+                                  2)
+    F = 256
+    # bytes bound: q and its scales, the lane metadata and block_start read
+    # once, the (B*W, F) float32 output written once; operations: a
+    # multiply-add per valid lane and column
+    by = n * F + n * 4 + T * C * 8 + (B + 1) * 4 + B * W * F * 4
+    t_bytes = by / HBM_BYTES_PER_S * 1e3
+    t_ops = valid * F * 2 / F32_FLOP_PER_S * 1e3
+    log(f"kernel {key} (B11): T={T} C={C} lanes valid {valid}: "
+        + ", ".join(f"F={f} {ms[f]:.3f} ms (B1 bf16 {b1_ms[f, 'bfloat16']:.3f}"
+                    f", f32 {b1_ms[f, 'float32']:.3f}; plain "
+                    f"{plain_ms[f]:.3f})" for f in ms)
+        + f"; bound at F={F} {max(t_bytes, t_ops):.3f} ms; launches on the "
+        f"int8 path {launches[key]}")
+    return dict(
+        name=f"{key} (B11)", route="cuda",
+        source="tch_geometric_tpu_torch/csrc/spmm_blocked.cu",
+        replaces="tch_geometric_tpu/ops/spmm_pallas.py:230",
+        launches=launches[key], max_abs_err=max(errs.values()), ms=ms[F],
+        plain_ms=plain_ms[F], bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, library_call=None,
+        rel_err_vs_b1_f32=max(rel.values()),
+        ms_by_width={f: v for f, v in ms.items()},
+        plain_ms_by_width={f: v for f, v in plain_ms.items()},
+        b1_ms_by_width={f"{f}_{d}": v for (f, d), v in b1_ms.items()},
+        shape=dict(T=T, C=C, W=W, F=F, N=n, valid_lanes=valid, dtype="int8"))
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -919,15 +1294,21 @@ def main(argv=None) -> int:
     import tch_geometric_tpu_torch  # noqa: F401  (fails outside a checkout)
     from tch_geometric_tpu_torch.ops import attention_blocked as ab
     from tch_geometric_tpu_torch.ops.spmm_kernels import spmm_blocked_cuda
+    from tch_geometric_tpu_torch.ops.spmm_kernels import spmm_blocked_q8_cuda
     gat_attend_blocked_packed_cuda = ab.gat_attend_blocked_packed_cuda
     spmm_blocked_weighted_cuda = ab.spmm_blocked_weighted_cuda
     attend_kernels = (ab.sddmm_blocked_cuda, ab.edge_softmax_blocked_cuda,
                       ab.attend_blocked_fused_cuda,
                       ab.attend_blocked_flash_cuda)
-    wrappers = (spmm_blocked_cuda, spmm_blocked_weighted_cuda,
-                gat_attend_blocked_packed_cuda) + attend_kernels
+    route_kernels = (gat_attend_blocked_packed_cuda,
+                     ab.edge_softmax_blocked_multihead_cuda,
+                     ab.spmm_blocked_multiweighted_cuda,
+                     ab.gat_attend_blocked_flash_cuda)
+    wrappers = ((spmm_blocked_cuda, spmm_blocked_weighted_cuda,
+                 spmm_blocked_q8_cuda) + attend_kernels + route_kernels)
 
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
+    warnings.filterwarnings("ignore", message="Sparse invariant checks")
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 checks need IEEE
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -1000,6 +1381,29 @@ def main(argv=None) -> int:
     log(f"full-graph blocked GAT pass, warm, {FORWARD_REPS} runs: "
         + ", ".join(f"{m:.1f}" for m in gat_steady))
     check_gat_serving(gres, n)
+    del gres["out"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers:
+        fn.launches = 0
+    route_outs, route_ms = serve_gat_routes(p, models, timer)
+    route_launches = {fn.__name__: fn.launches for fn in route_kernels}
+    route_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"GAT routes launches: {route_launches}")
+    for k, v in route_launches.items():
+        check(v > 0, f"kernel {k} ran on the GAT routes path")
+    with torch.no_grad():
+        route_warm = {r: timer(lambda: gat_route_pass(
+            models["gat"], p["x_table"], p["blocked"], r))[1]
+            for r in GAT_ROUTES}
+    log("full-graph GAT pass by route, ms (first call / warm): "
+        + ", ".join(f"{r} {route_ms[r]:.1f} / {route_warm[r]:.1f}"
+                    for r in GAT_ROUTES)
+        + f"; peak device memory {route_peak_gb:.2f} GiB")
+    route_errs = check_gat_routes(route_outs)
+    del route_outs
+    torch.cuda.empty_cache()
 
     sg = subgraph(p["data"], device)
     sub = check_subgraph(p, sg)
@@ -1007,6 +1411,9 @@ def main(argv=None) -> int:
     kernels, gather_bound = kernel_numbers(p, launches, device)
     kernels.append(gat_kernel_numbers(p, gat_launches, device))
     del models
+    torch.cuda.empty_cache()
+    route_rows, composed = gat_route_kernel_numbers(p, route_launches, device)
+    kernels += route_rows
     torch.cuda.empty_cache()
 
     xs = attend_inputs(p, device)
@@ -1016,7 +1423,7 @@ def main(argv=None) -> int:
         fn.launches = 0
     ares = serve_attend(p, xs, timer)
     attend_launches = {fn.__name__: fn.launches
-                       for fn in (spmm_blocked_weighted_cuda,)
+                       for fn in (ab.spmm_blocked_multiweighted_cuda,)
                        + attend_kernels}
     attend_peak_gb = torch.cuda.max_memory_allocated() / 2**30
     log(f"attend path launches: {attend_launches}")
@@ -1025,11 +1432,24 @@ def main(argv=None) -> int:
     log("attend path ms (first calls): " + ", ".join(
         f"{k} {v:.1f}" for k, v in ares["ms"].items())
         + f"; peak device memory {attend_peak_gb:.2f} GiB")
-    route_errs = check_attend_routes(ares)
+    attend_route_errs = check_attend_routes(ares)
     del ares
     torch.cuda.empty_cache()
     attend_sub = check_attend_subgraph(sg)
     kernels += attend_kernel_numbers(p, xs, attend_launches, device)
+    del xs
+    torch.cuda.empty_cache()
+
+    for fn in wrappers:
+        fn.launches = 0
+    qres = serve_q8(p, device, timer)
+    q8_launches = {"spmm_blocked_q8_cuda": spmm_blocked_q8_cuda.launches}
+    log(f"int8 path launches: {q8_launches}")
+    check(q8_launches["spmm_blocked_q8_cuda"] > 0,
+          "kernel spmm_blocked_q8_cuda ran on the int8 path")
+    kernels.append(q8_kernel_numbers(p, qres, q8_launches))
+    del qres
+    check(len(kernels) == 11, f"{len(kernels)} kernel rows, expected 11")
 
     summary = dict(
         card=card, scale=args.scale, nodes=n, edges=p["graph"].num_edges,
@@ -1046,7 +1466,11 @@ def main(argv=None) -> int:
         gat_blocked_pass_ms=gres["ms"], gat_blocked_pass_ms_warm=gat_steady,
         gat_peak_device_gib=gat_peak_gb,
         gat_blocked_vs_segment_f32=gat_sub_err,
-        attend_routes_vs_composed_f32=route_errs,
+        gat_route_pass_ms=route_ms, gat_route_pass_ms_warm=route_warm,
+        gat_routes_agree_f32=route_errs,
+        gat_routes_peak_device_gib=route_peak_gb,
+        gat_composed_route_layer1=composed,
+        attend_routes_vs_composed_f32=attend_route_errs,
         attend_vs_segment_f32=attend_sub,
         attend_peak_device_gib=attend_peak_gb,
         total_s=time.perf_counter() - t_all, **sub)

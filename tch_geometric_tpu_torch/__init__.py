@@ -2,13 +2,25 @@
 
 A second package beside the JAX one, with its module layout and names.  It
 imports torch and numpy only.  Entry points take ``device=`` (default
-``"cuda"``); the blocked full-graph SpMM runs hand-written Hopper kernels
-(``csrc/``), built with ``nvcc`` at first use.  On CPU tensors every kernel
-wrapper runs its plain PyTorch version.
+``"cuda"``); the blocked full-graph operators run hand-written Hopper
+kernels (``csrc/``), built with ``nvcc`` at first use.  On CPU tensors every
+kernel wrapper runs its plain PyTorch version.
 
-Ported so far: the GraphSAGE serving path — COO -> CSC, device graph tables,
-uniform multi-hop neighbor sampling (bit-equal to ``jax.random``), feature
-gather, ``GraphSAGE.tree_forward`` and full-graph ``blocked_forward``.
+Ported so far:
+
+* the GraphSAGE serving path — COO -> CSC, device graph tables, uniform
+  multi-hop neighbor sampling (bit-equal to ``jax.random``), feature
+  gather, ``GraphSAGE.tree_forward`` and full-graph ``blocked_forward``
+  (kernels B1, B2), and the int8 blocked SpMM (``ops.spmm_blocked_q8``,
+  B11);
+* GAT, GCN and GIN serving (``models.gnn``), with the multi-head GAT
+  aggregation three ways: head-packed (``GATConv(blocked=...)``, B3),
+  composed (``ops.gat_attend_blocked``, B7 + B8) and flash
+  (``ops.gat_attend_blocked_flash``, B9);
+* single-head blocked dot-product attention (``ops.attend_blocked``,
+  ``_fused``, ``_flash``; B2, B4, B5, B6, B10).
+
+Every Pallas kernel of the JAX package has its counterpart here.
 """
 
 from . import data, models, ops, parallel, sampling, utils

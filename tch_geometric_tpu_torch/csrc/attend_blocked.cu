@@ -61,10 +61,12 @@
 
 namespace {
 
+using blocked::atomic_max_float;
 using blocked::kFull;
 using blocked::kTileF;
 using blocked::load_cols;
 using blocked::round_to;
+using blocked::softmax_weight;
 using blocked::tile_slot;
 
 constexpr int kThreads = 512;            // 16 warps per CUDA block
@@ -112,16 +114,6 @@ __device__ __forceinline__ float warp_scores(const T* xd, int64_t nd,
   return my_s;
 }
 
-// Float max in shared memory: integer order matches float order for
-// non-negative floats (as int) and reverses it for negative ones (as
-// unsigned); -0.0 goes to the second branch.
-__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
-  if (__float_as_int(v) >= 0)
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-  else
-    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
-}
-
 // Max of v over the CUDA block, returned to every thread.
 __device__ __forceinline__ float block_max(float v, float* red) {
 #pragma unroll
@@ -149,12 +141,6 @@ __device__ __forceinline__ void row_expsum(const float* s,
     const int r = local_row[e];
     if (r < W) atomicAdd(z + r, expf(s[e] - m[r]));
   }
-}
-
-// A lane's softmax weight from its row's final stats (0 where the row max
-// is not finite or the sum is not positive).
-__device__ __forceinline__ float softmax_weight(float s, float m, float z) {
-  return isfinite(m) && z > 0.f ? expf(s - m) / fmaxf(z, 1e-38f) : 0.f;
 }
 
 // ---- B5: per-lane scores, one warp per 32 lanes, grid-stride -------------

@@ -1,5 +1,5 @@
 // Device helpers shared by the blocked-layout kernels (spmm_blocked.cu: B1,
-// B2; attend_blocked.cu: B4, B5, B6, B10).
+// B2, B11; attend_blocked.cu: B4, B5, B6, B10; gat_blocked.cu: B7, B8).
 //
 // The blocked layout: row block b owns W destination rows and the chunks
 // [block_start[b], block_start[b+1]) of C lanes each; a lane carries its
@@ -10,7 +10,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace blocked {
 
@@ -46,6 +49,14 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p, bool pair,
   return make_float2(has0 ? __bfloat162float(p[0]) : 0.f,
                      has1 ? __bfloat162float(p[1]) : 0.f);
 }
+__device__ __forceinline__ float2 load2(const int8_t* p, bool pair, bool has0,
+                                        bool has1) {
+  if (pair) {
+    const char2 v = *reinterpret_cast<const char2*>(p);
+    return make_float2(v.x, v.y);
+  }
+  return make_float2(has0 ? p[0] : 0.f, has1 ? p[1] : 0.f);
+}
 
 // Columns c and c+1 of a row of F columns, for an even c < F: one vector
 // load when `even` (F even, so both columns exist and the pair is aligned),
@@ -58,16 +69,22 @@ __device__ __forceinline__ float2 load_cols(const T* row, int c, int F,
   return load2(row + c, even, true, c + 1 < F);
 }
 
-// Adds x[src] (times w when kWeighted; each term rounded to T, bf16(x * w),
-// when kRound) of the warp's live lanes into the tile `acc`, columns c0 and
-// c0+1 of this thread.  Every thread of the warp brings one lane's row,
-// source and weight.  Pad lanes (row == W) are dropped by a ballot before
-// any row read; kUnroll lanes' loads are in flight before their adds.
-template <typename T, bool kWeighted, bool kRound, int kUnroll>
-__device__ __forceinline__ void warp_accumulate(const T* __restrict__ x,
-                                                int F, int c0, int my_row,
-                                                int my_src, float my_w, int W,
-                                                int lane, float* acc) {
+// Marks an unweighted accumulation for warp_accumulate_by.
+struct NoWeight {};
+
+// Adds x[src] (times the weights weight_of(j) returns for columns c0 and
+// c0+1 of lane j, unless WeightFn is NoWeight; each term rounded to T,
+// bf16(x * w), when kRound) of the warp's live lanes into the tile `acc`,
+// columns c0 and c0+1 of this thread.  Every thread of the warp brings one
+// lane's row and source.  Pad lanes (row == W) are dropped by a ballot
+// before any row read; kUnroll lanes' loads are in flight before their adds.
+// weight_of is called by the whole warp (it may shuffle).
+template <typename T, bool kRound, int kUnroll, typename WeightFn>
+__device__ __forceinline__ void warp_accumulate_by(const T* __restrict__ x,
+                                                   int F, int c0, int my_row,
+                                                   int my_src, int W, int lane,
+                                                   float* acc,
+                                                   WeightFn weight_of) {
   const bool has0 = c0 < F, has1 = c0 + 1 < F;
   const bool pair = has1 && F % 2 == 0;
   unsigned live = __ballot_sync(kFull, my_row < W);
@@ -83,10 +100,10 @@ __device__ __forceinline__ void warp_accumulate(const T* __restrict__ x,
         rows[q] = __shfl_sync(kFull, my_row, j);
         const int64_t src = __shfl_sync(kFull, my_src, j);
         v[q] = load2(x + src * F + c0, pair, has0, has1);
-        if (kWeighted) {
-          const float w = __shfl_sync(kFull, my_w, j);
-          v[q].x *= w;
-          v[q].y *= w;
+        if constexpr (!std::is_same<WeightFn, NoWeight>::value) {
+          const float2 w = weight_of(j);
+          v[q].x *= w.x;
+          v[q].y *= w.y;
           if (kRound) {
             v[q].x = round_to<T>(v[q].x);
             v[q].y = round_to<T>(v[q].y);
@@ -104,6 +121,25 @@ __device__ __forceinline__ void warp_accumulate(const T* __restrict__ x,
   }
 }
 
+// warp_accumulate_by with one weight per lane, my_w of the lane's thread
+// (when kWeighted), for both columns.
+template <typename T, bool kWeighted, bool kRound, int kUnroll>
+__device__ __forceinline__ void warp_accumulate(const T* __restrict__ x,
+                                                int F, int c0, int my_row,
+                                                int my_src, float my_w, int W,
+                                                int lane, float* acc) {
+  if constexpr (kWeighted) {
+    warp_accumulate_by<T, kRound, kUnroll>(
+        x, F, c0, my_row, my_src, W, lane, acc, [my_w](int j) {
+          const float w = __shfl_sync(kFull, my_w, j);
+          return make_float2(w, w);
+        });
+  } else {
+    warp_accumulate_by<T, kRound, kUnroll>(x, F, c0, my_row, my_src, W, lane,
+                                           acc, NoWeight{});
+  }
+}
+
 // Writes the tile's W rows into out rows row0.. (F columns), columns
 // f0 .. min(f0 + kTileF, F); every row, rows with no edges as zeros.
 __device__ __forceinline__ void store_tile(const float* acc,
@@ -115,6 +151,22 @@ __device__ __forceinline__ void store_tile(const float* acc,
     const int r = i / kTileF, j = i % kTileF;
     if (j < fw) out[(row0 + r) * F + f0 + j] = acc[r * kTileF + tile_slot(j)];
   }
+}
+
+// Float max in shared memory: integer order matches float order for
+// non-negative floats (as int) and reverses it for negative ones (as
+// unsigned); -0.0 goes to the second branch.
+__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
+  if (__float_as_int(v) >= 0)
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
+}
+
+// A lane's softmax weight from its row's final stats (0 where the row max
+// is not finite or the sum is not positive).
+__device__ __forceinline__ float softmax_weight(float s, float m, float z) {
+  return isfinite(m) && z > 0.f ? expf(s - m) / fmaxf(z, 1e-38f) : 0.f;
 }
 
 }  // namespace blocked

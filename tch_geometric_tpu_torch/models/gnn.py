@@ -158,6 +158,24 @@ class GATConv(nn.Module):
         _lecun_normal_(self.a_src, generator)
         _lecun_normal_(self.a_dst, generator)
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype the blocked attention kernels compute in."""
+        return torch.float32 if self.dtype is None else self.dtype
+
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """``h = lin(x)`` as (N, H, d), in the layer's dtype."""
+        H = self.heads
+        return _linear(self.lin, x, self.dtype).reshape(-1, H,
+                                                        self.features // H)
+
+    def logit_tables(self, h: torch.Tensor):
+        """GATv1's per-node logit terms ``(alpha_src, alpha_dst)``, (N, H)
+        each: ``sum_d h[i, h, d] * a[h, d]``.  With :meth:`project` these
+        are the inputs of the blocked attention routes
+        (``gat_attend_blocked_cuda``, ``gat_attend_blocked_flash_cuda``)."""
+        return (h * self.a_src[None]).sum(-1), (h * self.a_dst[None]).sum(-1)
+
     def forward(self, x: torch.Tensor, graph: Optional[SparseGraph] = None,
                 blocked=None, *, sample: Optional[NeighborSample] = None,
                 keep_depths: Optional[int] = None) -> torch.Tensor:
@@ -165,28 +183,24 @@ class GATConv(nn.Module):
         routes attention through B3 (``gat_attend_blocked_packed_cuda``)
         instead of segment ops.  ``sample`` (+``keep_depths``): padded-tree
         batch — dense per-depth attention over the fanout axis."""
-        H = self.heads
-        d = self.features // H
-        h = _linear(self.lin, x, self.dtype).reshape(-1, H, d)
+        h = self.project(x)
 
         if sample is not None:
-            hf = h.reshape(-1, H * d)
+            hf = h.reshape(-1, self.features)
             return torch.cat([self.tree_attention(hf, sample.node_valid,
                                                   sample, dd, self.a_src,
                                                   self.a_dst)
                               for dd in range(keep_depths)], dim=0)
 
-        alpha_dst = (h * self.a_dst[None]).sum(-1)          # (N, H)
         if blocked is not None:
             # GATv1's alpha_src is a linear projection of h: the kernel
             # computes it from the rows it reads
             out = gat_attend_blocked_packed_cuda(
-                blocked, h, None, alpha_dst, alpha_src_vec=self.a_src,
-                compute_dtype=(torch.float32 if self.dtype is None
-                               else self.dtype))
+                blocked, h, None, (h * self.a_dst[None]).sum(-1),
+                alpha_src_vec=self.a_src, compute_dtype=self.compute_dtype)
             return out.reshape(-1, self.features)
 
-        alpha_src = (h * self.a_src[None]).sum(-1)          # (N, H)
+        alpha_src, alpha_dst = self.logit_tables(h)         # (N, H) each
         E = graph.num_edges
         rows = csr_row_ids(graph.indptr, E)                 # dst per edge
         logits = nnf.leaky_relu(

@@ -31,6 +31,18 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "spmm_blocked": {
         "tgt_spmm_blocked": (_i, [_vp, _i, _vp, _vp, _vp, _vp,
                                   _i, _i, _i, _i, _vp, _vp]),
+        "tgt_spmm_blocked_q8": (_i, [_vp, _vp, _vp, _vp, _vp,
+                                     _i, _i, _i, _i, _vp, _vp]),
+        "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
+    },
+    "gat_blocked": {
+        "tgt_edge_softmax_multihead": (_i, [_vp, _vp, _vp, _i, _i, _i, _i,
+                                            _i, _vp, _vp]),
+        "tgt_spmm_multiweighted": (_i, [_vp, _i, _vp, _vp, _vp, _vp, _i, _i,
+                                        _i, _i, _i, _i, _vp, _vp]),
+        "tgt_gat_flash": (_i, [_vp, _i, _vp, _vp, _i, _vp, _vp, _vp, _i, _i,
+                               _i, _i, _i, ctypes.c_float, _vp, _vp, _vp,
+                               _vp, _vp]),
         "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
     "attend_blocked": {

@@ -1,13 +1,12 @@
-"""Blocked edge attention: weighted SpMM, head-packed GAT and single-head
+"""Blocked edge attention: weighted SpMM, multi-head GAT and single-head
 dot-product attention.
 
-Counterpart of ``tch_geometric_tpu/ops/attention_blocked.py``.  Ported so
-far (each JAX name is the plain version, the ``_cuda`` suffix its kernel
-wrapper):
+Counterpart of ``tch_geometric_tpu/ops/attention_blocked.py``, whole (each
+JAX name, without ``_pallas``, is the plain version, the ``_cuda`` suffix
+its kernel wrapper):
 
 * :func:`spmm_blocked_weighted_cuda` — B2, the weighted blocked SpMM (the
-  hot half of ``spmm_hot_split``, the weighted segmented path and the last
-  step of ``attend_blocked_cuda``);
+  hot half of ``spmm_hot_split`` and the weighted segmented path);
 * :func:`gat_attend_blocked_packed` (plain) and
   :func:`gat_attend_blocked_packed_cuda` (B3, ``csrc/gat_packed.cu``) — the
   multi-head GATv1 aggregation that ``GATConv(blocked=...)`` runs;
@@ -15,13 +14,15 @@ wrapper):
   in ``csrc/attend_blocked.cu``: :func:`sddmm_blocked` (B5, the per-lane
   scores of ``sddmm_blocked_pallas`` and ``_v2``),
   :func:`edge_softmax_blocked` (B6), :func:`attend_blocked` (B5, scale, B6,
-  B2), :func:`attend_blocked_fused` (B10) and :func:`attend_blocked_flash`
+  B8), :func:`attend_blocked_fused` (B10) and :func:`attend_blocked_flash`
   (B4, both stat modes);
+* the multi-head GAT's two other routes, kernels in
+  ``csrc/gat_blocked.cu``: :func:`edge_softmax_blocked_multihead` (B7),
+  :func:`spmm_blocked_multiweighted` (B8, at H=1 also the attend routes'
+  last step), :func:`gat_attend_blocked` (logits by torch gathers, B7, B8)
+  and :func:`gat_attend_blocked_flash` (B9, a per-row running max);
 * the helpers ``_pad_dst``, :func:`blocked_dst_rows` and
   :func:`gat_edge_logits_blocked`.
-
-The multi-head softmax and SpMM (B7, B8) and the GAT flash kernel (B9) are
-still to port.
 
 Softmax stabilisation of B3, in the plain version and the kernel alike, is
 the JAX kernel's: per (row block, head), each chunk's logits are shifted by
@@ -200,21 +201,16 @@ def gat_attend_blocked_packed_cuda(b: BlockedCsr, h: torch.Tensor,
             b, h, alpha_src, alpha_dst, negative_slope=negative_slope,
             compute_dtype=compute_dtype, alpha_src_vec=alpha_src_vec)
     _check_packed_args(b, alpha_src, alpha_src_vec)
-    if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"compute_dtype must be float32 or bfloat16, got "
-                        f"{compute_dtype}")
     if h.dim() != 3:
         raise ValueError(f"h must be (N, H, D), got {tuple(h.shape)}")
     N, H, D = h.shape
-    T, C = b.edge_src.shape
+    C = b.edge_src.shape[1]
     B, W = b.num_blocks, b.rows_per_block
-    dev = h.device
-    hc = h.reshape(N, H * D).to(compute_dtype).contiguous()
+    hc = _compute_rows(h.reshape(N, H * D), compute_dtype, "h")
+    dev = hc.device
     ad = alpha_dst.to(torch.float32).contiguous()
     _check(ad, "alpha_dst", torch.float32, (ad.shape[0], H), dev)
-    _check(b.edge_src, "edge_src", torch.int32, (T, C), dev)
-    _check(b.edge_local_row, "edge_local_row", torch.int32, (T, C), dev)
-    _check(b.block_start, "block_start", torch.int32, (B + 1,), dev)
+    _check_layout(b, dev)
     if alpha_src is not None:
         # the table; the kernel rounds it to the compute dtype
         asrc = alpha_src.to(torch.float32).contiguous()
@@ -344,23 +340,36 @@ def edge_softmax_blocked(b: BlockedCsr, scores: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _weighted_sum_rounded(b: BlockedCsr, x: torch.Tensor,
-                          edge_weight: torch.Tensor, *,
-                          compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """The last step of the plain attend routes, as the JAX package's
-    Pallas B2 (``spmm_blocked_weighted_pallas``) computes it:
-    ``y[i] = sum_e w[e] x[src(e)]`` with each term rounded to
-    ``compute_dtype``, ``bf16(x * w)``, and float32 sums.  Pad lanes are
-    excluded.  Returns (num_rows, F) float32."""
+def edge_softmax_blocked_multihead(b: BlockedCsr,
+                                   scores: torch.Tensor) -> torch.Tensor:
+    """Plain version of B7: the per-dst-row softmax of (H, T, C) scores,
+    each head as :func:`edge_softmax_blocked` (the JAX kernel's one online
+    traversal for all heads gives the same function up to float32
+    rounding).  Returns (H, T, C) float32, 0 on pad lanes."""
+    return torch.stack([edge_softmax_blocked(b, s) for s in scores])
+
+
+def spmm_blocked_multiweighted(b: BlockedCsr, x: torch.Tensor,
+                               edge_weight: torch.Tensor, *,
+                               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of B8: the H-head weighted SpMM.  ``x``: (N, H*D)
+    head-concatenated rows; ``edge_weight``: (H, T, C).  Column ``c`` of row
+    ``i`` is ``sum_e w[c // D, e] x[src(e), c]`` with each term rounded to
+    ``compute_dtype``, ``bf16(x * w)``, and float32 sums, as the JAX kernel
+    computes it.  Pad lanes are excluded.  Returns (num_rows, H*D)
+    float32."""
     W = b.rows_per_block
-    F = x.shape[-1]
+    H, F = edge_weight.shape[0], x.shape[-1]
+    if F % H:
+        raise ValueError(f"x has {F} columns, not a multiple of {H} heads")
     xc = x.to(compute_dtype)
     out = torch.empty((b.num_blocks * W, F), dtype=torch.float32,
                       device=x.device)
     for b0, b1, t0, t1 in _groups(b):
         w = torch.where(b.edge_local_row[t0:t1] < W,
-                        edge_weight[t0:t1].float(), 0.0)
-        rhs = (xc[b.edge_src[t0:t1].long()].float() * w[..., None]).to(
+                        edge_weight[:, t0:t1].float(), 0.0)     # (H, Tg, C)
+        w = w.permute(1, 2, 0).repeat_interleave(F // H, dim=-1)
+        rhs = (xc[b.edge_src[t0:t1].long()].float() * w).to(
             compute_dtype).float()
         out[b0 * W:b1 * W] = _contract(b, b0, b1, t0, t1, rhs)
     return out[: b.num_rows]
@@ -373,11 +382,13 @@ def attend_blocked(b: BlockedCsr, x_dst: torch.Tensor, x_src: torch.Tensor,
     (transformer-style graph attention, single head), composed as the JAX
     package composes it: scores (B5), ``s * scale`` in float32 (default
     ``1/sqrt(F)``), edge softmax (B6), weighted SpMM with ``bf16(x * w)``
-    terms (B2).  Plain version; returns (num_rows, F) float32."""
+    terms (the JAX B2; here one head of B8).  Plain version; returns
+    (num_rows, F) float32."""
     s = sddmm_blocked(b, x_dst, x_src, compute_dtype=compute_dtype)
     s = s * _attend_scale(x_src.shape[-1], scale)
     att = edge_softmax_blocked(b, s)
-    return _weighted_sum_rounded(b, x_src, att, compute_dtype=compute_dtype)
+    return spmm_blocked_multiweighted(b, x_src, att[None],
+                                      compute_dtype=compute_dtype)
 
 
 def attend_blocked_fused(b: BlockedCsr, x_dst: torch.Tensor,
@@ -393,7 +404,8 @@ def attend_blocked_fused(b: BlockedCsr, x_dst: torch.Tensor,
     xd = (x_dst * sc).to(compute_dtype)
     s = sddmm_blocked(b, xd, x_src, compute_dtype=compute_dtype)
     att = edge_softmax_blocked(b, s)
-    return _weighted_sum_rounded(b, x_src, att, compute_dtype=compute_dtype)
+    return spmm_blocked_multiweighted(b, x_src, att[None],
+                                      compute_dtype=compute_dtype)
 
 
 def attend_blocked_flash(b: BlockedCsr, x_dst: torch.Tensor,
@@ -470,41 +482,51 @@ def attend_blocked_flash(b: BlockedCsr, x_dst: torch.Tensor,
 
 # ---- kernel wrappers (csrc/attend_blocked.cu) -----------------------------
 
-def _attend_operands(b: BlockedCsr, x_dst: torch.Tensor, x_src: torch.Tensor,
-                     compute_dtype):
-    """``(xd, xs)``: the rows as contiguous compute-dtype CUDA tensors,
-    checked with the layout for the kernels of ``csrc/attend_blocked.cu``."""
-    if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"compute_dtype must be float32 or bfloat16, got "
-                        f"{compute_dtype}")
-    if (x_src.dim() != 2 or x_dst.dim() != 2
-            or x_dst.shape[1] != x_src.shape[1]):
-        raise ValueError(f"x_dst and x_src must be (rows, F) with one F, got "
-                         f"{tuple(x_dst.shape)} and {tuple(x_src.shape)}")
-    xs = x_src.to(compute_dtype).contiguous()
-    xd = x_dst.to(compute_dtype).contiguous()
-    dev = xs.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {dev}")
-    for t, name in ((xd, "x_dst"), (xs, "x_src")):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.shape[1] % 2 == 0 and t.data_ptr() % (2 * t.element_size()):
-            # with F even the kernels load two columns at a time
-            raise ValueError(f"{name} must start at a multiple of two "
-                             f"elements")
+def _check_layout(b: BlockedCsr, dev: torch.device) -> None:
     T, C = b.edge_src.shape
     _check(b.edge_src, "edge_src", torch.int32, (T, C), dev)
     _check(b.edge_local_row, "edge_local_row", torch.int32, (T, C), dev)
     _check(b.block_start, "block_start", torch.int32, (b.num_blocks + 1,),
            dev)
+
+
+def _compute_rows(x: torch.Tensor, compute_dtype,
+                  name: str = "x") -> torch.Tensor:
+    """``x`` as contiguous compute-dtype rows on a CUDA device, checked for
+    the kernels' two-column loads."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be float32 or bfloat16, got "
+                        f"{compute_dtype}")
+    xc = x.to(compute_dtype).contiguous()
+    if xc.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
+                         f"{xc.device}")
+    if xc.shape[-1] % 2 == 0 and xc.data_ptr() % (2 * xc.element_size()):
+        # with an even row width the kernels load two columns at a time
+        raise ValueError(f"{name} must start at a multiple of two elements")
+    return xc
+
+
+def _attend_operands(b: BlockedCsr, x_dst: torch.Tensor, x_src: torch.Tensor,
+                     compute_dtype):
+    """``(xd, xs)``: the rows as contiguous compute-dtype CUDA tensors,
+    checked with the layout for the kernels of ``csrc/attend_blocked.cu``."""
+    if (x_src.dim() != 2 or x_dst.dim() != 2
+            or x_dst.shape[1] != x_src.shape[1]):
+        raise ValueError(f"x_dst and x_src must be (rows, F) with one F, got "
+                         f"{tuple(x_dst.shape)} and {tuple(x_src.shape)}")
+    xs = _compute_rows(x_src, compute_dtype, "x_src")
+    xd = _compute_rows(x_dst, compute_dtype, "x_dst")
+    if xd.device != xs.device:
+        raise ValueError(f"x_dst is on {xd.device}, expected {xs.device}")
+    _check_layout(b, xs.device)
     return xd, xs
 
 
-def _run(dev: torch.device, fn: str, *args) -> None:
-    """Call ``fn`` of the attend library on ``dev``'s current stream; raise
-    on a launch error."""
-    lib = _build.load("attend_blocked")
+def _run(lib_name: str, dev: torch.device, fn: str, *args) -> None:
+    """Call ``fn`` of library ``lib_name`` on ``dev``'s current stream;
+    raise on a launch error."""
+    lib = _build.load(lib_name)
     with torch.cuda.device(dev):
         rc = getattr(lib, fn)(*args,
                               torch.cuda.current_stream(dev).cuda_stream)
@@ -525,8 +547,8 @@ def sddmm_blocked_cuda(b: BlockedCsr, x_dst: torch.Tensor,
     T, C = b.edge_src.shape
     _check(b.chunk_block, "chunk_block", torch.int32, (T,), xs.device)
     out = torch.empty((T, C), dtype=torch.float32, device=xs.device)
-    _run(xs.device, "tgt_sddmm_blocked", xd.data_ptr(), xd.shape[0],
-         xs.data_ptr(), int(compute_dtype == torch.bfloat16),
+    _run("attend_blocked", xs.device, "tgt_sddmm_blocked", xd.data_ptr(),
+         xd.shape[0], xs.data_ptr(), int(compute_dtype == torch.bfloat16),
          b.edge_src.data_ptr(), b.edge_local_row.data_ptr(),
          b.chunk_block.data_ptr(), T, C, b.rows_per_block, xs.shape[1],
          out.data_ptr())
@@ -548,11 +570,9 @@ def edge_softmax_blocked_cuda(b: BlockedCsr,
     dev = s.device
     T, C = b.edge_src.shape
     _check(s, "scores", torch.float32, (T, C), dev)
-    _check(b.edge_local_row, "edge_local_row", torch.int32, (T, C), dev)
-    _check(b.block_start, "block_start", torch.int32, (b.num_blocks + 1,),
-           dev)
+    _check_layout(b, dev)
     att = torch.empty_like(s)
-    _run(dev, "tgt_edge_softmax_blocked", s.data_ptr(),
+    _run("attend_blocked", dev, "tgt_edge_softmax_blocked", s.data_ptr(),
          b.edge_local_row.data_ptr(), b.block_start.data_ptr(),
          b.num_blocks, C, b.rows_per_block, att.data_ptr())
     edge_softmax_blocked_cuda.launches += 1
@@ -567,19 +587,17 @@ def attend_blocked_cuda(b: BlockedCsr, x_dst: torch.Tensor,
                         scale: Optional[float] = None,
                         compute_dtype=torch.bfloat16) -> torch.Tensor:
     """:func:`attend_blocked` on a CUDA tensor through B5, the float32
-    scale, B6 and B2, each counting its launch; the plain version on a CPU
-    tensor.  B2 multiplies each float32 weight into its row in float32
-    where the plain version (and the JAX Pallas B2) rounds each term
-    ``bf16(x * w)``: in bfloat16 the two differ by up to 2**-9 of each
-    term (``utils/kernel_gates.py`` states the limit)."""
+    scale, B6 and B8 with one head (``bf16(x * w)`` terms, as the plain
+    version and the JAX Pallas B2 round them), each counting its launch;
+    the plain version on a CPU tensor."""
     if x_src.device.type == "cpu":
         return attend_blocked(b, x_dst, x_src, scale=scale,
                               compute_dtype=compute_dtype)
     s = sddmm_blocked_cuda(b, x_dst, x_src, compute_dtype=compute_dtype)
     s = s * _attend_scale(x_src.shape[-1], scale)
     att = edge_softmax_blocked_cuda(b, s)
-    return spmm_blocked_weighted_cuda(b, x_src, att,
-                                      compute_dtype=compute_dtype)
+    return spmm_blocked_multiweighted_cuda(b, x_src, att[None],
+                                           compute_dtype=compute_dtype)
 
 
 def attend_blocked_fused_cuda(b: BlockedCsr, x_dst: torch.Tensor,
@@ -603,11 +621,11 @@ def attend_blocked_fused_cuda(b: BlockedCsr, x_dst: torch.Tensor,
     m = torch.empty((BW,), dtype=torch.float32, device=dev)
     z = torch.empty((BW,), dtype=torch.float32, device=dev)
     out = torch.empty((BW, F), dtype=torch.float32, device=dev)
-    _run(dev, "tgt_attend_fused", xd.data_ptr(), xd.shape[0], xs.data_ptr(),
-         int(compute_dtype == torch.bfloat16), b.edge_src.data_ptr(),
-         b.edge_local_row.data_ptr(), b.block_start.data_ptr(), b.num_blocks,
-         C, b.rows_per_block, F, s.data_ptr(), m.data_ptr(), z.data_ptr(),
-         out.data_ptr())
+    _run("attend_blocked", dev, "tgt_attend_fused", xd.data_ptr(),
+         xd.shape[0], xs.data_ptr(), int(compute_dtype == torch.bfloat16),
+         b.edge_src.data_ptr(), b.edge_local_row.data_ptr(),
+         b.block_start.data_ptr(), b.num_blocks, C, b.rows_per_block, F,
+         s.data_ptr(), m.data_ptr(), z.data_ptr(), out.data_ptr())
     attend_blocked_fused_cuda.launches += 1
     return out[: b.num_rows]
 
@@ -636,13 +654,237 @@ def attend_blocked_flash_cuda(b: BlockedCsr, x_dst: torch.Tensor,
     s = torch.empty((T, C), dtype=torch.float32, device=dev)
     out = torch.empty((b.num_blocks * b.rows_per_block, F),
                       dtype=torch.float32, device=dev)
-    _run(dev, "tgt_attend_flash", xd.data_ptr(), xd.shape[0], xs.data_ptr(),
-         int(compute_dtype == torch.bfloat16), int(bool(row_stats)),
-         b.edge_src.data_ptr(), b.edge_local_row.data_ptr(),
-         b.block_start.data_ptr(), b.num_blocks, C, b.rows_per_block, F,
-         s.data_ptr(), out.data_ptr())
+    _run("attend_blocked", dev, "tgt_attend_flash", xd.data_ptr(),
+         xd.shape[0], xs.data_ptr(), int(compute_dtype == torch.bfloat16),
+         int(bool(row_stats)), b.edge_src.data_ptr(),
+         b.edge_local_row.data_ptr(), b.block_start.data_ptr(), b.num_blocks,
+         C, b.rows_per_block, F, s.data_ptr(), out.data_ptr())
     attend_blocked_flash_cuda.launches += 1
     return out[: b.num_rows]
 
 
 attend_blocked_flash_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Multi-head GAT, composed (B7, B8) and flash (B9)
+# ---------------------------------------------------------------------------
+
+def gat_attend_blocked(b: BlockedCsr, h: torch.Tensor, alpha_src: torch.Tensor,
+                       alpha_dst: torch.Tensor, *,
+                       negative_slope: float = 0.2,
+                       compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Multi-head GAT aggregation on the blocked layout, composed as the JAX
+    package composes it: (H, T, C) float32 logits
+    ``leaky_relu(alpha_src[src] + alpha_dst[dst])`` by gathers, the
+    multi-head edge softmax (B7), the multi-weighted SpMM with
+    ``bf16(h * w)`` terms (B8).  ``h``: (N, H, D); ``alpha_src``,
+    ``alpha_dst``: (N, H).  Plain version; returns (num_rows, H, D)
+    float32."""
+    N, H, D = h.shape
+    logits = gat_edge_logits_blocked(b, alpha_src, alpha_dst,
+                                     negative_slope=negative_slope)
+    att = edge_softmax_blocked_multihead(b, logits.movedim(-1, 0))
+    out = spmm_blocked_multiweighted(b, h.reshape(N, H * D), att,
+                                     compute_dtype=compute_dtype)
+    return out.reshape(-1, H, D)
+
+
+def gat_attend_blocked_flash(b: BlockedCsr, h: torch.Tensor,
+                             alpha_src: torch.Tensor, alpha_dst: torch.Tensor,
+                             *, negative_slope: float = 0.2,
+                             compute_dtype=torch.bfloat16,
+                             debug_stats: bool = False):
+    """Plain version of B9: :func:`gat_attend_blocked` in one traversal of
+    each block's chunks, with the JAX kernel's recurrence, chunk by chunk in
+    block order: per row and head a running max ``m`` (updated by the
+    chunk's max logit), each lane weighed by ``e = exp(s - m)``, the
+    accumulator and ``z`` rescaled by ``exp(m_old - m)``; then ``out / z``
+    where ``z > 0`` (0 elsewhere).
+
+    The logit adds ``alpha_src[src]`` rounded to ``compute_dtype`` (it rides
+    the JAX kernel's row gather) to the float32 ``alpha_dst[dst]`` (0 past
+    its rows); the weight is rounded to ``compute_dtype`` before it
+    multiplies the row (``bf16(e) * h``, exact in float32) and ``z`` sums
+    the float32 ``e``.  Returns (num_rows, H, D) float32; with
+    ``debug_stats`` also the undivided (B*W, H*D) accumulator and the
+    (B*W, H) ``m`` and ``z``, as the JAX function does."""
+    N, H, D = h.shape
+    W = b.rows_per_block
+    cd = compute_dtype
+    inf = float("inf")
+    hc = h.to(cd)
+    asrc = alpha_src.to(cd).float()
+    ad = _pad_dst(b, alpha_dst.float())                    # (B*W, H)
+    dev = h.device
+    BW = b.num_blocks * W
+    acc_all = torch.empty((BW, H, D), dtype=torch.float32, device=dev)
+    m_all = torch.empty((BW, H), dtype=torch.float32, device=dev)
+    z_all = torch.empty((BW, H), dtype=torch.float32, device=dev)
+    for b0, b1, t0, t1 in _groups(b):
+        lr, valid, rows = _lane_rows(b, t0, t1)
+        src = b.edge_src[t0:t1].long()
+        s = nnf.leaky_relu(asrc[src] + ad[rows], negative_slope)  # (Tg, C, H)
+        first = b.block_start[b0:b1].long() - t0
+        count = b.block_start[b0 + 1:b1 + 1].long() - b.block_start[b0:b1]
+        nw = (b1 - b0) * W
+        acc = torch.zeros((nw, H, D), dtype=torch.float32, device=dev)
+        m = torch.full((nw, H), -inf, device=dev)
+        z = torch.zeros((nw, H), device=dev)
+        for k in range(int(count.max())):
+            sel = torch.nonzero(count > k).squeeze(1)           # blocks
+            t = first[sel] + k                                  # their chunk
+            ok = valid[t]
+            # each valid lane's row within the group
+            idx = (sel[:, None] * W + lr[t].clamp(max=W - 1).long())[ok]
+            ss = s[t][ok]                                       # (L, H)
+            m_c = torch.full_like(m, -inf).scatter_reduce(
+                0, idx[:, None].expand_as(ss), ss, "amax")
+            m_new = torch.maximum(m, m_c)
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            r_old = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            e = torch.exp(ss - m_safe[idx])                     # (L, H)
+            term = e.to(cd).float()[..., None] * hc[src[t][ok]].float()
+            acc = acc * r_old[..., None] + torch.zeros_like(acc).index_add_(
+                0, idx, term)
+            z = z * r_old + torch.zeros_like(z).index_add_(0, idx, e)
+            m = m_new
+        acc_all[b0 * W:b1 * W] = acc
+        m_all[b0 * W:b1 * W] = m
+        z_all[b0 * W:b1 * W] = z
+    zc = z_all[..., None]
+    att = torch.where(zc > 0, acc_all / zc.clamp(min=1e-20), 0.0)
+    if debug_stats:
+        return att[: b.num_rows], acc_all.reshape(BW, H * D), m_all, z_all
+    return att[: b.num_rows]
+
+
+# ---- kernel wrappers (csrc/gat_blocked.cu) --------------------------------
+
+def edge_softmax_blocked_multihead_cuda(b: BlockedCsr,
+                                        scores: torch.Tensor) -> torch.Tensor:
+    """B7: :func:`edge_softmax_blocked_multihead` through the hand-written
+    Hopper kernel (one CUDA block per row block, its W x H (m, z) in shared
+    memory) on a CUDA tensor; the plain version on a CPU tensor."""
+    if scores.device.type == "cpu":
+        return edge_softmax_blocked_multihead(b, scores)
+    s = scores.to(torch.float32).contiguous()
+    dev = s.device
+    T, C = b.edge_src.shape
+    H = s.shape[0]
+    _check(s, "scores", torch.float32, (H, T, C), dev)
+    _check_layout(b, dev)
+    att = torch.empty_like(s)
+    _run("gat_blocked", dev, "tgt_edge_softmax_multihead", s.data_ptr(),
+         b.edge_local_row.data_ptr(), b.block_start.data_ptr(),
+         b.num_blocks, T, C, b.rows_per_block, H, att.data_ptr())
+    edge_softmax_blocked_multihead_cuda.launches += 1
+    return att
+
+
+edge_softmax_blocked_multihead_cuda.launches = 0
+
+
+def spmm_blocked_multiweighted_cuda(b: BlockedCsr, x: torch.Tensor,
+                                    edge_weight: torch.Tensor, *,
+                                    compute_dtype=torch.bfloat16
+                                    ) -> torch.Tensor:
+    """B8: :func:`spmm_blocked_multiweighted` through the hand-written
+    Hopper kernel (one CUDA block per (row block, 64-column tile), each
+    column weighted by its head's lane weight, terms rounded ``bf16(x *
+    w)``) on a CUDA tensor; the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return spmm_blocked_multiweighted(b, x, edge_weight,
+                                          compute_dtype=compute_dtype)
+    xc = _compute_rows(x, compute_dtype)
+    dev = xc.device
+    T, C = b.edge_src.shape
+    H = edge_weight.shape[0]
+    F = xc.shape[-1]
+    if xc.dim() != 2 or F % H:
+        raise ValueError(f"x must be (N, H*D) with H={H}, got "
+                         f"{tuple(xc.shape)}")
+    w = edge_weight.to(torch.float32).contiguous()
+    _check(w, "edge_weight", torch.float32, (H, T, C), dev)
+    _check_layout(b, dev)
+    out = torch.empty((b.num_blocks * b.rows_per_block, F),
+                      dtype=torch.float32, device=dev)
+    _run("gat_blocked", dev, "tgt_spmm_multiweighted", xc.data_ptr(),
+         int(compute_dtype == torch.bfloat16), b.edge_src.data_ptr(),
+         b.edge_local_row.data_ptr(), w.data_ptr(),
+         b.block_start.data_ptr(), b.num_blocks, T, C, b.rows_per_block,
+         F, F // H, out.data_ptr())
+    spmm_blocked_multiweighted_cuda.launches += 1
+    return out[: b.num_rows]
+
+
+spmm_blocked_multiweighted_cuda.launches = 0
+
+
+def gat_attend_blocked_cuda(b: BlockedCsr, h: torch.Tensor,
+                            alpha_src: torch.Tensor, alpha_dst: torch.Tensor,
+                            *, negative_slope: float = 0.2,
+                            compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`gat_attend_blocked` on a CUDA tensor: the logits by torch
+    gathers (as XLA gathers them in the JAX package), then B7 and B8, each
+    counting its launch; the plain version on a CPU tensor."""
+    if h.device.type == "cpu":
+        return gat_attend_blocked(b, h, alpha_src, alpha_dst,
+                                  negative_slope=negative_slope,
+                                  compute_dtype=compute_dtype)
+    N, H, D = h.shape
+    logits = gat_edge_logits_blocked(b, alpha_src, alpha_dst,
+                                     negative_slope=negative_slope)
+    att = edge_softmax_blocked_multihead_cuda(b, logits.movedim(-1, 0))
+    out = spmm_blocked_multiweighted_cuda(b, h.reshape(N, H * D), att,
+                                          compute_dtype=compute_dtype)
+    return out.reshape(-1, H, D)
+
+
+def gat_attend_blocked_flash_cuda(b: BlockedCsr, h: torch.Tensor,
+                                  alpha_src: torch.Tensor,
+                                  alpha_dst: torch.Tensor, *,
+                                  negative_slope: float = 0.2,
+                                  compute_dtype=torch.bfloat16,
+                                  debug_stats: bool = False):
+    """B9: :func:`gat_attend_blocked_flash` through the hand-written Hopper
+    kernel (one CUDA block per (row block, head), a W x D float32 tile in
+    shared memory, the per-row running max) on a CUDA tensor; the plain
+    version on a CPU tensor.  Same arguments and results."""
+    if h.device.type == "cpu":
+        return gat_attend_blocked_flash(
+            b, h, alpha_src, alpha_dst, negative_slope=negative_slope,
+            compute_dtype=compute_dtype, debug_stats=debug_stats)
+    if h.dim() != 3:
+        raise ValueError(f"h must be (N, H, D), got {tuple(h.shape)}")
+    N, H, D = h.shape
+    if D > 128:
+        raise ValueError(f"the GAT flash kernel takes at most 128 columns "
+                         f"per head, got D={D}")
+    hc = _compute_rows(h.reshape(N, H * D), compute_dtype, "h")
+    dev = hc.device
+    asrc = alpha_src.to(torch.float32).contiguous()
+    ad = alpha_dst.to(torch.float32).contiguous()
+    _check(asrc, "alpha_src", torch.float32, (N, H), dev)
+    _check(ad, "alpha_dst", torch.float32, (ad.shape[0], H), dev)
+    _check_layout(b, dev)
+    BW = b.num_blocks * b.rows_per_block
+    out = torch.empty((BW, H * D), dtype=torch.float32, device=dev)
+    # the undivided accumulator and the row stats, for debug_stats
+    stats = ((torch.empty_like(out),
+              torch.empty((BW, H), dtype=torch.float32, device=dev),
+              torch.empty((BW, H), dtype=torch.float32, device=dev))
+             if debug_stats else ())
+    _run("gat_blocked", dev, "tgt_gat_flash", hc.data_ptr(),
+         int(compute_dtype == torch.bfloat16), asrc.data_ptr(),
+         ad.data_ptr(), ad.shape[0], b.edge_src.data_ptr(),
+         b.edge_local_row.data_ptr(), b.block_start.data_ptr(),
+         b.num_blocks, b.edge_src.shape[1], b.rows_per_block, H, D,
+         float(negative_slope), out.data_ptr(),
+         *([t.data_ptr() for t in stats] or [None] * 3))
+    gat_attend_blocked_flash_cuda.launches += 1
+    att = out[: b.num_rows].reshape(-1, H, D)
+    return (att, *stats) if debug_stats else att
+
+
+gat_attend_blocked_flash_cuda.launches = 0

@@ -1,11 +1,13 @@
-"""Blocked SpMM through the hand-written Hopper kernel B1.
+"""Blocked SpMM through the hand-written Hopper kernels B1 and B11.
 
 Counterpart of ``tch_geometric_tpu/ops/spmm_pallas.py``: the same wrappers
-with the same ``agg`` handling, with the CUDA kernel of
-``csrc/spmm_blocked.cu`` in place of the Pallas kernel.  A wrapper given a
-CPU tensor runs the plain version (``spmm_blocked``); given a CUDA tensor it
-launches the kernel or raises.  Each kernel wrapper counts its launches in
-a plain integer attribute, ``spmm_blocked_cuda.launches``.
+with the same ``agg`` handling, with the CUDA kernels of
+``csrc/spmm_blocked.cu`` in place of the Pallas kernels, and the int8 path
+(:func:`quantize_rows`, :func:`spmm_blocked_q8`, B11).  A wrapper given a
+CPU tensor runs the plain version (``spmm_blocked``, ``spmm_blocked_q8``);
+given a CUDA tensor it launches the kernel or raises.  Each kernel wrapper
+counts its launches in a plain integer attribute,
+``spmm_blocked_cuda.launches``.
 """
 from __future__ import annotations
 
@@ -30,14 +32,18 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(b: BlockedCsr, xc: torch.Tensor,
-            weight: Optional[torch.Tensor]) -> torch.Tensor:
-    """Launch ``tgt_spmm_blocked`` on the current stream; returns the
-    (B*W, F) float32 output."""
+def _launch(b: BlockedCsr, xc: torch.Tensor, weight: Optional[torch.Tensor],
+            row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch ``tgt_spmm_blocked`` (or, for int8 rows with their
+    ``row_scale``, ``tgt_spmm_blocked_q8``) on the current stream; returns
+    the (B*W, F) float32 output."""
     if xc.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
                          f"{xc.device}")
-    if xc.dtype not in (torch.float32, torch.bfloat16):
+    q8 = row_scale is not None
+    if q8 and xc.dtype != torch.int8:
+        raise TypeError(f"q must be int8, got {xc.dtype}")
+    if not q8 and xc.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {xc.dtype}")
     if xc.dim() != 2 or not xc.is_contiguous():
         raise ValueError("x must be a contiguous (N, F) tensor")
@@ -52,20 +58,29 @@ def _launch(b: BlockedCsr, xc: torch.Tensor,
     _check(b.block_start, "block_start", torch.int32, (B + 1,), dev)
     if weight is not None:
         _check(weight, "edge_weight", torch.float32, (T, C), dev)
+    if q8:
+        _check(row_scale, "row_scale", torch.float32, (xc.shape[0],), dev)
     out = torch.empty((B * W, F), dtype=torch.float32, device=dev)
     if B == 0 or F == 0:
         return out
     lib = _build.load("spmm_blocked")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    layout = (b.edge_src.data_ptr(), b.edge_local_row.data_ptr())
     with torch.cuda.device(dev):
-        rc = lib.tgt_spmm_blocked(
-            xc.data_ptr(), int(xc.dtype == torch.bfloat16),
-            b.edge_src.data_ptr(), b.edge_local_row.data_ptr(),
-            None if weight is None else weight.data_ptr(),
-            b.block_start.data_ptr(), B, C, W, F, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        if q8:
+            fn = "tgt_spmm_blocked_q8"
+            rc = lib.tgt_spmm_blocked_q8(
+                xc.data_ptr(), row_scale.data_ptr(), *layout,
+                b.block_start.data_ptr(), B, C, W, F, out.data_ptr(), stream)
+        else:
+            fn = "tgt_spmm_blocked"
+            rc = lib.tgt_spmm_blocked(
+                xc.data_ptr(), int(xc.dtype == torch.bfloat16), *layout,
+                None if weight is None else weight.data_ptr(),
+                b.block_start.data_ptr(), B, C, W, F, out.data_ptr(), stream)
     if rc != 0:
         msg = lib.tgt_cuda_error_string(rc).decode()
-        raise RuntimeError(f"tgt_spmm_blocked launch failed: {msg} ({rc})")
+        raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")
     return out
 
 
@@ -149,3 +164,43 @@ def spmm_hot_split_segmented(hs: HotSplitSeg, x: torch.Tensor, *,
                                  out_dtype=out_dtype)
     n = hs.num_rows
     return _finish(cold[:n] + hot[:n], hs.degree, agg)
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8 quantization: returns ``(q int8, scale f32)``,
+    bit-equal to the JAX package's (``torch.round`` rounds half to even, as
+    ``jnp.round`` does)."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = (amax / 127.0).to(torch.float32)
+    q = torch.round(x / scale.clamp(min=1e-12)).clamp(-127, 127)
+    return q.to(torch.int8), scale[..., 0]
+
+
+def spmm_blocked_q8(b: BlockedCsr, q: torch.Tensor, row_scale: torch.Tensor,
+                    *, agg: str = "sum") -> torch.Tensor:
+    """Plain version of B11: SpMM over the int8 rows ``q`` of
+    :func:`quantize_rows`, each lane weighted by its source row's scale
+    rounded to bfloat16 (the JAX kernel folds the scale into its bfloat16
+    one-hot), float32 sums.  ``q * bf16(scale)`` is exact in float32.
+    Returns (num_rows, F) float32."""
+    w = row_scale.to(torch.bfloat16).float()[b.edge_src.long()]
+    return spmm_blocked(b, q.float(), agg=agg, edge_weight=w,
+                        compute_dtype=torch.float32)
+
+
+def spmm_blocked_q8_cuda(b: BlockedCsr, q: torch.Tensor,
+                         row_scale: torch.Tensor, *,
+                         agg: str = "sum") -> torch.Tensor:
+    """B11: :func:`spmm_blocked_q8` through the hand-written Hopper kernel
+    (B1's kernel over int8 rows; each lane's weight ``bf16(scale[src])``)
+    on a CUDA tensor; the plain version on a CPU tensor.  Differs from the
+    plain version only in summation order."""
+    if q.device.type == "cpu":
+        return spmm_blocked_q8(b, q, row_scale, agg=agg)
+    out = _launch(b, q.contiguous(), None,
+                  row_scale.to(torch.float32).contiguous())
+    spmm_blocked_q8_cuda.launches += 1
+    return _finish(out[: b.num_rows], b.degree, agg)
+
+
+spmm_blocked_q8_cuda.launches = 0

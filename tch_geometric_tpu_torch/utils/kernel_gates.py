@@ -1,25 +1,29 @@
 """Numerical gates for the port's CUDA kernels.
 
-Mirror of ``tch_geometric_tpu/utils/kernel_gates.py`` for the kernels ported
-so far: B1 (``spmm_blocked_cuda``, alone and as the cold half of the hot
+Mirror of ``tch_geometric_tpu/utils/kernel_gates.py`` for every kernel of
+the port: B1 (``spmm_blocked_cuda``, alone and as the cold half of the hot
 split), B2 (``spmm_blocked_weighted_cuda``, alone and as the hot half) —
 :func:`run_kernel_gates` — B3 (``gat_attend_blocked_packed_cuda``) —
-:func:`run_gat_gates` — and the single-head attention kernels B5
-(``sddmm_blocked_cuda``), B6 (``edge_softmax_blocked_cuda``), B10
-(``attend_blocked_fused_cuda``), B4 (``attend_blocked_flash_cuda``, both
-stat modes) and the composed ``attend_blocked_cuda`` (B5, B6, B2) —
-:func:`run_attend_gates`.  Each kernel runs on the given device and is
-compared with its plain version (``spmm_blocked``,
-``gat_attend_blocked_packed``, ``sddmm_blocked``, ...) on the same inputs,
-computed on the same device.  On a CPU device both sides are the plain
+:func:`run_gat_gates` — B7 (``edge_softmax_blocked_multihead_cuda``), B8
+(``spmm_blocked_multiweighted_cuda``), the composed
+``gat_attend_blocked_cuda`` (B7, B8) and B9
+(``gat_attend_blocked_flash_cuda``) — :func:`run_gat_route_gates` — the
+single-head attention kernels B5 (``sddmm_blocked_cuda``), B6
+(``edge_softmax_blocked_cuda``), B10 (``attend_blocked_fused_cuda``), B4
+(``attend_blocked_flash_cuda``, both stat modes) and the composed
+``attend_blocked_cuda`` (B5, B6, B8) — :func:`run_attend_gates` — and B11
+(``spmm_blocked_q8_cuda``, sum and mean) — :func:`run_q8_gates`.  Each
+kernel runs on the given device and is compared with its plain version
+(``spmm_blocked``, ``gat_attend_blocked_packed``, ``sddmm_blocked``, ...)
+on the same inputs, computed on the same device.  On a CPU device both sides are the plain
 version; the gates matter on the card.
 
 Layouts: the power-law testbed of the JAX gates (n=4096, e=65536, F=128 or
 H=4 heads of D=32, W=256) and three edge cases — rows (and whole blocks)
 with no edges, one block spanning many chunks, and ``num_rows % W != 0``;
-B3 also runs one head of D=47 on the testbed (GAT's last layer at
-ogbn-products width, an odd row width); the ragged case's rows are 37
-columns wide.
+the GAT kernels B3, B7, B8 and B9 also run one head of D=47 on the testbed
+(GAT's last layer at ogbn-products width, an odd row width); the ragged
+case's rows are 37 columns wide.
 """
 from __future__ import annotations
 
@@ -40,20 +44,26 @@ import torch
 # float32), so it differs by summation order and the rare term whose
 # rounding flips.  B5's products of bfloat16 rows are exact in float32, so
 # in bfloat16 too it differs only by summation order (1.5e-5 on scores up
-# to about 60 on the card); B6 is float32 throughout (2.4e-7).  The fused
-# and flash routes round at their plain versions' points, but a weight
-# computed with the kernel's expf one ulp from torch's exp can round its
-# bfloat16 term (fused: bf16(x * w); flash: bf16(e)) the other way: one
-# bfloat16 ulp of the heaviest term, at most 2**-5 for |x| < 8.  The
-# composed route's last step is B2, which multiplies the float32 weight
-# into the row in float32 where its plain version (the JAX Pallas B2) rounds
-# each term bf16(x * w): each term differs by up to 2**-9 of itself, a row
-# of softmax weights (summing to 1) by up to 2**-9 * max |x|, 1.6e-2 for
-# |x| < 8, plus the flips above.  On these gates the card read up to
-# 7.9e-3 (composed), 2.0e-3 (fused), 1.4e-3 (flash, chunk max) and 8.3e-7
-# (flash, row max, whose heaviest weight is exactly 1).  Each limit sits
-# well above the card's reading and well below the values compared
-# (PERF.md, Findings).
+# to about 60 on the card); B6 and B7 are float32 throughout (2.4e-7 and
+# 1.8e-7).  B8 rounds each term bf16(x * w) from the same float32 weight as
+# its plain version, so the terms match bit for bit and only the sums'
+# order differs; B11's int8 rows times a bfloat16 scale are exact in
+# float32, likewise.  B9 keeps an exact per-row running max, so the kernel's
+# expf and torch's exp on the card see the same float32 arguments and
+# bf16(e) matches too; a B9 or B8 that rounded at another point would be
+# off by up to 2**-9 of a term, about 6e-3 at |h| near 3, and fails the
+# 1e-5 limit.  The composed attend and GAT routes and the fused and flash
+# attend routes round at their plain versions' points, but a weight from
+# B6's or B7's atomically summed z, or from B10's or B4's (chunk max)
+# stats, lies an ulp or so from the plain version's and can round its
+# bfloat16 term (bf16(x * w) or bf16(e)) the other way: one bfloat16 ulp
+# of the heaviest term, at most 2**-5 for |x| < 8.  On these gates an
+# NVIDIA H100 80GB HBM3 at 700 W read up to 2.0e-3 (composed attend, fused,
+# composed GAT), 1.4e-3 (flash, chunk max), 8.3e-7 (flash, row max), 3.0e-8
+# (B8), 4.8e-7 (B9) and 0 (B11) in bfloat16; at ogbn-products size 7.8e-3
+# (composed GAT, fused), 2.4e-7 (B8) and 9.5e-7 (B9) on outputs up to 3.2
+# (PERF.md, Findings).  Each limit sits well above the card's reading and
+# well below the values compared.
 F32_THRESHOLD = 5e-4
 BF16_THRESHOLDS = {"spmm_blocked_cuda": 1e-3, "spmm_hot_split": 1e-3,
                    "spmm_blocked_weighted_cuda": 5e-2,
@@ -62,11 +72,20 @@ BF16_THRESHOLDS = {"spmm_blocked_cuda": 1e-3, "spmm_hot_split": 1e-3,
                    "edge_softmax_blocked_cuda": 1e-5,
                    "attend_blocked_cuda": 5e-2,
                    "attend_blocked_fused_cuda": 5e-2,
-                   "attend_blocked_flash_cuda": 5e-2}
+                   "attend_blocked_flash_cuda": 5e-2,
+                   "edge_softmax_blocked_multihead_cuda": 1e-5,
+                   "spmm_blocked_multiweighted_cuda": 1e-5,
+                   "gat_attend_blocked_cuda": 5e-2,
+                   "gat_attend_blocked_flash_cuda": 1e-5,
+                   "spmm_blocked_q8_cuda": 1e-3}
 # B5's scores at full width reach a few hundred (a self loop at F=256 is
 # |x|^2); there kernel and plain, float32 sums of exact products in another
 # order, are held to this fraction of the largest score, in both dtypes.
 SDDMM_REL_THRESHOLD = 1e-5
+# B11 against B1 on the unquantised float32 rows, as a fraction of the
+# largest value: the JAX package's quantisation limit (its test of
+# spmm_blocked_pallas_q8).
+Q8_REL_THRESHOLD = 2e-2
 # Whole bfloat16 forwards (logits of a 3-layer SAGE): blocked against hot
 # split, and blocked against the plain forward.
 FORWARD_BF16_THRESHOLD = 1e-2
@@ -195,17 +214,9 @@ def run_gat_gates(compute_dtype=torch.float32, device="cuda"
                                          gat_attend_blocked_packed_cuda)
     from ..ops.spmm_blocked import build_blocked
 
-    indptr, src, h, a_s, a_d, vec = build_gat_testbed()
-    cases = [("testbed", indptr, src, 256, None, (h, a_s, a_d, vec))]
-    for name, ip, s, _, W, C in edge_case_graphs():
-        r = np.random.default_rng(len(ip))
-        cases.append((name, ip, s, W, C, _gat_inputs(r, len(ip) - 1, 4, 32)))
-    r = np.random.default_rng(47)
-    cases.append(("testbed_h1_d47", indptr, src, 256, None,
-                  _gat_inputs(r, len(indptr) - 1, 1, 47)))
     errs: Dict[str, float] = {}
     with _strict_f32():
-        for name, ip, s, W, C, arrays in cases:
+        for name, ip, s, W, C, arrays in _gat_cases():
             b = build_blocked(ip, s, rows_per_block=W, chunk_edges=C,
                               device=device)
             hh, asrc, adst, v = (torch.from_numpy(a).to(device)
@@ -217,6 +228,88 @@ def run_gat_gates(compute_dtype=torch.float32, device="cuda"
                                                            adst, **kw),
                             gat_attend_blocked_packed(b, hh, table, adst,
                                                       **kw))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return errs
+
+
+def _gat_cases():
+    """``(name, indptr, src, rows_per_block, chunk_edges, (h, alpha_src,
+    alpha_dst, vec))`` of the GAT gates: the testbed (H=4, D=32), the three
+    edge cases and the testbed at one head of 47 columns."""
+    indptr, src, h, a_s, a_d, vec = build_gat_testbed()
+    cases = [("testbed", indptr, src, 256, None, (h, a_s, a_d, vec))]
+    for name, ip, s, _, W, C in edge_case_graphs():
+        r = np.random.default_rng(len(ip))
+        cases.append((name, ip, s, W, C, _gat_inputs(r, len(ip) - 1, 4, 32)))
+    r = np.random.default_rng(47)
+    cases.append(("testbed_h1_d47", indptr, src, 256, None,
+                  _gat_inputs(r, len(indptr) - 1, 1, 47)))
+    return cases
+
+
+def run_gat_route_gates(compute_dtype=torch.float32, device="cuda"
+                        ) -> Dict[str, float]:
+    """``{case/kernel: max_abs_err}`` of the composed and flash GAT routes'
+    kernels against their plain versions on ``device``, on the GAT gates'
+    cases: B7 on the (H, T, C) logits with NaN in the pad lanes, B8 on the
+    rows and B7's weights, the composed ``gat_attend_blocked_cuda`` (B7,
+    B8) and B9."""
+    from ..ops import attention_blocked as ab
+    from ..ops.spmm_blocked import build_blocked
+
+    errs: Dict[str, float] = {}
+    kw = dict(compute_dtype=compute_dtype)
+    with _strict_f32():
+        for name, ip, s, W, C, arrays in _gat_cases():
+            b = build_blocked(ip, s, rows_per_block=W, chunk_edges=C,
+                              device=device)
+            hh, asrc, adst = (torch.from_numpy(a).to(device)
+                              for a in arrays[:3])
+            N, H, D = hh.shape
+            logits = ab.gat_edge_logits_blocked(b, asrc, adst).movedim(-1, 0)
+            logits = torch.where(b.edge_local_row < W, logits, float("nan"))
+            errs[f"{name}/edge_softmax_blocked_multihead_cuda"] = _maxerr(
+                ab.edge_softmax_blocked_multihead_cuda(b, logits),
+                ab.edge_softmax_blocked_multihead(b, logits))
+            att = ab.edge_softmax_blocked_multihead(b, logits)
+            x = hh.reshape(N, H * D)
+            errs[f"{name}/spmm_blocked_multiweighted_cuda"] = _maxerr(
+                ab.spmm_blocked_multiweighted_cuda(b, x, att, **kw),
+                ab.spmm_blocked_multiweighted(b, x, att, **kw))
+            for route in ("gat_attend_blocked", "gat_attend_blocked_flash"):
+                errs[f"{name}/{route}_cuda"] = _maxerr(
+                    getattr(ab, route + "_cuda")(b, hh, asrc, adst, **kw),
+                    getattr(ab, route)(b, hh, asrc, adst, **kw))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return errs
+
+
+def run_q8_gates(compute_dtype=torch.float32, device="cuda"
+                 ) -> Dict[str, float]:
+    """``{case[agg]/spmm_blocked_q8_cuda: max_abs_err}`` of B11 against its
+    plain version on ``device``, with sum and mean, on the testbed (F=128)
+    and the three edge cases (the ragged case's odd F=37 takes the scalar
+    loads).  The rows are rounded to ``compute_dtype`` before
+    ``quantize_rows``."""
+    from ..ops.spmm_blocked import build_blocked
+    from ..ops.spmm_kernels import (quantize_rows, spmm_blocked_q8,
+                                    spmm_blocked_q8_cuda)
+
+    indptr, src, x_np = build_testbed()
+    cases = [("testbed", indptr, src, x_np, 256, None)]
+    cases += list(edge_case_graphs())
+    errs: Dict[str, float] = {}
+    for name, ip, s, x_np, W, C in cases:
+        b = build_blocked(ip, s, rows_per_block=W, chunk_edges=C,
+                          device=device)
+        x = torch.from_numpy(x_np).to(device).to(compute_dtype).float()
+        q, scale = quantize_rows(x)
+        for agg in ("sum", "mean"):
+            errs[f"{name}[{agg}]/spmm_blocked_q8_cuda"] = _maxerr(
+                spmm_blocked_q8_cuda(b, q, scale, agg=agg),
+                spmm_blocked_q8(b, q, scale, agg=agg))
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return errs

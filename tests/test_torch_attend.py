@@ -186,7 +186,7 @@ WRAPPERS = {
     "attend_blocked_cuda": ("attend_blocked", {},
                             ["sddmm_blocked_cuda",
                              "edge_softmax_blocked_cuda",
-                             "spmm_blocked_weighted_cuda"]),
+                             "spmm_blocked_multiweighted_cuda"]),
     "attend_blocked_fused_cuda": ("attend_blocked_fused", {},
                                   ["attend_blocked_fused_cuda"]),
     "attend_blocked_flash_cuda[row]": ("attend_blocked_flash",
@@ -220,8 +220,9 @@ def test_cuda_wrappers_run_plain_on_cpu(wrapper):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_weighted_sum_rounded_matches_pallas(dtype):
-    """The plain attend routes' last step is the JAX Pallas B2
-    (``bf16(x * w)`` terms); B2's wrapper on CPU tensors keeps the
+    """The plain attend routes' last step, one head of
+    ``spmm_blocked_multiweighted``, is the JAX Pallas B2 (``bf16(x * w)``
+    terms); B2's wrapper on CPU tensors keeps the
     weight-rounding plain version that ``spmm_hot_split`` is held to and
     launches nothing."""
     jdt, tdt = DTYPES[dtype]
@@ -233,7 +234,8 @@ def test_weighted_sum_rounded_matches_pallas(dtype):
     w = np.random.default_rng(2).random(tuple(b_t.edge_src.shape)).astype(
         np.float32)
     x, wt = torch.from_numpy(x_np), torch.from_numpy(w)
-    out = tab._weighted_sum_rounded(b_t, x, wt, compute_dtype=tdt)
+    out = tab.spmm_blocked_multiweighted(b_t, x, wt[None],
+                                         compute_dtype=tdt)
     ref = np.asarray(jab.spmm_blocked_weighted_pallas(
         b_j, jnp.asarray(x_np), jnp.asarray(w), compute_dtype=jdt,
         interpret=True))

@@ -1,0 +1,229 @@
+"""The composed and flash multi-head GAT routes of the torch port against the
+JAX package.
+
+Each plain port function — ``edge_softmax_blocked_multihead`` (B7),
+``spmm_blocked_multiweighted`` (B8), ``gat_attend_blocked`` (logits, B7,
+B8) and ``gat_attend_blocked_flash`` (B9) — against its JAX counterpart,
+the Pallas kernels run with ``interpret=True`` as
+``tests/test_attention_blocked.py`` runs them, on the same numpy inputs: the
+GAT gates' testbed (cut to 512 nodes and 4096 edges, W=128), the three
+layout edge cases of ``kernel_gates.edge_case_graphs()`` (W=128 and 256) at
+H=4, D=32, and the testbed at one head of 47 columns (GAT's last layer).
+
+Tolerances: float32 at 2e-4, the JAX package's own.  In bfloat16 both sides
+round at the same points (rows, ``bf16(x * w)`` in B8, ``alpha_src`` and
+``bf16(e)`` in B9, float32 sums), but a weight that differs in its last
+float32 bit (torch's ``exp`` against XLA's, another summation order) can
+round its bfloat16 term the other way: one bfloat16 ulp of the term, at
+most 2**-5 for the |h| < 5 of these inputs divided by the row's weight sum.
+So the limit is 1e-2; these seeds read well under it.
+"""
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tch_geometric_tpu.ops import attention_blocked as jab
+from tch_geometric_tpu_torch.ops import attention_blocked as tab
+from tch_geometric_tpu_torch.utils import kernel_gates
+
+jsb = importlib.import_module("tch_geometric_tpu.ops.spmm_blocked")
+tsb = importlib.import_module("tch_geometric_tpu_torch.ops.spmm_blocked")
+
+F32_TOL = 2e-4
+BF16_TOL = 1e-2
+DTYPES = {"float32": (jnp.float32, torch.float32, F32_TOL),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
+
+
+def _cases():
+    ip, src, h, a_s, a_d, _ = kernel_gates.build_gat_testbed(n=512, e=4096)
+    cases = {"testbed": (ip, src, 128, None, (h, a_s, a_d))}
+    for name, eip, esrc, _, W, C in kernel_gates.edge_case_graphs():
+        r = np.random.default_rng(len(eip))
+        h_, a_s_, a_d_, _ = kernel_gates._gat_inputs(r, len(eip) - 1, 4, 32)
+        cases[name] = (eip, esrc, W, C, (h_, a_s_, a_d_))
+    r = np.random.default_rng(47)
+    h_, a_s_, a_d_, _ = kernel_gates._gat_inputs(r, len(ip) - 1, 1, 47)
+    cases["testbed_h1_d47"] = (ip, src, 256, None, (h_, a_s_, a_d_))
+    return cases
+
+
+CASES = _cases()
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def case(request):
+    indptr, src, W, C, arrays = CASES[request.param]
+    b_t = tsb.build_blocked(indptr, src, rows_per_block=W, chunk_edges=C,
+                            device="cpu")
+    b_j = jsb.build_blocked(indptr, src.astype(np.int32), rows_per_block=W,
+                            chunk_edges=C)
+    return dict(name=request.param, indptr=indptr, b_t=b_t, b_j=b_j,
+                arrays=arrays)
+
+
+def test_edge_softmax_multihead_matches_pallas(case):
+    b_t, b_j = case["b_t"], case["b_j"]
+    H = case["arrays"][0].shape[1]
+    rng = np.random.default_rng(11)
+    scores = (rng.normal(size=(H,) + tuple(b_t.edge_src.shape)) * 3).astype(
+        np.float32)
+    pads = ~b_t.edge_valid.numpy()
+    scores[:, pads] = np.nan                # ignored by both
+    ref = np.asarray(jab.edge_softmax_blocked_multihead(
+        b_j, jnp.asarray(scores), interpret=True))
+    out = tab.edge_softmax_blocked_multihead(b_t, torch.from_numpy(scores))
+    out = out.numpy()
+    assert out.shape == ref.shape == scores.shape
+    np.testing.assert_allclose(out, ref, rtol=F32_TOL, atol=F32_TOL)
+    assert (out[:, pads] == 0).all()
+    # per head, the weights of every row with edges sum to 1
+    rows = tab.blocked_dst_rows(b_t).numpy()[~pads]
+    has = np.bincount(rows) > 0
+    for hd in range(H):
+        sums = np.bincount(rows, weights=out[hd][~pads])
+        np.testing.assert_allclose(sums[has], 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_spmm_multiweighted_matches_pallas(case, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    b_t, b_j = case["b_t"], case["b_j"]
+    h = case["arrays"][0]
+    N, H, D = h.shape
+    x = h.reshape(N, H * D)
+    w = np.random.default_rng(5).random(
+        (H,) + tuple(b_t.edge_src.shape)).astype(np.float32)
+    ref = np.asarray(jab.spmm_blocked_multiweighted_pallas(
+        b_j, jnp.asarray(x), jnp.asarray(w), compute_dtype=jdt,
+        interpret=True))
+    out = tab.spmm_blocked_multiweighted(b_t, torch.from_numpy(x),
+                                         torch.from_numpy(w),
+                                         compute_dtype=tdt).numpy()
+    assert out.shape == ref.shape == (N, H * D)
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+
+
+ROUTES = ["gat_attend_blocked", "gat_attend_blocked_flash"]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("route", ROUTES)
+def test_gat_route_matches_jax(case, route, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    h, a_s, a_d = case["arrays"]
+    ref = np.asarray(getattr(jab, route)(
+        case["b_j"], jnp.asarray(h), jnp.asarray(a_s), jnp.asarray(a_d),
+        compute_dtype=jdt, interpret=True))
+    out = getattr(tab, route)(
+        case["b_t"], torch.from_numpy(h), torch.from_numpy(a_s),
+        torch.from_numpy(a_d), compute_dtype=tdt).numpy()
+    n = len(case["indptr"]) - 1
+    assert out.shape == ref.shape == (n,) + h.shape[1:]
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+    empty = np.diff(case["indptr"]) == 0
+    assert not out[empty].any()
+
+
+def test_gat_flash_debug_stats_match_jax(case):
+    """The undivided accumulator and the final (m, z) of every row and
+    head, as the JAX kernel leaves them (m is -inf on rows with no
+    edges)."""
+    h, a_s, a_d = case["arrays"]
+    _, *ref = jab.gat_attend_blocked_flash(
+        case["b_j"], jnp.asarray(h), jnp.asarray(a_s), jnp.asarray(a_d),
+        compute_dtype=jnp.float32, interpret=True, debug_stats=True)
+    _, *out = tab.gat_attend_blocked_flash(
+        case["b_t"], torch.from_numpy(h), torch.from_numpy(a_s),
+        torch.from_numpy(a_d), compute_dtype=torch.float32, debug_stats=True)
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=F32_TOL,
+                                   atol=F32_TOL)
+
+
+def test_routes_agree_with_packed(case):
+    """The composed and flash routes compute B3's function: in float32 they
+    agree with the port's plain head-packed GAT."""
+    h, a_s, a_d = (torch.from_numpy(a) for a in case["arrays"])
+    kw = dict(compute_dtype=torch.float32)
+    ref = tab.gat_attend_blocked_packed(case["b_t"], h, a_s, a_d, **kw)
+    for route in ROUTES:
+        torch.testing.assert_close(
+            getattr(tab, route)(case["b_t"], h, a_s, a_d, **kw), ref,
+            rtol=F32_TOL, atol=F32_TOL)
+
+
+WRAPPERS = {
+    "edge_softmax_blocked_multihead_cuda": (
+        "edge_softmax_blocked_multihead",
+        ["edge_softmax_blocked_multihead_cuda"]),
+    "spmm_blocked_multiweighted_cuda": (
+        "spmm_blocked_multiweighted", ["spmm_blocked_multiweighted_cuda"]),
+    "gat_attend_blocked_cuda": (
+        "gat_attend_blocked", ["edge_softmax_blocked_multihead_cuda",
+                               "spmm_blocked_multiweighted_cuda"]),
+    "gat_attend_blocked_flash_cuda": (
+        "gat_attend_blocked_flash", ["gat_attend_blocked_flash_cuda"]),
+}
+
+
+@pytest.mark.parametrize("wrapper", list(WRAPPERS))
+def test_cuda_wrappers_run_plain_on_cpu(wrapper):
+    """On CPU tensors every wrapper returns its plain version's result and
+    launches nothing: no launch counter moves."""
+    plain, counters = WRAPPERS[wrapper]
+    indptr, src, W, C, arrays = CASES["ragged_rows"]
+    b = tsb.build_blocked(indptr, src, rows_per_block=W, chunk_edges=C,
+                          device="cpu")
+    h, a_s, a_d = (torch.from_numpy(a) for a in arrays)
+    N, H, D = h.shape
+    att = torch.rand((H,) + tuple(b.edge_src.shape),
+                     generator=torch.Generator().manual_seed(0))
+    args = {"edge_softmax_blocked_multihead": (att,),
+            "spmm_blocked_multiweighted": (h.reshape(N, H * D), att)}.get(
+                plain, (h, a_s, a_d))
+    before = {c: getattr(tab, c).launches for c in counters}
+    out = getattr(tab, wrapper)(b, *args)
+    assert {c: getattr(tab, c).launches for c in counters} == before
+    torch.testing.assert_close(out, getattr(tab, plain)(b, *args),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,threshold", [
+    (torch.float32, kernel_gates.F32_THRESHOLD),
+    (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
+def test_gat_route_gates_harness_on_cpu(dtype, threshold):
+    errs = kernel_gates.run_gat_route_gates(dtype, device="cpu")
+    assert len(errs) == 5 * 4
+    kernels = {k.rsplit("/", 1)[1] for k in errs}
+    assert kernels == {"edge_softmax_blocked_multihead_cuda",
+                       "spmm_blocked_multiweighted_cuda",
+                       "gat_attend_blocked_cuda",
+                       "gat_attend_blocked_flash_cuda"}
+    ok, worst = kernel_gates.gate(errs, threshold)
+    assert ok, worst
+
+
+@pytest.mark.parametrize("heads,features", [(4, 128), (1, 47)])
+@pytest.mark.parametrize("route", ROUTES)
+def test_gatconv_inputs_through_routes(route, heads, features):
+    """``GATConv.project`` and ``logit_tables`` are what the composed and
+    flash routes take: through either route the layer gives its own
+    ``forward(blocked=...)`` (B3's plain version) in float32."""
+    from tch_geometric_tpu_torch.models.gnn import GATConv
+    indptr, src, _, _, _ = CASES["testbed"]
+    b = tsb.build_blocked(indptr, src, rows_per_block=128, device="cpu")
+    conv = GATConv(16, features, heads)
+    conv.reset_parameters(torch.Generator().manual_seed(3))
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(len(indptr) - 1, 16)).astype(np.float32))
+    with torch.no_grad():
+        h = conv.project(x)
+        out = getattr(tab, route)(b, h, *conv.logit_tables(h),
+                                  compute_dtype=conv.compute_dtype)
+        ref = conv(x, blocked=b)
+    torch.testing.assert_close(out.reshape(-1, features), ref, rtol=F32_TOL,
+                               atol=F32_TOL)
