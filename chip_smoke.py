@@ -18,8 +18,10 @@ prints no result line):
    B8), B10, B4 (both stat modes) and B11 (sum and mean) against their
    plain versions on the card, on the kernel-gate testbed and three layout
    edge cases (the GAT kernels also at one head of 47 columns; the ragged
-   case at 37 columns), in float32 (5e-4, TF32 off) and bfloat16
-   (per-kernel limits of ``utils/kernel_gates.py``);
+   case at 37 columns; B1, B2 and the hot split also on a hub row of 1,000
+   lanes at 34 columns, and B1 and B2 in their multi-pass mode on chunks
+   of 8,192 lanes), in float32 (5e-4, TF32 off) and bfloat16 (per-kernel limits of
+   ``utils/kernel_gates.py``);
 3. the GraphSAGE serving path at ogbn-products size (synthetic graph with
    the dataset's node/edge counts, 100 features, 47 classes; model
    hidden=256, 3 layers, random weights from a seed):
@@ -144,6 +146,7 @@ def phase_kernel_checks(device):
     for dtype, thr in ((torch.float32, kg.F32_THRESHOLD),
                        (torch.bfloat16, kg.BF16_THRESHOLDS)):
         errs = kg.run_kernel_gates(dtype, device=device)
+        errs.update(kg.run_spmm_mode_gates(dtype, device=device))
         errs.update(kg.run_gat_gates(dtype, device=device))
         errs.update(kg.run_gat_route_gates(dtype, device=device))
         errs.update(kg.run_attend_gates(dtype, device=device))
@@ -334,8 +337,10 @@ def kernel_numbers(p, launches, device):
     the hidden layers), in bfloat16 (the main path's compute dtype) and in
     float32.  Then the kernel alone, its plain version and one library call
     computing the same function are timed at F=256 in bfloat16, beside the
-    bound.  Returns the kernels' JSON rows and each kernel's lane-gather
-    time (every lane reads its row; derived, not measured)."""
+    bound; the kernel also at F=100 in bfloat16 and at F=256 in float32
+    (beside the library call in float32).  Returns the kernels' JSON rows
+    and each kernel's lane-gather time (every lane reads its row; derived,
+    not measured)."""
     from tch_geometric_tpu_torch.ops.attention_blocked import \
         spmm_blocked_weighted_cuda
     from tch_geometric_tpu_torch.ops.spmm_blocked import spmm_blocked
@@ -399,43 +404,61 @@ def kernel_numbers(p, launches, device):
                 del got, ref
         err16 = max(v for (_, dt), v in errs.items() if dt == torch.bfloat16)
         err32 = max(v for (_, dt), v in errs.items() if dt == torch.float32)
-        F = 256
-        ms = cuda_ms(lambda: _launch(b, s["xb"], w), 10)
+        # the kernel alone on rows already in its dtype: F=256 bfloat16 (the
+        # row's headline), F=100 bfloat16 and F=256 float32
+        timed = {"F256_bf16": s["xb"],
+                 "F100_bf16": s["widths"][100].to(torch.bfloat16),
+                 "F256_f32": s["widths"][256]}
+        ms_by = {k: cuda_ms(lambda: _launch(b, xx, w), 10)
+                 for k, xx in timed.items()}
+        ms = ms_by["F256_bf16"]
         plain_ms = cuda_ms(lambda: spmm_blocked(
             b, s["xb"], agg="sum", edge_weight=w,
             compute_dtype=torch.bfloat16), 2)
         csr32, csr16 = s["csr"]
         library_ms = cuda_ms(lambda: torch.sparse.mm(csr16, s["xb"]), 10)
         library_f32_ms = cuda_ms(
-            lambda: torch.sparse.mm(csr32, s["widths"][F]), 10)
+            lambda: torch.sparse.mm(csr32, s["widths"][256]), 10)
         valid = int(b.edge_valid.sum()) if b.edge_valid is not None else T * C
-        # bytes bound: the kernel's own inputs read once — x, and the
-        # blocked layout's per-lane edge_src and local_row (and weight),
-        # pad lanes included — and the (B*W, F) float32 output written once
+        # bytes bound: the kernel's own inputs read once — x, the blocked
+        # layout's per-lane edge_src and local_row (and weight), pad lanes
+        # included, chunk_block, and block_start (read by the zero pass) —
+        # and the (B*W, F) float32 output written once; operations: an add
+        # (B2: a multiply-add) per valid lane and column
         meta = 12 if w is not None else 8
-        in_bytes = (s["xb"].numel() * 2 + T * C * meta
-                    + b.block_start.numel() * 4)
+        bound = {}
+        for k, xx in timed.items():
+            f = xx.shape[1]
+            out_bytes = b.num_blocks * b.rows_per_block * f * 4
+            t_bytes = (xx.numel() * xx.element_size() + T * C * meta + T * 4
+                       + b.block_start.numel() * 4 + out_bytes
+                       ) / HBM_BYTES_PER_S * 1e3
+            t_ops = valid * f * (2 if w is not None else 1) / F32_FLOP_PER_S * 1e3
+            bound[k] = (max(t_bytes, t_ops),
+                        "bytes" if t_bytes >= t_ops else "operations")
+        F = 256
         out_bytes = b.num_blocks * b.rows_per_block * F * 4
-        t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        t_ops = valid * F * (2 if w is not None else 1) / F32_FLOP_PER_S * 1e3
         gather_ms = (T * C * (F * 2 + meta) + out_bytes) / HBM_BYTES_PER_S * 1e3
         gather_bound[s["key"]] = gather_ms
         rows.append(dict(
             name=s["name"], route="cuda", source=s["source"],
             replaces=s["replaces"], launches=launches[s["key"]],
             max_abs_err=err16, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_ms=bound["F256_bf16"][0], bound_by=bound["F256_bf16"][1],
             library_ms=library_ms,
-            max_abs_err_f32=err32,
+            max_abs_err_f32=err32, ms_by_case=ms_by,
+            bound_ms_by_case={k: v[0] for k, v in bound.items()},
             shape=dict(T=T, C=C, W=b.rows_per_block, F=F, N=int(s["xb"].shape[0]),
                        valid_lanes=valid, dtype="bfloat16"),
             library_call="torch.sparse.mm(CSR bfloat16, dense bfloat16)",
             library_f32_ms=library_f32_ms))
         log(f"kernel {s['name']}: T={T} C={C} F={F} lanes valid {valid}: "
-            f"{ms:.3f} ms (bound {max(t_bytes, t_ops):.3f} ms by bytes; "
-            f"derived lane-gather time {gather_ms:.3f} ms), plain "
-            f"{plain_ms:.3f} ms, library {library_ms:.3f} ms (float32 "
+            f"{ms:.3f} ms (bound {bound['F256_bf16'][0]:.3f} ms by "
+            f"{bound['F256_bf16'][1]}; derived lane-gather time "
+            f"{gather_ms:.3f} ms), by case "
+            + ", ".join(f"{k} {v:.3f} ms (bound {bound[k][0]:.3f})"
+                        for k, v in ms_by.items())
+            + f"; plain {plain_ms:.3f} ms, library {library_ms:.3f} ms (float32 "
             f"{library_f32_ms:.3f} ms), launches on main path "
             f"{launches[s['key']]}, worst wrapper err bf16 {err16:.2e} "
             f"f32 {err32:.2e}")

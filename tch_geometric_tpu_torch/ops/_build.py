@@ -29,8 +29,8 @@ _vp, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # library -> {C function: (restype, argtypes)}
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "spmm_blocked": {
-        "tgt_spmm_blocked": (_i, [_vp, _i, _vp, _vp, _vp, _vp,
-                                  _i, _i, _i, _i, _vp, _vp]),
+        "tgt_spmm_blocked": (_i, [_vp, _i, _vp, _vp, _vp, _vp, _vp,
+                                  _i, _i, _i, _i, _i, _vp, _vp]),
         "tgt_spmm_blocked_q8": (_i, [_vp, _vp, _vp, _vp, _vp,
                                      _i, _i, _i, _i, _vp, _vp]),
         "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),

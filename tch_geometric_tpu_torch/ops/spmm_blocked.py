@@ -24,7 +24,13 @@ import torch
 
 @dataclass
 class BlockedCsr:
-    """Chunked blocked-ELL layout of a CSR graph (device tensors)."""
+    """Chunked blocked-ELL layout of a CSR graph (device tensors).
+
+    Each chunk's live lanes are one contiguous CSR range of its row block
+    (in any order within the chunk), so a chunk covers a contiguous range
+    of rows and only its first and last row can have lanes in another
+    chunk.  The CUDA kernels B1 and B2 rely on it: they store the other
+    rows without atomics.  A builder must keep it."""
 
     edge_src: torch.Tensor                 # (T, C) int32 padded source ids
     edge_local_row: torch.Tensor           # (T, C) int32 row in block, W on pads
@@ -115,7 +121,9 @@ def _build_blocked_np(indptr, indices, rows_per_block=128, chunk_edges=None,
     offs_c = np.minimum(offs, E - 1) if E > 0 else np.zeros_like(offs)
     edge_src = np.where(valid, indices[offs_c], 0).astype(np.int32)
     if sort_chunk_sources and E > 0:
-        # stable per-chunk sort by (valid last, src); local_row follows
+        # stable per-chunk sort by (valid last, src); local_row follows.  It
+        # permutes lanes within a chunk only: each chunk's live lanes stay
+        # one contiguous CSR range, which B1 and B2 rely on (BlockedCsr)
         order = np.lexsort((edge_src, ~valid), axis=-1)
         take = np.take_along_axis
         edge_src = take(edge_src, order, axis=1)

@@ -34,9 +34,9 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
 
 def _launch(b: BlockedCsr, xc: torch.Tensor, weight: Optional[torch.Tensor],
             row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``tgt_spmm_blocked`` (or, for int8 rows with their
-    ``row_scale``, ``tgt_spmm_blocked_q8``) on the current stream; returns
-    the (B*W, F) float32 output."""
+    """Launch ``tgt_spmm_blocked`` (B1, B2) or, for int8 rows with their
+    ``row_scale``, ``tgt_spmm_blocked_q8`` (B11) on the current stream;
+    returns the (B*W, F) float32 output."""
     if xc.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
                          f"{xc.device}")
@@ -47,14 +47,16 @@ def _launch(b: BlockedCsr, xc: torch.Tensor, weight: Optional[torch.Tensor],
         raise TypeError(f"x must be float32 or bfloat16, got {xc.dtype}")
     if xc.dim() != 2 or not xc.is_contiguous():
         raise ValueError("x must be a contiguous (N, F) tensor")
-    if xc.shape[1] % 2 == 0 and xc.data_ptr() % (2 * xc.element_size()):
-        # with F even the kernel loads two columns at a time
-        raise ValueError("x must start at a multiple of two elements")
+    if q8 and xc.shape[1] % 2 == 0 and xc.data_ptr() % 2:
+        # with F even B11 loads two columns at a time (B1 and B2 pick their
+        # load width from the alignment)
+        raise ValueError("q must start at a multiple of two elements")
     T, C = b.edge_src.shape
     B, W, F = b.num_blocks, b.rows_per_block, xc.shape[1]
     dev = xc.device
     _check(b.edge_src, "edge_src", torch.int32, (T, C), dev)
     _check(b.edge_local_row, "edge_local_row", torch.int32, (T, C), dev)
+    _check(b.chunk_block, "chunk_block", torch.int32, (T,), dev)
     _check(b.block_start, "block_start", torch.int32, (B + 1,), dev)
     if weight is not None:
         _check(weight, "edge_weight", torch.float32, (T, C), dev)
@@ -77,7 +79,8 @@ def _launch(b: BlockedCsr, xc: torch.Tensor, weight: Optional[torch.Tensor],
             rc = lib.tgt_spmm_blocked(
                 xc.data_ptr(), int(xc.dtype == torch.bfloat16), *layout,
                 None if weight is None else weight.data_ptr(),
-                b.block_start.data_ptr(), B, C, W, F, out.data_ptr(), stream)
+                b.chunk_block.data_ptr(), b.block_start.data_ptr(), T, B, C,
+                W, F, out.data_ptr(), stream)
     if rc != 0:
         msg = lib.tgt_cuda_error_string(rc).decode()
         raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")
@@ -192,7 +195,7 @@ def spmm_blocked_q8_cuda(b: BlockedCsr, q: torch.Tensor,
                          row_scale: torch.Tensor, *,
                          agg: str = "sum") -> torch.Tensor:
     """B11: :func:`spmm_blocked_q8` through the hand-written Hopper kernel
-    (B1's kernel over int8 rows; each lane's weight ``bf16(scale[src])``)
+    (a tile kernel over int8 rows; each lane's weight ``bf16(scale[src])``)
     on a CUDA tensor; the plain version on a CPU tensor.  Differs from the
     plain version only in summation order."""
     if q.device.type == "cpu":

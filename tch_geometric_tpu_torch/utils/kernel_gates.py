@@ -21,6 +21,9 @@ version; the gates matter on the card.
 Layouts: the power-law testbed of the JAX gates (n=4096, e=65536, F=128 or
 H=4 heads of D=32, W=256) and three edge cases — rows (and whole blocks)
 with no edges, one block spanning many chunks, and ``num_rows % W != 0``;
+the SpMM gates (B1, B2, the hot split) also a hub row of 1,000 in-edges
+(:func:`hub_row_graph`), and :func:`run_spmm_mode_gates` holds B1 and B2
+in their multi-pass mode (chunks wider than the kernel's stage);
 the GAT kernels B3, B7, B8 and B9 also run one head of D=47 on the testbed
 (GAT's last layer at ogbn-products width, an odd row width); the ragged
 case's rows are 37 columns wide.
@@ -39,10 +42,16 @@ import torch
 # differ only by summation order; B2 multiplies its float32 weight in
 # float32 while the plain version rounds it to bfloat16 first (2**-9
 # relative), which with U(0, 1) weights over ~16 mean-degree rows of N(0, 1)
-# features reaches about 2e-2.  B3 rounds at the same points as its plain
-# version (h, each lane's weight and their product in bfloat16, every sum in
-# float32), so it differs by summation order and the rare term whose
-# rounding flips.  B5's products of bfloat16 rows are exact in float32, so
+# features reaches about 2e-2, and over the hub row's 1,000 lanes about
+# 6e-2, so the bfloat16 SpMM gates draw weights that bfloat16 holds exactly
+# and B2 too differs only by summation order (the float32 gates keep U(0, 1)
+# float32 weights, which hold B2's float32 product; :func:`_lane_weights`).
+# B1's and B2's summation order changes from run to run: shared-memory
+# atomics order each row's lanes and global atomics add a row split over
+# several pieces (csrc/spmm_blocked.cu).  B3 rounds at the
+# same points as its plain version (h, each lane's weight and their
+# product in bfloat16, every sum in float32), so it differs by summation
+# order and the rare term whose rounding flips.  B5's products of bfloat16 rows are exact in float32, so
 # in bfloat16 too it differs only by summation order (1.5e-5 on scores up
 # to about 60 on the card); B6 and B7 are float32 throughout (2.4e-7 and
 # 1.8e-7).  B8 rounds each term bf16(x * w) from the same float32 weight as
@@ -66,7 +75,7 @@ import torch
 # well below the values compared.
 F32_THRESHOLD = 5e-4
 BF16_THRESHOLDS = {"spmm_blocked_cuda": 1e-3, "spmm_hot_split": 1e-3,
-                   "spmm_blocked_weighted_cuda": 5e-2,
+                   "spmm_blocked_weighted_cuda": 1e-3,
                    "gat_attend_blocked_packed_cuda": 1e-3,
                    "sddmm_blocked_cuda": 1e-3,
                    "edge_softmax_blocked_cuda": 1e-5,
@@ -154,6 +163,35 @@ def edge_case_graphs(f: int = 32, seed: int = 1
            rng.normal(size=(n, f + 5)).astype(np.float32), 256, None)
 
 
+def hub_row_graph(f: int = 32, seed: int = 2
+                  ) -> Tuple[str, np.ndarray, np.ndarray, np.ndarray, int,
+                             int]:
+    """``(name, indptr, src, x, rows_per_block, chunk_edges)`` of the hub-row
+    case of the SpMM gates: row 70 has 1,000 in-edges, every other row 0-3,
+    at W = C = 128, so the hub row fills several whole chunks and B1/B2 cut
+    it into many pieces.  The rows are ``f + 2`` wide, 2 mod 4 for the
+    default ``f``, so B1 and B2 take their 8-byte (float32) and 4-byte
+    (bfloat16) loads and float2 reductions."""
+    rng = np.random.default_rng(seed)
+    n = 512
+    deg = rng.integers(0, 4, n)
+    deg[70] = 1000
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    src = rng.integers(0, n, int(indptr[-1]))
+    return ("hub_row", indptr, src,
+            rng.normal(size=(n, f + 2)).astype(np.float32), 128, 128)
+
+
+def _lane_weights(b, compute_dtype) -> torch.Tensor:
+    """U(0, 1) float32 weights of the lanes of ``b``, seeded; for bfloat16
+    gates rounded to values that bfloat16 holds exactly."""
+    gen = torch.Generator().manual_seed(0)
+    w = torch.rand(b.edge_src.shape, generator=gen)
+    if compute_dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16).float()
+    return w.to(b.edge_src.device)
+
+
 def _maxerr(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -180,7 +218,7 @@ def run_kernel_gates(compute_dtype=torch.float32, device="cuda"
 
     indptr, src, x_np = build_testbed()
     cases = [("testbed", indptr, src, x_np, 256, None)]
-    cases += list(edge_case_graphs())
+    cases += list(edge_case_graphs()) + [hub_row_graph()]
     errs: Dict[str, float] = {}
     cd = compute_dtype
     with _strict_f32():
@@ -190,8 +228,7 @@ def run_kernel_gates(compute_dtype=torch.float32, device="cuda"
                               device=device)
             hs = build_blocked_hot(indptr, src, hot_k=256, rows_per_block=W,
                                    chunk_edges=C, device=device)
-            gen = torch.Generator().manual_seed(0)
-            w = torch.rand(b.edge_src.shape, generator=gen).to(device)
+            w = _lane_weights(b, cd)
             ref = spmm_blocked(b, x, agg="mean", compute_dtype=cd)
             errs[f"{name}/spmm_blocked_cuda"] = _maxerr(
                 spmm_blocked_cuda(b, x, agg="mean", compute_dtype=cd), ref)
@@ -200,6 +237,39 @@ def run_kernel_gates(compute_dtype=torch.float32, device="cuda"
                 spmm_blocked(b, x, edge_weight=w, compute_dtype=cd))
             errs[f"{name}/spmm_hot_split"] = _maxerr(
                 spmm_hot_split(hs, x, agg="mean", compute_dtype=cd), ref)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return errs
+
+
+def run_spmm_mode_gates(compute_dtype=torch.float32, device="cuda"
+                        ) -> Dict[str, float]:
+    """``{case[C=8192]/kernel: max_abs_err}`` of B1 and B2 against their
+    plain version on the testbed and the hub-row case laid out in chunks of
+    8,192 lanes: wider than the lanes the kernel stages at once (4,096), so
+    it zeroes the whole output, stages each chunk in passes and adds every
+    piece (on the testbed a row's lanes fall in both passes)."""
+    from ..ops.attention_blocked import spmm_blocked_weighted_cuda
+    from ..ops.spmm_blocked import build_blocked, spmm_blocked
+    from ..ops.spmm_kernels import spmm_blocked_cuda
+
+    indptr, src, x_np = build_testbed()
+    hub = hub_row_graph()
+    cases = [("testbed", indptr, src, x_np, 256), hub[:5]]
+    errs: Dict[str, float] = {}
+    cd = compute_dtype
+    with _strict_f32():
+        for name, indptr, src, x_np, W in cases:
+            x = torch.from_numpy(x_np).to(device)
+            b = build_blocked(indptr, src, rows_per_block=W, chunk_edges=8192,
+                              device=device)
+            w = _lane_weights(b, cd)
+            errs[f"{name}[C=8192]/spmm_blocked_cuda"] = _maxerr(
+                spmm_blocked_cuda(b, x, agg="mean", compute_dtype=cd),
+                spmm_blocked(b, x, agg="mean", compute_dtype=cd))
+            errs[f"{name}[C=8192]/spmm_blocked_weighted_cuda"] = _maxerr(
+                spmm_blocked_weighted_cuda(b, x, w, compute_dtype=cd),
+                spmm_blocked(b, x, edge_weight=w, compute_dtype=cd))
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return errs

@@ -50,6 +50,8 @@ def _cases():
     out = {"powerlaw": (indptr, src, x, 128, None)}
     for name, ip, s, xx, W, C in kernel_gates.edge_case_graphs(f=16):
         out[name] = (ip, s, xx, W, C)
+    name, ip, s, xx, W, C = kernel_gates.hub_row_graph(f=16)
+    out[name] = (ip, s, xx, W, C)
     return out
 
 
@@ -208,13 +210,23 @@ def test_plain_spmm_matches(agg):
     (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
 def test_kernel_gates_harness_on_cpu(dtype, threshold):
     errs = kernel_gates.run_kernel_gates(dtype, device="cpu")
-    assert len(errs) == 12
+    assert len(errs) == 15
+    ok, worst = kernel_gates.gate(errs, threshold)
+    assert ok, worst
+
+
+@pytest.mark.parametrize("dtype,threshold", [
+    (torch.float32, kernel_gates.F32_THRESHOLD),
+    (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
+def test_spmm_mode_gates_harness_on_cpu(dtype, threshold):
+    errs = kernel_gates.run_spmm_mode_gates(dtype, device="cpu")
+    assert len(errs) == 4
     ok, worst = kernel_gates.gate(errs, threshold)
     assert ok, worst
 
 
 def test_kernel_gate_limits_per_kernel():
-    errs = {"a/spmm_blocked_cuda": 8e-4, "a/spmm_blocked_weighted_cuda": 3e-2}
+    errs = {"a/spmm_blocked_cuda": 8e-4, "a/attend_blocked_cuda": 3e-2}
     ok, worst = kernel_gates.gate(errs, kernel_gates.BF16_THRESHOLDS)
     assert ok and worst.startswith("a/spmm_blocked_cuda")
     errs["b/spmm_hot_split"] = 2e-3
