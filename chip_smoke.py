@@ -20,8 +20,11 @@ prints no result line):
    edge cases (the GAT kernels also at one head of 47 columns; the ragged
    case at 37 columns; B1, B2 and the hot split also on a hub row of 1,000
    lanes at 34 columns, and B1 and B2 in their multi-pass mode on chunks
-   of 8,192 lanes), in float32 (5e-4, TF32 off) and bfloat16 (per-kernel limits of
-   ``utils/kernel_gates.py``);
+   of 8,192 lanes; B5 and B4 (both stat modes) also on the hub row, the
+   multi-pass layout, rows of 320 columns, a distinct x_dst with fewer rows
+   than the layout and a "far scores" case in which one chunk's scores sit
+   150 above the rest of its row block), in float32 (5e-4, TF32 off) and
+   bfloat16 (per-kernel limits of ``utils/kernel_gates.py``);
 3. the GraphSAGE serving path at ogbn-products size (synthetic graph with
    the dataset's node/edge counts, 100 features, 47 classes; model
    hidden=256, 3 layers, random weights from a seed):
@@ -150,6 +153,7 @@ def phase_kernel_checks(device):
         errs.update(kg.run_gat_gates(dtype, device=device))
         errs.update(kg.run_gat_route_gates(dtype, device=device))
         errs.update(kg.run_attend_gates(dtype, device=device))
+        errs.update(kg.run_attend_mode_gates(dtype, device=device))
         errs.update(kg.run_q8_gates(dtype, device=device))
         ok, worst = kg.gate(errs, thr)
         log(f"kernel checks {str(dtype)[6:]} (limits {thr}): "
@@ -1112,8 +1116,13 @@ def attend_kernel_numbers(p, xs, launches, device):
             shape=dict(T=T, C=C, W=W, F=F, N=n, valid_lanes=valid,
                        dtype="bfloat16"))
         if key == "attend_blocked_flash_cuda":
+            # the split-row slots of the last timed call (F=256 bf16): each
+            # holds its row, m, z and F float32 sums
+            slots = ab.attend_blocked_flash_cuda.last_slots
             row.update(ms_scalar=ms[key + "[scalar]"],
-                       plain_ms_scalar=plain_ms[key + "[scalar]"])
+                       plain_ms_scalar=plain_ms[key + "[scalar]"],
+                       split_slots=slots,
+                       split_scratch_bytes=slots * (F + 3) * 4)
         if key == "sddmm_blocked_cuda":
             row.update(ms_f32=ms_b5_f32)
         rows.append(row)
@@ -1124,8 +1133,9 @@ def attend_kernel_numbers(p, xs, launches, device):
             f"{launches[key]}, worst wrapper err bf16 {e16:.2e} f32 "
             f"{e32:.2e}"
             + (f"; scalar stats {ms[key + '[scalar]']:.3f} ms, plain "
-               f"{plain_ms[key + '[scalar]']:.3f} ms"
-               if key == "attend_blocked_flash_cuda" else "")
+               f"{plain_ms[key + '[scalar]']:.3f} ms; split-row slots "
+               f"{row['split_slots']} ({row['split_scratch_bytes'] / 1e9:.3f}"
+               f" GB)" if key == "attend_blocked_flash_cuda" else "")
             + (f"; float32 rows {ms_b5_f32:.3f} ms"
                if key == "sddmm_blocked_cuda" else ""))
     return rows

@@ -36,28 +36,15 @@ import torch
 import chip_smoke
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scale", type=float, default=1.0)
-    ap.add_argument("--out", type=Path, default=None,
-                    help="also write the JSON object to this file")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("time_spmm_blocked: CUDA is not available", file=sys.stderr)
-        return 2
-    import tch_geometric_tpu_torch as pkg
-    from tch_geometric_tpu_torch.ops import _build
+def spmm_cases(p, device):
+    """``{name: (fn, calls)}``: B1, B2 and B11 at chip_smoke's shapes (10
+    calls each) and the SAGE forward over both layouts (3 calls each), on
+    the layouts and model of ``chip_smoke.host_prep``."""
     from tch_geometric_tpu_torch.ops.attention_blocked import \
         spmm_blocked_weighted_cuda
     from tch_geometric_tpu_torch.ops.spmm_kernels import (
         quantize_rows, spmm_blocked_cuda, spmm_blocked_q8_cuda)
 
-    device = torch.device("cuda", 0)
-    card = chip_smoke.gpu_line()
-    t0 = time.perf_counter()
-    _build.build_all(["spmm_blocked"])
-    build_s = time.perf_counter() - t0
-    p, _ = chip_smoke.host_prep(args.scale, device)
     blocked, hot, x_table = p["blocked"], p["hot"], p["x_table"]
     n = x_table.shape[0]
     x32 = torch.randn((n, 256), generator=torch.Generator().manual_seed(3)
@@ -81,22 +68,50 @@ def main(argv=None) -> int:
         "B2_hot_F100_bf16": b2(x_table[hot.hot_ids].to(torch.bfloat16)),
         "B11_F256": lambda: spmm_blocked_q8_cuda(blocked, q, s, agg="sum"),
     }
+    out = {k: (fn, 10) for k, fn in cases.items()}
     model = p["model"]
-    forward = {f"forward_{name}": (lambda layout=layout:
-                                   model.blocked_forward(x_table, layout))
-               for name, layout in (("blocked", blocked), ("hot_split", hot))}
+    for name, layout in (("blocked", blocked), ("hot_split", hot)):
+        out[f"forward_{name}"] = (
+            lambda layout=layout: model.blocked_forward(x_table, layout), 3)
+    return out
+
+
+def time_cases(cases, res):
+    """Times each ``(fn, calls)`` of ``cases`` by ``chip_smoke.cuda_ms``
+    into ``res["ms"]``, beside its output's float64 sum in ``res["sum"]``."""
+    with torch.no_grad():
+        for name, (fn, calls) in cases.items():
+            res["sum"][name] = float(fn().double().sum())
+            res["ms"][name] = chip_smoke.cuda_ms(fn, calls)
+            print(name, res["ms"][name], res["sum"][name], flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--out", type=Path, default=None,
+                    help="also write the JSON object to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("time_spmm_blocked: CUDA is not available", file=sys.stderr)
+        return 2
+    import tch_geometric_tpu_torch as pkg
+    from tch_geometric_tpu_torch.ops import _build
+
+    device = torch.device("cuda", 0)
+    card = chip_smoke.gpu_line()
+    t0 = time.perf_counter()
+    _build.build_all(["spmm_blocked"])
+    build_s = time.perf_counter() - t0
+    p, _ = chip_smoke.host_prep(args.scale, device)
+    blocked, hb = p["blocked"], p["hot"].hot
     res = {"package": str(Path(pkg.__file__).parent), "card": card,
            "scale": args.scale, "build_s": build_s,
-           "shape": dict(N=n, T=blocked.num_chunks, C=blocked.chunk_edges,
-                         hot_T=hb.num_chunks, hot_C=hb.chunk_edges,
-                         W=blocked.rows_per_block),
+           "shape": dict(N=p["x_table"].shape[0], T=blocked.num_chunks,
+                         C=blocked.chunk_edges, hot_T=hb.num_chunks,
+                         hot_C=hb.chunk_edges, W=blocked.rows_per_block),
            "ms": {}, "sum": {}}
-    with torch.no_grad():
-        for name, fn in list(cases.items()) + list(forward.items()):
-            res["sum"][name] = float(fn().double().sum())
-            res["ms"][name] = chip_smoke.cuda_ms(
-                fn, 3 if name.startswith("forward") else 10)
-            print(name, res["ms"][name], res["sum"][name], flush=True)
+    time_cases(spmm_cases(p, device), res)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(res, indent=1))

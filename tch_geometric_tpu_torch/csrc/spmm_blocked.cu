@@ -92,81 +92,17 @@ using blocked::kTileF;
 
 // ---- B1 and B2: row-grouped chunks ----------------------------------------
 
-constexpr int kRowThreads = 256;         // 8 warps per CUDA block
-constexpr int kRowWarps = kRowThreads / 32;
+using blocked::kAcc;
+using blocked::kMaxStage;
+using blocked::kPiece;
+using blocked::kRowThreads;
+using blocked::kRowWarps;
+using blocked::kSlab;
+using blocked::Piece;
+using blocked::put;
+using blocked::Vec;
+
 constexpr int kRowMinBlocks = 4;         // at most 64 registers a thread
-constexpr int kPiece = 32;               // lanes of one row a warp takes
-constexpr int kMaxStage = 4096;          // lanes staged per pass
-constexpr int kAcc = 8;                  // f32 sums a thread holds
-constexpr int kSlab = 32 * kAcc;         // columns a warp covers at once
-
-// kVec elements of T as one load.
-template <typename T, int kVec> struct Vec;
-template <> struct Vec<float, 4> { using Raw = float4; };
-template <> struct Vec<float, 2> { using Raw = float2; };
-template <> struct Vec<float, 1> { using Raw = float; };
-template <> struct Vec<__nv_bfloat16, 8> { using Raw = uint4; };
-template <> struct Vec<__nv_bfloat16, 4> { using Raw = uint2; };
-template <> struct Vec<__nv_bfloat16, 2> { using Raw = unsigned; };
-template <> struct Vec<__nv_bfloat16, 1> { using Raw = unsigned short; };
-
-// bf16 -> f32 is exact: the bf16 bits are the high half of the f32 ones.
-__device__ __forceinline__ float bf16_lo(unsigned w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-__device__ __forceinline__ void unpack(float4 v, float* f) {
-  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-}
-__device__ __forceinline__ void unpack(float2 v, float* f) {
-  f[0] = v.x; f[1] = v.y;
-}
-__device__ __forceinline__ void unpack(float v, float* f) { f[0] = v; }
-__device__ __forceinline__ void unpack(uint4 v, float* f) {
-  f[0] = bf16_lo(v.x); f[1] = bf16_hi(v.x); f[2] = bf16_lo(v.y);
-  f[3] = bf16_hi(v.y); f[4] = bf16_lo(v.z); f[5] = bf16_hi(v.z);
-  f[6] = bf16_lo(v.w); f[7] = bf16_hi(v.w);
-}
-__device__ __forceinline__ void unpack(uint2 v, float* f) {
-  f[0] = bf16_lo(v.x); f[1] = bf16_hi(v.x); f[2] = bf16_lo(v.y);
-  f[3] = bf16_hi(v.y);
-}
-__device__ __forceinline__ void unpack(unsigned v, float* f) {
-  f[0] = bf16_lo(v); f[1] = bf16_hi(v);
-}
-__device__ __forceinline__ void unpack(unsigned short v, float* f) {
-  f[0] = bf16_lo(v);
-}
-
-// Stores (add == false) or atomically adds kVec f32 values at o, as float4,
-// float2 or float accesses (o is aligned to min(kVec, 4) floats).
-template <int kVec>
-__device__ __forceinline__ void put(float* o, const float* f, bool add) {
-  if constexpr (kVec >= 4) {
-#pragma unroll
-    for (int i = 0; i < kVec; i += 4) {
-      const float4 v = make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
-      if (add) atomicAdd(reinterpret_cast<float4*>(o + i), v);
-      else *reinterpret_cast<float4*>(o + i) = v;
-    }
-  } else if constexpr (kVec == 2) {
-    const float2 v = make_float2(f[0], f[1]);
-    if (add) atomicAdd(reinterpret_cast<float2*>(o), v);
-    else *reinterpret_cast<float2*>(o) = v;
-  } else {
-    if (add) atomicAdd(o, f[0]);
-    else *o = f[0];
-  }
-}
-
-// One piece of a row run: lanes [start, start + len) of the sorted chunk,
-// len <= 32, all of destination row `row`; `own`: store the sum, else add.
-struct Piece {
-  int start, row, len, own;
-};
 
 // One warp adds the rows x[src_s[start + j]] (times w_s[start + j] when
 // kWeighted) of a piece and writes the f32 sum to out_row.  Thread `lane`
@@ -179,9 +115,8 @@ __device__ __forceinline__ void add_piece(const T* __restrict__ x, int F,
                                           int lane) {
   using Raw = typename Vec<T, kVec>::Raw;
   constexpr int kNV = kAcc / kVec;       // vectors a thread holds
-  constexpr int kRegs = (sizeof(Raw) + 3) / 4;
-  // rows in flight before their adds: 32 registers of loads a thread
-  constexpr int kDepth = 32 / (kNV * kRegs) < 8 ? 32 / (kNV * kRegs) : 8;
+  // rows in flight before their adds
+  constexpr int kDepth = blocked::load_depth<T, kVec>();
   const int my_src = lane < pc.len ? src_s[pc.start + lane] : 0;
   float my_w = 0.f;
   if (kWeighted && lane < pc.len) my_w = w_s[pc.start + lane];
@@ -217,7 +152,7 @@ __device__ __forceinline__ void add_piece(const T* __restrict__ x, int F,
           for (int k = 0; k < kNV; ++k) {
             if (!has[k]) continue;
             float f[kVec];
-            unpack(v[u][k], f);
+            blocked::unpack(v[u][k], f);
 #pragma unroll
             for (int e = 0; e < kVec; ++e)
               acc[k * kVec + e] += kWeighted ? w * f[e] : f[e];
@@ -231,58 +166,10 @@ __device__ __forceinline__ void add_piece(const T* __restrict__ x, int F,
   }
 }
 
-// scan[0..W) holds each row's live-lane count.  Rewrites scan[r] to (the
-// row's first lane, its first piece) in the sorted chunk — exclusive sums
-// of the counts and of ceil(count / kPiece) — and scan[W] to the totals.
-// Called by the whole block; ends with a barrier.
-__device__ void scan_rows(int2* scan, int W) {
-  __shared__ int2 warp_sum[kRowWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per = (W + kRowThreads - 1) / kRowThreads;
-  const int r0 = min(static_cast<int>(threadIdx.x) * per, W);
-  const int r1 = min(r0 + per, W);
-  int2 mine = make_int2(0, 0);
-  for (int r = r0; r < r1; ++r) {
-    mine.x += scan[r].x;
-    mine.y += (scan[r].x + kPiece - 1) / kPiece;
-  }
-  int2 inc = mine;                       // inclusive sums over the warp
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int ax = __shfl_up_sync(kFull, inc.x, d);
-    const int ay = __shfl_up_sync(kFull, inc.y, d);
-    if (lane >= d) {
-      inc.x += ax;
-      inc.y += ay;
-    }
-  }
-  if (lane == 31) warp_sum[warp] = inc;
-  __syncthreads();
-  int2 run = make_int2(inc.x - mine.x, inc.y - mine.y);
-  for (int w = 0; w < warp; ++w) {
-    run.x += warp_sum[w].x;
-    run.y += warp_sum[w].y;
-  }
-  for (int r = r0; r < r1; ++r) {
-    const int c = scan[r].x;
-    scan[r] = run;
-    run.x += c;
-    run.y += (c + kPiece - 1) / kPiece;
-  }
-  if (threadIdx.x == kRowThreads - 1) scan[W] = run;
-  __syncthreads();
-}
-
-// Shared memory of spmm_rows_kernel for `stage` lanes a pass: the pieces,
-// the scan, the row cursors, and the staged rows, sources (and weights).
-__host__ __device__ inline int max_pieces(int stage, int W) {
-  return stage / kPiece + W + 1;
-}
+// Shared memory of spmm_rows_kernel for `stage` lanes a pass: the stage
+// and the sorted sources (and weights).
 inline size_t rows_smem_bytes(int stage, int W, bool weighted) {
-  return static_cast<size_t>(max_pieces(stage, W)) * sizeof(Piece) +
-         static_cast<size_t>(W + 1) * sizeof(int2) +
-         static_cast<size_t>(W) * sizeof(int) +
-         static_cast<size_t>(stage) * sizeof(int) * (weighted ? 3 : 2);
+  return blocked::stage_smem_bytes(stage, W, weighted ? 2 : 1);
 }
 
 template <typename T, int kVec, bool kWeighted>
@@ -293,11 +180,8 @@ spmm_rows_kernel(const T* __restrict__ x, const int32_t* __restrict__ edge_src,
                  const int32_t* __restrict__ chunk_block, int C, int W, int F,
                  int stage, int direct, float* __restrict__ out) {
   extern __shared__ int4 smem[];
-  Piece* piece = reinterpret_cast<Piece*>(smem);
-  int2* scan = reinterpret_cast<int2*>(piece + max_pieces(stage, W));
-  int* cursor = reinterpret_cast<int*>(scan + W + 1);
-  int* row_s = cursor + W;
-  int* src_s = row_s + stage;
+  const blocked::Stage st(smem, stage, W);
+  int* src_s = st.lanes;
   float* w_s = reinterpret_cast<float*>(src_s + stage);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t chunk0 = static_cast<int64_t>(blockIdx.x) * C;
@@ -307,42 +191,17 @@ spmm_rows_kernel(const T* __restrict__ x, const int32_t* __restrict__ edge_src,
   for (int s0 = 0; s0 < C; s0 += stage) {
     const int n = min(stage, C - s0);
     const int64_t e0 = chunk0 + s0;
-    for (int r = threadIdx.x; r <= W; r += kRowThreads)
-      scan[r] = make_int2(0, 0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += kRowThreads) {
-      const int r = local_row[e0 + i];
-      row_s[i] = r;
-      if (r < W) atomicAdd(&scan[r].x, 1);
-    }
-    __syncthreads();
-    scan_rows(scan, W);
     // a row whose lanes all lie in this pass, in one piece, and that is
-    // neither the chunk's first row (first lane 0) nor its last is stored
-    const int live = scan[W].x;
-    const bool whole = direct && n == C;
-    for (int r = threadIdx.x; r < W; r += kRowThreads) {
-      const int first = scan[r].x, cnt = scan[r + 1].x - first;
-      cursor[r] = first;
-      const int own = whole && cnt <= kPiece && first > 0 &&
-                      first + cnt < live;
-      for (int q = 0; q * kPiece < cnt; ++q)
-        piece[scan[r].y + q] = Piece{first + q * kPiece, r,
-                                     min(kPiece, cnt - q * kPiece), own};
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += kRowThreads) {
-      const int r = row_s[i];
-      if (r < W) {
-        const int pos = atomicAdd(&cursor[r], 1);
-        src_s[pos] = edge_src[e0 + i];
-        if (kWeighted) w_s[pos] = weight[e0 + i];
-      }
-    }
-    __syncthreads();
-    const int num_pieces = scan[W].y;
+    // neither the chunk's first row nor its last is stored
+    const int num_pieces = blocked::stage_pass(
+        local_row, e0, n, W, direct && n == C, st,
+        [&](int i, int pos) {
+          src_s[pos] = edge_src[e0 + i];
+          if (kWeighted) w_s[pos] = weight[e0 + i];
+        },
+        [](int) {});
     for (int p = warp; p < num_pieces; p += kRowWarps) {
-      const Piece pc = piece[p];
+      const Piece pc = st.piece[p];
       add_piece<T, kVec, kWeighted>(x, F, src_s, w_s, pc,
                                     out_block + static_cast<int64_t>(pc.row) * F,
                                     lane);
@@ -444,16 +303,6 @@ cudaError_t launch_rows(const void* x, const int32_t* edge_src,
   return cudaGetLastError();
 }
 
-// Elements per load: the widest of 16, 8 and 4 bytes that divides the row
-// (F elements) and the address of x, else one element.
-inline int vec_elems(const void* x, int F, int elem_bytes) {
-  const int64_t row = static_cast<int64_t>(F) * elem_bytes;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
-  for (int bytes = 16; bytes >= 4; bytes /= 2)
-    if (row % bytes == 0 && addr % bytes == 0) return bytes / elem_bytes;
-  return 1;
-}
-
 template <bool kWeighted>
 cudaError_t launch_rows_by_type(const void* x, int x_is_bf16,
                                 const int32_t* edge_src,
@@ -467,14 +316,14 @@ cudaError_t launch_rows_by_type(const void* x, int x_is_bf16,
                                block_start, num_chunks, num_blocks, C, W,   \
                                F, stage, direct, out, s)
   if (x_is_bf16) {
-    switch (vec_elems(x, F, 2)) {
+    switch (blocked::vec_elems(x, F, 2)) {
       case 8: return TGT_ROWS(__nv_bfloat16, 8);
       case 4: return TGT_ROWS(__nv_bfloat16, 4);
       case 2: return TGT_ROWS(__nv_bfloat16, 2);
       default: return TGT_ROWS(__nv_bfloat16, 1);
     }
   }
-  switch (vec_elems(x, F, 4)) {
+  switch (blocked::vec_elems(x, F, 4)) {
     case 4: return TGT_ROWS(float, 4);
     case 2: return TGT_ROWS(float, 2);
     default: return TGT_ROWS(float, 1);

@@ -52,8 +52,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
                                           _vp]),
         "tgt_attend_fused": (_i, [_vp, _i64, _vp, _i, _vp, _vp, _vp,
                                   _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp]),
-        "tgt_attend_flash": (_i, [_vp, _i64, _vp, _i, _i, _vp, _vp, _vp,
-                                  _i, _i, _i, _i, _vp, _vp, _vp]),
+        "tgt_attend_flash_count": (_i, [_vp, _vp, _i, _i, _i, _vp, _vp, _vp,
+                                        _vp]),
+        "tgt_attend_flash": (_i, [_vp, _i64, _vp, _i, _i, _vp, _vp, _vp, _vp,
+                                  _vp, _i, _i, _i, _i, _i, _vp, _vp, _vp, _vp,
+                                  _vp, _vp, _vp, _vp]),
         "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
     "gat_packed": {

@@ -538,9 +538,11 @@ def _run(lib_name: str, dev: torch.device, fn: str, *args) -> None:
 def sddmm_blocked_cuda(b: BlockedCsr, x_dst: torch.Tensor,
                        x_src: torch.Tensor, *,
                        compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """B5: :func:`sddmm_blocked` through the hand-written Hopper kernel on a
-    CUDA tensor; the plain version on a CPU tensor.  Same arguments and
-    result."""
+    """B5: :func:`sddmm_blocked` through the hand-written Hopper kernel
+    (one CUDA block per chunk, its lanes sorted by row; a warp scores a
+    piece of at most 32 lanes of one row against the destination row held
+    in registers) on a CUDA tensor; the plain version on a CPU tensor.
+    Same arguments and result."""
     if x_src.device.type == "cpu":
         return sddmm_blocked(b, x_dst, x_src, compute_dtype=compute_dtype)
     xd, xs = _attend_operands(b, x_dst, x_src, compute_dtype)
@@ -639,9 +641,14 @@ def attend_blocked_flash_cuda(b: BlockedCsr, x_dst: torch.Tensor,
                               compute_dtype=torch.bfloat16,
                               row_stats: bool = True) -> torch.Tensor:
     """B4: :func:`attend_blocked_flash` through the hand-written Hopper
-    kernel (one CUDA block per row block, its 64-column tiles in turn, the
-    scores kept in a (T, C) scratch) on a CUDA tensor; the plain version on
-    a CPU tensor."""
+    kernels on a CUDA tensor; the plain version on a CPU tensor.
+
+    Three kernels make one call: a count of each chunk's split pieces, the
+    main kernel (one CUDA block per chunk, its lanes sorted by row, an
+    online softmax per piece of at most 32 lanes of one row; owned rows
+    stored, split rows' partial (m, z, acc) in slots), and the merge of the
+    split rows.  Between the first two the host reads the number of slots
+    to size their scratch (one synchronisation)."""
     if x_src.device.type == "cpu":
         return attend_blocked_flash(b, x_dst, x_src, scale=scale,
                                     compute_dtype=compute_dtype,
@@ -650,20 +657,39 @@ def attend_blocked_flash_cuda(b: BlockedCsr, x_dst: torch.Tensor,
     xd, xs = _attend_operands(b, x_dst * _attend_scale(F, scale), x_src,
                               compute_dtype)
     T, C = b.edge_src.shape
+    W = b.rows_per_block
+    BW = b.num_blocks * W
     dev = xs.device
-    s = torch.empty((T, C), dtype=torch.float32, device=dev)
-    out = torch.empty((b.num_blocks * b.rows_per_block, F),
-                      dtype=torch.float32, device=dev)
+    _check(b.chunk_block, "chunk_block", torch.int32, (T,), dev)
+    split = torch.empty((T,), dtype=torch.int32, device=dev)
+    row_m = torch.empty((BW,), dtype=torch.float32, device=dev)
+    row_z = torch.empty((BW,), dtype=torch.float32, device=dev)
+    _run("attend_blocked", dev, "tgt_attend_flash_count",
+         b.edge_local_row.data_ptr(), b.chunk_block.data_ptr(), T, C, W,
+         split.data_ptr(), row_m.data_ptr(), row_z.data_ptr())
+    slot_off = torch.zeros((T + 1,), dtype=torch.int32, device=dev)
+    torch.cumsum(split, 0, out=slot_off[1:])
+    S = int(slot_off[-1])
+    slot_row = torch.empty((S,), dtype=torch.int32, device=dev)
+    slot_m = torch.empty((S,), dtype=torch.float32, device=dev)
+    slot_z = torch.empty((S,), dtype=torch.float32, device=dev)
+    slot_acc = torch.empty((S, F), dtype=torch.float32, device=dev)
+    out = torch.empty((BW, F), dtype=torch.float32, device=dev)
     _run("attend_blocked", dev, "tgt_attend_flash", xd.data_ptr(),
          xd.shape[0], xs.data_ptr(), int(compute_dtype == torch.bfloat16),
          int(bool(row_stats)), b.edge_src.data_ptr(),
-         b.edge_local_row.data_ptr(), b.block_start.data_ptr(), b.num_blocks,
-         C, b.rows_per_block, F, s.data_ptr(), out.data_ptr())
+         b.edge_local_row.data_ptr(), b.chunk_block.data_ptr(),
+         b.block_start.data_ptr(), slot_off.data_ptr(), T, b.num_blocks, C,
+         W, F, row_m.data_ptr(), row_z.data_ptr(), slot_row.data_ptr(),
+         slot_m.data_ptr(), slot_z.data_ptr(), slot_acc.data_ptr(),
+         out.data_ptr())
     attend_blocked_flash_cuda.launches += 1
+    attend_blocked_flash_cuda.last_slots = S
     return out[: b.num_rows]
 
 
 attend_blocked_flash_cuda.launches = 0
+attend_blocked_flash_cuda.last_slots = 0   # split-row slots of the last call
 
 
 # ---------------------------------------------------------------------------
@@ -888,3 +914,4 @@ def gat_attend_blocked_flash_cuda(b: BlockedCsr, h: torch.Tensor,
 
 
 gat_attend_blocked_flash_cuda.launches = 0
+attend_blocked_flash_cuda.last_slots = 0   # split-row slots of the last call

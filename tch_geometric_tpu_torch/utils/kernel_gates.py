@@ -12,7 +12,9 @@ single-head attention kernels B5 (``sddmm_blocked_cuda``), B6
 (``edge_softmax_blocked_cuda``), B10 (``attend_blocked_fused_cuda``), B4
 (``attend_blocked_flash_cuda``, both stat modes) and the composed
 ``attend_blocked_cuda`` (B5, B6, B8) — :func:`run_attend_gates` — and B11
-(``spmm_blocked_q8_cuda``, sum and mean) — :func:`run_q8_gates`.  Each
+(``spmm_blocked_q8_cuda``, sum and mean) — :func:`run_q8_gates` — and B5
+and B4 again on the cases that reach their row-grouped kernels' other
+paths — :func:`run_attend_mode_gates`.  Each
 kernel runs on the given device and is compared with its plain version
 (``spmm_blocked``, ``gat_attend_blocked_packed``, ``sddmm_blocked``, ...)
 on the same inputs, computed on the same device.  On a CPU device both sides are the plain
@@ -51,7 +53,14 @@ import torch
 # several pieces (csrc/spmm_blocked.cu).  B3 rounds at the
 # same points as its plain version (h, each lane's weight and their
 # product in bfloat16, every sum in float32), so it differs by summation
-# order and the rare term whose rounding flips.  B5's products of bfloat16 rows are exact in float32, so
+# order and the rare term whose rounding flips.  B4 rounds each lane's
+# weight bf16(e) against its piece's running max (a piece: at most 32 lanes
+# of one row in one chunk; the max moves once per batch of rows in flight,
+# or is the piece's max for rows wider than 256 columns), where the plain
+# version rounds it against the row's running max after each chunk (row
+# stats) or the chunk's max (chunk-max stats): the same weight in exact
+# arithmetic, but any term's bfloat16 rounding can fall the other way, 2**-9
+# of the term.  B5's products of bfloat16 rows are exact in float32, so
 # in bfloat16 too it differs only by summation order (1.5e-5 on scores up
 # to about 60 on the card); B6 and B7 are float32 throughout (2.4e-7 and
 # 1.8e-7).  B8 rounds each term bf16(x * w) from the same float32 weight as
@@ -71,7 +80,8 @@ import torch
 # composed GAT), 1.4e-3 (flash, chunk max), 8.3e-7 (flash, row max), 3.0e-8
 # (B8), 4.8e-7 (B9) and 0 (B11) in bfloat16; at ogbn-products size 7.8e-3
 # (composed GAT, fused), 2.4e-7 (B8) and 9.5e-7 (B9) on outputs up to 3.2
-# (PERF.md, Findings).  Each limit sits well above the card's reading and
+# (PERF.md, Findings; the flash readings are of the per-row tile kernel
+# that B4 replaced).  Each limit sits well above the card's reading and
 # well below the values compared.
 F32_THRESHOLD = 5e-4
 BF16_THRESHOLDS = {"spmm_blocked_cuda": 1e-3, "spmm_hot_split": 1e-3,
@@ -180,6 +190,33 @@ def hub_row_graph(f: int = 32, seed: int = 2
     src = rng.integers(0, n, int(indptr[-1]))
     return ("hub_row", indptr, src,
             rng.normal(size=(n, f + 2)).astype(np.float32), 128, 128)
+
+
+def far_scores_case(f: int = 32, seed: int = 3):
+    """``(name, indptr, src, x_dst, x_src, rows_per_block, chunk_edges,
+    far_rows)`` of the "far scores" case of the attention gates: the
+    many-chunks layout (rows 0-127 of 40 in-edges each fill block 0's 40
+    chunks of 128 lanes, every other row has one; W = C = 128), with
+    ``x_src``'s column 0 set to 1 and ``x_dst``'s column 0 set to
+    ``150 * sqrt(f)`` on rows 16-18, whose lanes all lie in chunk 5.  Their
+    scaled scores (``1/sqrt(f)``) sit near 150, every other lane's near 0:
+    with chunk-max stats (``row_stats=False``) each other row of block 0
+    weighs its lanes by ``exp(s - 150)``, which is 0 in float32, and reads
+    0 (row 19, which shares chunk 5, through its chunk's max, the rest
+    through the block's), while with row stats every row keeps its
+    softmax."""
+    rng = np.random.default_rng(seed)
+    n = 512
+    deg = np.ones(n, np.int64)
+    deg[:128] = 40
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    src = rng.integers(0, n, int(indptr[-1]))
+    x_src = rng.normal(size=(n, f)).astype(np.float32)
+    x_src[:, 0] = 1.0
+    x_dst = rng.normal(size=(n, f)).astype(np.float32)
+    far = np.array([16, 17, 18])
+    x_dst[far, 0] = 150.0 * np.sqrt(f)
+    return ("far_scores", indptr, src, x_dst, x_src, 128, 128, far)
 
 
 def _lane_weights(b, compute_dtype) -> torch.Tensor:
@@ -445,6 +482,55 @@ def run_attend_gates(compute_dtype=torch.float32, device="cuda"
                     _maxerr(ab.attend_blocked_flash_cuda(b, x, x,
                                                          row_stats=rs, **kw),
                             ab.attend_blocked_flash(b, x, x, row_stats=rs,
+                                                    **kw))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return errs
+
+
+def run_attend_mode_gates(compute_dtype=torch.float32, device="cuda"
+                          ) -> Dict[str, float]:
+    """``{case/kernel: max_abs_err}`` of B5 and B4 (both stat modes)
+    against their plain versions on ``device``, on the cases that reach the
+    row-grouped kernels' other paths: the hub row of 1,000 lanes (split
+    over pieces and chunks), the testbed in chunks of 8,192 lanes (more
+    than the kernels stage at once, so every piece is a split one), the
+    testbed at 320 columns (wider than one 256-column register slab: B4's
+    two-sweep path), the testbed with a distinct ``x_dst`` of 300 rows fewer
+    than B*W (rows past it read as zeros), and :func:`far_scores_case`
+    (chunk-max underflow).  B5 scores the scaled ``x_dst`` that B4 sees."""
+    from ..ops import attention_blocked as ab
+    from ..ops.spmm_blocked import build_blocked
+
+    indptr, src, x_np = build_testbed()
+    rng = np.random.default_rng(320)
+    x320 = rng.normal(size=(len(indptr) - 1, 320)).astype(np.float32)
+    short = rng.normal(size=(len(indptr) - 301, 128)).astype(np.float32)
+    hub = hub_row_graph()
+    far = far_scores_case()
+    # (name, indptr, src, x_dst, x_src, rows_per_block, chunk_edges)
+    cases = [hub[:3] + (hub[3],) + hub[3:],
+             ("testbed[C=8192]", indptr, src, x_np, x_np, 256, 8192),
+             ("testbed_f320", indptr, src, x320, x320, 256, None),
+             ("testbed_short_dst", indptr, src, short, x_np, 256, None),
+             far[:7]]
+    errs: Dict[str, float] = {}
+    kw = dict(compute_dtype=compute_dtype)
+    with _strict_f32():
+        for name, ip, s, xd_np, xs_np, W, C in cases:
+            b = build_blocked(ip, s, rows_per_block=W, chunk_edges=C,
+                              device=device)
+            xd = torch.from_numpy(xd_np).to(device)
+            xs = torch.from_numpy(xs_np).to(device)
+            xd_scaled = xd / xs.shape[1] ** 0.5
+            errs[f"{name}/sddmm_blocked_cuda"] = _maxerr(
+                ab.sddmm_blocked_cuda(b, xd_scaled, xs, **kw),
+                ab.sddmm_blocked(b, xd_scaled, xs, **kw))
+            for rs in (True, False):
+                errs[f"{name}[row_stats={rs}]/attend_blocked_flash_cuda"] = \
+                    _maxerr(ab.attend_blocked_flash_cuda(b, xd, xs,
+                                                         row_stats=rs, **kw),
+                            ab.attend_blocked_flash(b, xd, xs, row_stats=rs,
                                                     **kw))
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()

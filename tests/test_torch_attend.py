@@ -277,3 +277,50 @@ def test_attend_gates_harness_on_cpu(dtype, threshold):
                        "attend_blocked_flash_cuda"}
     ok, worst = kernel_gates.gate(errs, threshold)
     assert ok, worst
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("row_stats", [True, False])
+def test_flash_far_scores_matches_jax(row_stats, dtype):
+    """The "far scores" case (``kernel_gates.far_scores_case``): rows 16-18
+    score near 150, every other lane near 0.  The plain flash attention
+    matches the JAX kernel in interpret mode, and with chunk-max stats
+    every other row of block 0 reads exactly 0 (its weights exp(s - 150)
+    underflow: row 19 against its chunk's max, the rest against the
+    block's), while the rows of the other blocks and, with row stats,
+    every row with edges keep their softmax."""
+    jdt, tdt = DTYPES[dtype]
+    _, indptr, src, x_dst, x_src, W, C, far = kernel_gates.far_scores_case()
+    b_t = tsb.build_blocked(indptr, src, rows_per_block=W, chunk_edges=C,
+                            device="cpu")
+    b_j = jsb.build_blocked(indptr, src.astype(np.int32), rows_per_block=W,
+                            chunk_edges=C)
+    ref = np.asarray(jab.attend_blocked_flash(
+        b_j, jnp.asarray(x_dst), jnp.asarray(x_src), compute_dtype=jdt,
+        row_stats=row_stats, interpret=True))
+    out = tab.attend_blocked_flash(
+        b_t, torch.from_numpy(x_dst), torch.from_numpy(x_src),
+        compute_dtype=tdt, row_stats=row_stats).numpy()
+    np.testing.assert_allclose(out, ref, rtol=_tol(dtype), atol=_tol(dtype))
+    zero = ~out.any(axis=1)
+    expect = np.zeros(len(indptr) - 1, bool)
+    if not row_stats:
+        expect[:W] = True
+        expect[far] = False
+    np.testing.assert_array_equal(zero, expect)
+    np.testing.assert_array_equal(~ref.any(axis=1), expect)
+
+
+@pytest.mark.parametrize("dtype,threshold", [
+    (torch.float32, kernel_gates.F32_THRESHOLD),
+    (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
+def test_attend_mode_gates_harness_on_cpu(dtype, threshold):
+    errs = kernel_gates.run_attend_mode_gates(dtype, device="cpu")
+    assert len(errs) == 5 * 3
+    cases = {k.rsplit("/", 1)[0].split("[row_stats")[0] for k in errs}
+    assert cases == {"hub_row", "testbed[C=8192]", "testbed_f320",
+                     "testbed_short_dst", "far_scores"}
+    kernels = {k.rsplit("/", 1)[1] for k in errs}
+    assert kernels == {"sddmm_blocked_cuda", "attend_blocked_flash_cuda"}
+    ok, worst = kernel_gates.gate(errs, threshold)
+    assert ok, worst
