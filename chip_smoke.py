@@ -23,8 +23,11 @@ prints no result line):
    of 8,192 lanes; B5 and B4 (both stat modes) also on the hub row, the
    multi-pass layout, rows of 320 columns, a distinct x_dst with fewer rows
    than the layout and a "far scores" case in which one chunk's scores sit
-   150 above the rest of its row block), in float32 (5e-4, TF32 off) and
-   bfloat16 (per-kernel limits of ``utils/kernel_gates.py``);
+   150 above the rest of its row block; B10 on the same five cases, and B8
+   on the hub row, the multi-pass layout and rows of 320 columns with one
+   head and with four, of 36 columns (80 at 320), softmax weights), in
+   float32 (5e-4, TF32 off) and bfloat16 (per-kernel limits of
+   ``utils/kernel_gates.py``);
 3. the GraphSAGE serving path at ogbn-products size (synthetic graph with
    the dataset's node/edge counts, 100 features, 47 classes; model
    hidden=256, 3 layers, random weights from a seed):
@@ -154,6 +157,7 @@ def phase_kernel_checks(device):
         errs.update(kg.run_gat_route_gates(dtype, device=device))
         errs.update(kg.run_attend_gates(dtype, device=device))
         errs.update(kg.run_attend_mode_gates(dtype, device=device))
+        errs.update(kg.run_weighted_mode_gates(dtype, device=device))
         errs.update(kg.run_q8_gates(dtype, device=device))
         ok, worst = kg.gate(errs, thr)
         log(f"kernel checks {str(dtype)[6:]} (limits {thr}): "
@@ -718,7 +722,7 @@ def gat_route_kernel_numbers(p, launches, device):
             H * lanes * 4 + lanes * 4 + (B + 1) * 4 + H * lanes * 4,
             valid * H * 6),
         "spmm_blocked_multiweighted_cuda": lambda eb: (
-            n * H * D * eb + meta + H * lanes * 4 + out_bytes,
+            n * H * D * eb + meta + T * 4 + H * lanes * 4 + out_bytes,
             valid * H * D * 2),
         "gat_attend_blocked_flash_cuda": lambda eb: (
             n * H * D * eb + meta + 2 * n * H * 4 + out_bytes,
@@ -1075,7 +1079,7 @@ def attend_kernel_numbers(p, xs, launches, device):
     # bytes bounds, counted as B1's: the function's inputs read once (x, the
     # one (N, F) bf16 input every timed call passes as both x_dst and x_src;
     # the lane metadata edge_src and local_row of every padded lane;
-    # chunk_block or block_start) and its output written once; operations
+    # chunk_block, block_start or both) and its output written once; operations
     # on this run's valid lanes
     lanes, x_bytes = T * C, n * F * 2
     bound = {
@@ -1084,7 +1088,7 @@ def attend_kernel_numbers(p, xs, launches, device):
         "edge_softmax_blocked_cuda": (lanes * 8 + (B + 1) * 4 + lanes * 4,
                                       valid * 6),
         "attend_blocked_fused_cuda": (
-            x_bytes + lanes * 8 + (B + 1) * 4 + B * W * F * 4,
+            x_bytes + lanes * 8 + T * 4 + (B + 1) * 4 + B * W * F * 4,
             valid * (4 * F + 6)),
         "attend_blocked_flash_cuda": (
             x_bytes + lanes * 8 + (B + 1) * 4 + B * W * F * 4,

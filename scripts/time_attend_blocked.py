@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the single-head attention kernels B5, B4, B6 and B10, the attend routes, and the kernels and passes beside them.
+"""Time the attention kernels B5, B4, B6, B10 and B8, the attend routes, and the kernels and passes beside them.
 
 Times the ``tch_geometric_tpu_torch`` package that comes first on
 ``sys.path``, through its public wrappers only, so the same script times an
@@ -20,8 +20,11 @@ is timed by chip_smoke's ``cuda_ms`` (CUDA events over 10 calls after a
 warm-up; the passes over 3): B5 at F=256 in bfloat16 and float32 and at
 F=100 in bfloat16, beside ``torch.sparse.sampled_addmm`` on float32 rows; B4
 with row and chunk-max stats at F=256 in bfloat16 and float32 and at F=100
-in bfloat16; B6 and B10 at F=256 in bfloat16; the three attend routes
-(composed, fused, flash with row stats) at F=256 in bfloat16.  Then B1,
+in bfloat16; B6 at F=256 in bfloat16; B10 at F=256 in bfloat16 and float32
+and at F=100 in bfloat16; the three attend routes (composed, fused, flash
+with row stats) at F=256 in bfloat16; B8 at the GAT's layer 1 (H=4, D=64)
+in float32 and bfloat16, at its layer 3 (H=1, D=47) in float32 and with
+one head at F=256 in bfloat16.  Then B1,
 B2, B11 and the SAGE forwards of ``scripts/time_spmm_blocked.py`` and the
 full-graph GAT pass through each of its three routes (B3; B7 + B8; B9), so
 that one process covers every kernel.
@@ -75,6 +78,9 @@ def attend_cases(p, xs, device):
         "B4_chunkmax_F100_bf16": b4(x100, False),
         "B6_F256": lambda: ab.edge_softmax_blocked_cuda(b, s16),
         "B10_F256_bf16": lambda: ab.attend_blocked_fused_cuda(b, x256, x256),
+        "B10_F256_f32": lambda: ab.attend_blocked_fused_cuda(
+            b, x256f, x256f, compute_dtype=torch.float32),
+        "B10_F100_bf16": lambda: ab.attend_blocked_fused_cuda(b, x100, x100),
     }
     out = {k: (fn, 10) for k, fn in cases.items()}
     routes = chip_smoke.attend_routes()
@@ -91,6 +97,43 @@ def attend_cases(p, xs, device):
         lambda: torch.sparse.sampled_addmm(pattern, x256f, x256f.t(),
                                            beta=0.0).values(), 10)
     return out
+
+
+def b8_cases(p, xs, device):
+    """``{name: (fn, calls)}`` of B8 at the shapes its paths give it: the
+    GAT's layer 1 (H=4, D=64) in float32 and bfloat16 and layer 3 (H=1,
+    D=47) in float32, on seeded rows and B7's softmax of seeded logits, and
+    one head at F=256 in bfloat16 (the composed attend route's last step) on
+    B6's weights of the scaled scores."""
+    from tch_geometric_tpu_torch.ops import attention_blocked as ab
+
+    b = p["blocked"]
+    n = p["x_table"].shape[0]
+    gen = torch.Generator().manual_seed(9)
+
+    def weights(heads):
+        logits = torch.randn((heads,) + tuple(b.edge_src.shape),
+                             generator=gen).to(device)
+        return ab.edge_softmax_blocked_multihead_cuda(b, logits)
+
+    x1 = torch.randn((n, 256), generator=gen).to(device)
+    w1 = weights(4)
+    x3 = torch.randn((n, 47), generator=gen).to(device)
+    w3 = weights(1)
+    x256 = xs[256].to(torch.bfloat16)
+    s16 = ab.sddmm_blocked_cuda(b, x256, x256) / 256 ** 0.5
+    w256 = ab.edge_softmax_blocked_cuda(b, s16)[None]
+    del s16
+
+    def b8(x, w, dt):
+        x = x.to(dt)
+        return lambda: ab.spmm_blocked_multiweighted_cuda(b, x, w,
+                                                          compute_dtype=dt)
+
+    return {"B8_H4_D64_f32": (b8(x1, w1, torch.float32), 10),
+            "B8_H4_D64_bf16": (b8(x1, w1, torch.bfloat16), 10),
+            "B8_H1_D47_f32": (b8(x3, w3, torch.float32), 10),
+            "B8_H1_F256_bf16": (b8(x256, w256, torch.bfloat16), 10)}
 
 
 def kernel_split(fn):
@@ -162,6 +205,7 @@ def main(argv=None) -> int:
     slots = getattr(sys.modules["tch_geometric_tpu_torch.ops.attention_blocked"]
                     .attend_blocked_flash_cuda, "last_slots", None)
     res["b4_split_slots_last_call"] = slots
+    time_cases(b8_cases(p, xs, device), res)
     del xs
     torch.cuda.empty_cache()
     time_cases(spmm_cases(p, device), res)

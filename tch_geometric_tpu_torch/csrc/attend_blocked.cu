@@ -7,9 +7,9 @@
 //       (v1 and v2 differ only in the TPU's lane/sublane orientation);
 //   B6  _mz_kernel + _att_kernel (edge_softmax_blocked): the per-dst-row
 //       softmax of (T, C) scores, 0 on pad lanes;
-//   B10 _sddmm_mz_kernel + _att_w_fused_kernel (attend_blocked_fused): pass A
-//       writes the scores and the row stats (max m, sum z), pass B
-//       normalises each lane and adds bf16(w * x_src[src]) into its row;
+//   B10 _sddmm_mz_kernel + _att_w_fused_kernel (attend_blocked_fused): the
+//       scores and the row stats (max m, sum z), then each lane normalised,
+//       w = exp(s - m) / z, and bf16(w * x_src[src]) added into its row;
 //   B4  _flash_kernel_row / _flash_kernel_scalar (attend_blocked_flash):
 //       out[r] = sum bf16(e) * x_src[src] / sum e, e the lane's softmax
 //       weight against a running max, 0 where the sum is not positive.
@@ -29,8 +29,9 @@
 // float32 rate, so every kernel is bound by bytes.  A gather cannot reach
 // that bound: each live lane reads its source row (61.9M lanes x 512 B =
 // 31.7 GB, about 9.5 ms from HBM; the Zipf sources' popular rows partly
-// come from L2, as for B1).  So B5 and B4 are built as B1 is
-// (spmm_blocked.cu): whole rows, many in flight, each read once.
+// come from L2, as for B1).  So B5, B4 and B10 are built as B1 is
+// (spmm_blocked.cu): whole rows, many in flight, each read once (B10: once
+// for the scores, once for the sum).
 //
 // B5 and B4: row-grouped chunks (blocked_common.cuh, stage_pass).
 //  * One CUDA block per chunk stages the chunk's local_row and edge_src in
@@ -98,17 +99,29 @@
 //    versions the kernels differ by summation order and the rounding points
 //    above.
 //
-// B6 and B10 keep the first design.  One CUDA block owns a row block and
-// walks its chunks in a loop; B6 and B10 pass A keep the W rows' (m, z) in
-// shared memory and take them in two sweeps (max, then the exp-sum) instead
-// of the online recurrence: the same function up to float32 rounding.  B10
-// pass A scores a warp's 32 lanes one after another (warp_scores: the
-// destination row read again for each lane, two columns per thread).  A
-// (W, F) float32 accumulator does not fit in shared memory at W=256, F=256
-// (256 KB), so B10 pass B is parallel over (row block, 64-column tile):
-// each lane's 64 columns are added into a W x 64 shared tile by shared
-// atomics, four lanes' loads in flight.  B10 rounds each term bf16(x * w).
-// Rows in the compute dtype, every sum in float32.
+// B10: three steps in one call, on B5's and B1's row-grouped chunks.  (a)
+// B5's kernel scores the scaled x_dst into the (T, C) scratch s (0.26 GB at
+// products size, as the TPU kernel keeps it).  (b) One CUDA block per row
+// block takes each row's (m, z) from s in B6's two sweeps (max, then the
+// exp-sum; edge_softmax_kernel<true> writes the stats, not the weights).
+// (c) B1's row-grouped weighted sum (blocked::rows_kernel, described in
+// spmm_blocked.cu) with the SoftmaxLanes policy: at staging each live lane's
+// weight softmax_weight(s, m, z) is computed once from its score and its
+// row's stats, and a warp adds bf16(w * x_src[src]) over a piece, the
+// product rounded on its own, each source row read whole and once; owned
+// rows are stored, split rows added by vector atomics onto rows a zero pass
+// cleared.  No shared-memory float atomic per lane and column is left; the
+// old pass A re-read the destination row for each lane, and pass B added
+// each lane's 64-column pieces into a shared tile with two atomics per
+// column.  Folding (b) into (a) (each piece's max and sum by warp
+// reductions, split pieces combined as B4 does) would save (b)'s two reads
+// of s and local_row; it is not done until a measurement shows it faster.
+//
+// B6 keeps the first design: one CUDA block owns a row block and walks its
+// chunks in a loop, with the W rows' (m, z) in shared memory, taken in two
+// sweeps (max, then the exp-sum) instead of the online recurrence: the same
+// function up to float32 rounding.  Rows in the compute dtype, every sum in
+// float32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -120,56 +133,14 @@
 
 namespace {
 
+using blocked::allow_smem;
 using blocked::atomic_max_float;
 using blocked::kFull;
-using blocked::kTileF;
-using blocked::load_cols;
 using blocked::round_to;
 using blocked::softmax_weight;
 
-constexpr int kThreads = 512;            // 16 warps per CUDA block (B6, B10)
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;               // lanes loaded before their adds
-                                         // (8 spills at 40 registers)
-
-// <a, b> over F columns, by a warp: column pairs per thread, then a warp sum
-// returned to every thread.
-template <typename T>
-__device__ __forceinline__ float warp_dot(const T* a, const T* b, int F,
-                                          bool even, int lane) {
-  float acc = 0.f;
-  for (int c = 2 * lane; c < F; c += 64) {
-    const float2 u = load_cols(a, c, F, even);
-    const float2 v = load_cols(b, c, F, even);
-    acc = fmaf(u.x, v.x, acc);
-    acc = fmaf(u.y, v.y, acc);
-  }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
-  return acc;
-}
-
-// B10 pass A: the scores of a warp's 32 lanes: each thread brings one lane's local row,
-// source and global dst row; the warp computes the live lanes' dot products
-// one after another.  Returns this thread's lane's score: 0 on pad lanes
-// (row == W) and where the dst row is past dst_rows (a zero row).
-template <typename T>
-__device__ __forceinline__ float warp_scores(const T* xd, int64_t nd,
-                                             const T* xs, int F, bool even,
-                                             int my_row, int my_src,
-                                             int64_t my_dst, int W, int lane) {
-  float my_s = 0.f;
-  unsigned live = __ballot_sync(kFull, my_row < W && my_dst < nd);
-  while (live) {                         // warp-uniform loop
-    const int j = __ffs(live) - 1;
-    live &= live - 1;
-    const int64_t src = __shfl_sync(kFull, my_src, j);
-    const int64_t dst = __shfl_sync(kFull, static_cast<long long>(my_dst), j);
-    const float s = warp_dot(xd + dst * F, xs + src * F, F, even, lane);
-    if (lane == j) my_s = s;
-  }
-  return my_s;
-}
+constexpr int kThreads = 512;            // 16 warps per CUDA block (B6,
+                                         // B10's row stats)
 
 // z[r] += exp(s[e] - m[r]) over the valid lanes of [e_begin, e_end).
 __device__ __forceinline__ void row_expsum(const float* s,
@@ -182,12 +153,17 @@ __device__ __forceinline__ void row_expsum(const float* s,
   }
 }
 
-// ---- B6: per-row softmax, one CUDA block per row block -------------------
+// ---- B6, and B10's row stats: one CUDA block per row block ---------------
+// The per-row softmax of the scores in two sweeps (max, then the exp-sum),
+// then each lane's weight into att; with kStats (B10) the W rows' (m, z)
+// into m_out and z_out instead.
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
 edge_softmax_kernel(const float* __restrict__ scores,
                     const int32_t* __restrict__ local_row,
                     const int32_t* __restrict__ block_start, int C, int W,
-                    float* __restrict__ att) {
+                    float* __restrict__ att, float* __restrict__ m_out,
+                    float* __restrict__ z_out) {
   extern __shared__ float stats[];
   float* m = stats;                      // W row maxima
   float* z = stats + W;                  // W row sums
@@ -207,98 +183,41 @@ edge_softmax_kernel(const float* __restrict__ scores,
   __syncthreads();
   row_expsum(scores, local_row, e_begin, e_end, W, m, z);
   __syncthreads();
-  for (int64_t e = e_begin + threadIdx.x; e < e_end; e += kThreads) {
-    const int r = local_row[e];
-    att[e] = r < W ? softmax_weight(scores[e], m[r], z[r]) : 0.f;
+  if constexpr (kStats) {
+    for (int r = threadIdx.x; r < W; r += kThreads) {
+      m_out[static_cast<int64_t>(b) * W + r] = m[r];
+      z_out[static_cast<int64_t>(b) * W + r] = z[r];
+    }
+  } else {
+    for (int64_t e = e_begin + threadIdx.x; e < e_end; e += kThreads) {
+      const int r = local_row[e];
+      att[e] = r < W ? softmax_weight(scores[e], m[r], z[r]) : 0.f;
+    }
   }
 }
 
-// ---- B10 pass A: scores and row stats, one CUDA block per row block -------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_stats_kernel(const T* __restrict__ xd, int64_t nd,
-                   const T* __restrict__ xs,
-                   const int32_t* __restrict__ edge_src,
-                   const int32_t* __restrict__ local_row,
-                   const int32_t* __restrict__ block_start, int C, int W,
-                   int F, float* s, float* __restrict__ m_out,
-                   float* __restrict__ z_out) {
-  extern __shared__ float stats[];
-  float* m = stats;
-  float* z = stats + W;
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool even = F % 2 == 0;
-  for (int r = threadIdx.x; r < W; r += kThreads) {
-    m[r] = -CUDART_INF_F;
-    z[r] = 0.f;
+// B10's Lanes policy of blocked::rows_kernel: each lane's weight
+// softmax_weight(s, m, z) from its score and its row's stats, computed once
+// at staging; terms bf16(w * x), as B8 rounds them.
+struct SoftmaxLanes {
+  static constexpr bool kAux = true, kRound = true;
+  // as B8's one head (blocked::StagedWeight<true>): 22.7 ms at F=256 bf16
+  // against 25.5 with four CUDA blocks an SM (NVIDIA H100 80GB HBM3, 700 W;
+  // scripts/time_csrc_variants.py)
+  static constexpr int kMinBlocks = 3;
+  const float* s;
+  const float* m;
+  const float* z;
+  __device__ int aux(int64_t e, int, int64_t row) const {
+    return __float_as_int(softmax_weight(s[e], m[row], z[row]));
   }
-  __syncthreads();
-  const int64_t e_begin = static_cast<int64_t>(block_start[b]) * C;
-  const int64_t e_end = static_cast<int64_t>(block_start[b + 1]) * C;
-  for (int64_t base = e_begin + warp * 32; base < e_end; base += kThreads) {
-    const int64_t e = base + lane;
-    int row = W, src = 0;
-    if (e < e_end) {
-      row = local_row[e];
-      src = edge_src[e];
-    }
-    const float sc = warp_scores(xd, nd, xs, F, even, row, src,
-                                 static_cast<int64_t>(b) * W + row, W, lane);
-    if (e < e_end) {
-      s[e] = sc;
-      if (row < W) atomic_max_float(m + row, sc);
-    }
+  template <int kDepth, int kNV>
+  __device__ blocked::LaneWeight weights(const int* aux_s,
+                                         blocked::Piece pc, int lane,
+                                         int64_t) const {
+    return blocked::lane_weight(aux_s, pc, lane);
   }
-  __syncthreads();                       // also publishes s to the block
-  row_expsum(s, local_row, e_begin, e_end, W, m, z);
-  __syncthreads();
-  for (int r = threadIdx.x; r < W; r += kThreads) {
-    m_out[static_cast<int64_t>(b) * W + r] = m[r];
-    z_out[static_cast<int64_t>(b) * W + r] = z[r];
-  }
-}
-
-// ---- B10 pass B: normalise + weighted sum, one CUDA block per (row block,
-// 64-column tile) ------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 3)
-fused_spmm_kernel(const T* __restrict__ xs, const float* __restrict__ s,
-                  const float* __restrict__ m_in,
-                  const float* __restrict__ z_in,
-                  const int32_t* __restrict__ edge_src,
-                  const int32_t* __restrict__ local_row,
-                  const int32_t* __restrict__ block_start, int C, int W,
-                  int F, int num_tiles, float* __restrict__ out) {
-  extern __shared__ float acc[];         // W x kTileF tile, then m, z
-  float* m = acc + W * kTileF;
-  float* z = m + W;
-  const int b = blockIdx.x / num_tiles;  // tiles of a block are adjacent
-  const int f0 = (blockIdx.x % num_tiles) * kTileF;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < W * kTileF; i += kThreads) acc[i] = 0.f;
-  for (int r = threadIdx.x; r < W; r += kThreads) {
-    m[r] = m_in[static_cast<int64_t>(b) * W + r];
-    z[r] = z_in[static_cast<int64_t>(b) * W + r];
-  }
-  __syncthreads();
-  const int64_t e_begin = static_cast<int64_t>(block_start[b]) * C;
-  const int64_t e_end = static_cast<int64_t>(block_start[b + 1]) * C;
-  for (int64_t base = e_begin + warp * 32; base < e_end; base += kThreads) {
-    const int64_t e = base + lane;
-    int row = W, src = 0;
-    float w = 0.f;
-    if (e < e_end) {
-      row = local_row[e];
-      src = edge_src[e];
-      if (row < W) w = softmax_weight(s[e], m[row], z[row]);
-    }
-    blocked::warp_accumulate<T, true, true, kUnroll>(
-        xs, F, f0 + 2 * lane, row, src, w, W, lane, acc);
-  }
-  __syncthreads();
-  blocked::store_tile(acc, out, static_cast<int64_t>(b) * W, W, F, f0);
-}
+};
 
 // ---- B5 and B4: row-grouped chunks ----------------------------------------
 
@@ -802,13 +721,6 @@ flash_merge_kernel(const int32_t* __restrict__ block_start,
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 // Elements per load of both row tables: the widest that divides F and both
 // addresses (vec_elems), so each is a power of two dividing the other.
 inline int pair_vec(const void* xd, const void* xs, int F, int elem_bytes) {
@@ -870,32 +782,51 @@ cudaError_t launch_flash(const void* xd, int64_t nd, const void* xs,
   return cudaGetLastError();
 }
 
-template <typename T>
+// B5 on the widest load that divides F and both row tables' addresses.
+cudaError_t launch_sddmm_vec(const void* xd, int64_t nd, const void* xs,
+                             bool bf16, const int32_t* edge_src,
+                             const int32_t* local_row,
+                             const int32_t* chunk_block, int num_chunks,
+                             int C, int W, int F, float* out,
+                             cudaStream_t st) {
+#define TGT_SDDMM(T, V)                                                    \
+  launch_sddmm<T, V>(xd, nd, xs, edge_src, local_row, chunk_block,         \
+                     num_chunks, C, W, F, out, st)
+  if (bf16) {
+    switch (pair_vec(xd, xs, F, 2)) {
+      case 8: return TGT_SDDMM(__nv_bfloat16, 8);
+      case 4: return TGT_SDDMM(__nv_bfloat16, 4);
+      case 2: return TGT_SDDMM(__nv_bfloat16, 2);
+      default: return TGT_SDDMM(__nv_bfloat16, 1);
+    }
+  }
+  switch (pair_vec(xd, xs, F, 4)) {
+    case 4: return TGT_SDDMM(float, 4);
+    case 2: return TGT_SDDMM(float, 2);
+    default: return TGT_SDDMM(float, 1);
+  }
+#undef TGT_SDDMM
+}
+
+// B10: (a) the scores of the scaled x_dst into s (B5's kernel); (b) each
+// row's (m, z) from them (B6's first two sweeps); (c) the row-grouped sum of
+// bf16(softmax_weight(s, m, z) * x_src[src]) (blocked::rows_kernel).
 cudaError_t launch_fused(const void* xd, int64_t nd, const void* xs,
-                         const int32_t* edge_src, const int32_t* local_row,
-                         const int32_t* block_start, int num_blocks, int C,
-                         int W, int F, float* s, float* m, float* z,
-                         float* out, cudaStream_t stream) {
-  const size_t smem_a = 2 * static_cast<size_t>(W) * sizeof(float);
-  cudaError_t err = allow_smem(fused_stats_kernel<T>, smem_a);
+                         bool bf16, const blocked::RowsArgs& a, float* s,
+                         float* m, float* z, cudaStream_t stream) {
+  cudaError_t err = launch_sddmm_vec(xd, nd, xs, bf16, a.edge_src,
+                                     a.local_row, a.chunk_block, a.num_chunks,
+                                     a.C, a.W, a.F, s, stream);
   if (err != cudaSuccess) return err;
-  fused_stats_kernel<T><<<num_blocks, kThreads, smem_a, stream>>>(
-      static_cast<const T*>(xd), nd, static_cast<const T*>(xs), edge_src,
-      local_row, block_start, C, W, F, s, m, z);
+  const size_t smem = 2 * static_cast<size_t>(a.W) * sizeof(float);
+  err = allow_smem(edge_softmax_kernel<true>, smem);
+  if (err != cudaSuccess) return err;
+  edge_softmax_kernel<true><<<a.num_blocks, kThreads, smem, stream>>>(
+      s, a.local_row, a.block_start, a.C, a.W, nullptr, m, z);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem_b =
-      (static_cast<size_t>(W) * kTileF + 2 * W) * sizeof(float);
-  err = allow_smem(fused_spmm_kernel<T>, smem_b);
-  if (err != cudaSuccess) return err;
-  const int num_tiles = (F + kTileF - 1) / kTileF;
-  const int64_t grid = static_cast<int64_t>(num_blocks) * num_tiles;
-  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  fused_spmm_kernel<T><<<static_cast<unsigned>(grid), kThreads, smem_b,
-                         stream>>>(static_cast<const T*>(xs), s, m, z,
-                                   edge_src, local_row, block_start, C, W, F,
-                                   num_tiles, out);
-  return cudaGetLastError();
+  return blocked::launch_rows_vec(xs, bf16, a.F, a, SoftmaxLanes{s, m, z},
+                                  stream);
 }
 
 }  // namespace
@@ -916,27 +847,10 @@ int tgt_sddmm_blocked(const void* x_dst, int64_t dst_rows, const void* x_src,
                       void* stream) {
   if (num_chunks <= 0 || C <= 0 || W <= 0 || F <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TGT_SDDMM(T, V)                                                    \
-  launch_sddmm<T, V>(x_dst, dst_rows, x_src, edge_src, local_row,          \
-                     chunk_block, num_chunks, C, W, F, out, st)
-  cudaError_t err;
-  if (x_is_bf16) {
-    switch (pair_vec(x_dst, x_src, F, 2)) {
-      case 8: err = TGT_SDDMM(__nv_bfloat16, 8); break;
-      case 4: err = TGT_SDDMM(__nv_bfloat16, 4); break;
-      case 2: err = TGT_SDDMM(__nv_bfloat16, 2); break;
-      default: err = TGT_SDDMM(__nv_bfloat16, 1);
-    }
-  } else {
-    switch (pair_vec(x_dst, x_src, F, 4)) {
-      case 4: err = TGT_SDDMM(float, 4); break;
-      case 2: err = TGT_SDDMM(float, 2); break;
-      default: err = TGT_SDDMM(float, 1);
-    }
-  }
-#undef TGT_SDDMM
-  return static_cast<int>(err);
+  return static_cast<int>(launch_sddmm_vec(
+      x_dst, dst_rows, x_src, x_is_bf16 != 0, edge_src, local_row,
+      chunk_block, num_chunks, C, W, F, out,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // B6: att (T, C) f32, the per-row softmax of scores (T, C) f32, 0 on pad
@@ -947,32 +861,31 @@ int tgt_edge_softmax_blocked(const float* scores, const int32_t* local_row,
   if (num_blocks <= 0 || C <= 0 || W <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * static_cast<size_t>(W) * sizeof(float);
-  cudaError_t err = allow_smem(edge_softmax_kernel, smem);
+  cudaError_t err = allow_smem(edge_softmax_kernel<false>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  edge_softmax_kernel<<<num_blocks, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      scores, local_row, block_start, C, W, att);
+  edge_softmax_kernel<false><<<num_blocks, kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      scores, local_row, block_start, C, W, att, nullptr, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B10: s (T, C), m and z (B*W,) f32 scratch, written by pass A; out (B*W, F)
-// f32.  x_dst carries the scale already.
+// B10: s (T, C) f32 and m, z (B*W,) f32 scratch; out (B*W, F) f32.  x_dst
+// carries the scale already.
 int tgt_attend_fused(const void* x_dst, int64_t dst_rows, const void* x_src,
                      int x_is_bf16, const int32_t* edge_src,
-                     const int32_t* local_row, const int32_t* block_start,
+                     const int32_t* local_row, const int32_t* chunk_block,
+                     const int32_t* block_start, int num_chunks,
                      int num_blocks, int C, int W, int F, float* s, float* m,
                      float* z, float* out, void* stream) {
-  if (num_blocks <= 0 || C <= 0 || W <= 0 || F <= 0)
+  if (num_chunks <= 0 || num_blocks <= 0 || C <= 0 || W <= 0 || F <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      x_is_bf16
-          ? launch_fused<__nv_bfloat16>(x_dst, dst_rows, x_src, edge_src,
-                                        local_row, block_start, num_blocks,
-                                        C, W, F, s, m, z, out, st)
-          : launch_fused<float>(x_dst, dst_rows, x_src, edge_src, local_row,
-                                block_start, num_blocks, C, W, F, s, m, z,
-                                out, st));
+  const blocked::RowsArgs a{edge_src,   local_row,  chunk_block,
+                            block_start, num_chunks, num_blocks,
+                            C,          W,          F,
+                            out};
+  return static_cast<int>(launch_fused(x_dst, dst_rows, x_src, x_is_bf16 != 0,
+                                       a, s, m, z,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 // B4, first kernel: split (T,) int32, each chunk's split pieces; row_m,

@@ -21,13 +21,23 @@
 //   then the exp-sum) as B6 takes them: the same function up to f32
 //   rounding.  Each sweep reads a lane's local_row once for all heads.
 // - B8: the TPU gathers a (T, C, H*D) tensor and expands the (C, H) weights
-//   over each head's columns with a one-hot matmul.  Here, as in B1 and B2,
-//   a CUDA block owns one (row block, 64-column tile) and every live lane's
-//   row segment is read by the kernel itself.  A thread's columns c and c+1
-//   take the weights of heads c / D and (c+1) / D: one head per tile at
-//   D=64, two at D=32, and at an odd D a pair can straddle two.  They are
-//   read per lane from the (H, T, C) weights; a warp's threads read at most
-//   a few distinct addresses, which L1 serves.
+//   over each head's columns with a one-hot matmul.  Here B8 is B1's
+//   row-grouped weighted sum (blocked::rows_kernel, blocked_common.cuh;
+//   spmm_blocked.cu describes it): one CUDA block per chunk counting-sorts
+//   its live lanes by row, a warp takes a piece of at most 32 lanes of one
+//   row and reads each source row whole with the widest vector load that
+//   divides F, D and x's address (so that no vector straddles two heads:
+//   D=36 in bf16 takes 4-element loads), load_depth rows in flight, f32
+//   sums in registers; an owned row is stored, a split row added by vector
+//   atomics onto a row that a zero pass cleared (chunks wider than
+//   kMaxStage lanes: onto a memset output).  With one head (the attend
+//   routes, GAT's last layer) each lane's weight is staged in shared memory
+//   and shuffled to the warp, as B2's.  With H > 1 heads each lane's
+//   position in its chunk is staged instead (H weights a lane would take
+//   53 KB more a CUDA block at C=3,328, H=4), and each thread reads the
+//   weight of its vectors' heads for every row in flight from the (H, T, C)
+//   weights (HeadWeights): a warp touches at most H addresses a row, which
+//   L1 serves.  No shared-memory float atomic is left.
 // - B9: the TPU gathers (T, C, H*D + H), the rows with alpha_src as H
 //   trailing columns in the compute dtype, and keeps a (W, H*D) f32
 //   accumulator.  Here one CUDA block owns one (row block, head) pair, as in
@@ -42,7 +52,9 @@
 //   in the second sweep (alpha_src from L1/L2) instead of being kept in
 //   shared memory, so that three CUDA blocks fit an SM at D=64.
 // - Rounding: B8 rounds each term bf16(x * w), as the TPU kernel does (the
-//   port's B2 multiplies in f32); B9's term bf16(e) * x is exact in f32.
+//   port's B2 multiplies in f32): the product is rounded on its own
+//   (__fmul_rn, never fused into the add), then to the compute dtype;
+//   B9's term bf16(e) * x is exact in f32.
 //   No fast math: the z > 0 guards rely on IEEE exp.
 //
 // Bound on an H100 (3.35 TB/s) at ogbn-products size (W=256, T=19,222,
@@ -54,10 +66,10 @@
 // and 5.61 GB in f32 (1.30 and 1.67 ms).  The operations are far below the
 // f32 rate: all three are bound by bytes.  A gather cannot reach that for
 // B8 and B9: every live lane reads its row segment, lanes x H*D x bytes in
-// all.  What the design does about it: pad lanes are dropped by a warp
-// ballot before any row read; a warp reads a lane's columns as consecutive
-// loads across its 32 threads; eight lanes' loads are in flight before
-// their shared-memory adds; the tiles (B8) or heads (B9) of a row block are
+// all.  B8 reads each live lane's row whole and once (above).  B9: pad lanes
+// are dropped by a warp ballot before any row read; a warp reads a lane's
+// columns as consecutive loads across its 32 threads; eight lanes' loads are
+// in flight before their shared-memory adds; the heads of a row block are
 // adjacent in the grid, so its lane metadata and hub rows come from L2
 // after the first.
 #include <cuda_bf16.h>
@@ -69,9 +81,10 @@
 
 namespace {
 
+using blocked::allow_smem;
 using blocked::atomic_max_float;
 using blocked::kFull;
-using blocked::kTileF;
+using blocked::Piece;
 using blocked::round_to;
 using blocked::softmax_weight;
 
@@ -129,47 +142,66 @@ edge_softmax_mh_kernel(const float* __restrict__ scores,
   }
 }
 
-// ---- B8: per-head weighted SpMM, one CUDA block per (row block, 64-column
-// tile) ------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 3)
-spmm_multiweighted_kernel(const T* __restrict__ x,
-                          const int32_t* __restrict__ edge_src,
-                          const int32_t* __restrict__ local_row,
-                          const float* __restrict__ weight,
-                          const int32_t* __restrict__ block_start, int64_t TC,
-                          int C, int W, int F, int D, int num_tiles,
-                          float* __restrict__ out) {
-  extern __shared__ float acc[];         // W x kTileF f32 tile
-  const int b = blockIdx.x / num_tiles;  // tiles of a block are adjacent
-  const int f0 = (blockIdx.x % num_tiles) * kTileF;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = f0 + 2 * lane;
-  // the weights of this thread's two columns' heads (a column past F takes
-  // the last head; its term is never added)
-  const int last = F / D - 1;
-  const float* w0 = weight + static_cast<int64_t>(min(c0 / D, last)) * TC;
-  const float* w1 = weight + static_cast<int64_t>(min((c0 + 1) / D, last)) * TC;
+// ---- B8: per-head weighted SpMM on row-grouped chunks -------------------
 
-  for (int i = threadIdx.x; i < W * kTileF; i += kThreads) acc[i] = 0.f;
-  __syncthreads();
-  const int64_t e_begin = static_cast<int64_t>(block_start[b]) * C;
-  const int64_t e_end = static_cast<int64_t>(block_start[b + 1]) * C;
-  for (int64_t base = e_begin + warp * 32; base < e_end; base += kThreads) {
-    const int64_t e = base + lane;
-    int my_row = W, my_src = 0;
-    if (e < e_end) {
-      my_row = local_row[e];
-      my_src = edge_src[e];
-    }
-    blocked::warp_accumulate_by<T, true, kUnroll>(
-        x, F, c0, my_row, my_src, W, lane, acc, [=](int j) {
-          return make_float2(w0[base + j], w1[base + j]);
-        });
+// The weights of a piece's lanes per column: column c of lane e takes
+// w[head(c) * TC + e], head(c) = c / D.  kVec divides D, so each of a
+// thread's vectors lies in one head: its kNV head offsets are set per slab,
+// and in the load phase it reads its kNV weights of each row in flight from
+// device memory (a warp reads at most H addresses a row, which L1 serves).
+template <int kDepth, int kNV>
+struct HeadWeights {
+  static constexpr bool kWeighted = true;
+  const float* w;                        // the chunk's first lane, head 0
+  int64_t TC;                            // lanes of all chunks
+  int D, H;
+  int my_pos;                            // lane `lane`'s position in the chunk
+  int64_t hoff[kNV];                     // head offset of each vector
+  float wv[kDepth][kNV];                 // the weights of the rows in flight
+  __device__ void slab(const int (&col)[kNV]) {
+#pragma unroll
+    for (int k = 0; k < kNV; ++k)        // a column past F takes the last head
+      hoff[k] = static_cast<int64_t>(min(col[k] / D, H - 1)) * TC;
   }
-  __syncthreads();
-  blocked::store_tile(acc, out, static_cast<int64_t>(b) * W, W, F, f0);
-}
+  __device__ void load(int u, int j, int len) {
+    const int pos = __shfl_sync(kFull, my_pos, j & 31);
+    if (j < len) {                       // warp-uniform
+#pragma unroll
+      for (int k = 0; k < kNV; ++k) wv[u][k] = __ldg(w + hoff[k] + pos);
+    }
+  }
+  __device__ void get(int u, int, float (&out)[kNV]) {
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) out[k] = wv[u][k];
+  }
+};
+
+// B8's Lanes policy with H > 1 heads: each lane's position in its chunk is
+// staged; terms are bf16(x * w).  Three CUDA blocks an SM (80 registers):
+// the weights in flight take up to 32 more a thread.  On an NVIDIA H100
+// 80GB HBM3 at 700 W (scripts/time_csrc_variants.py) B8 took 23.7 ms at
+// H=4, D=64 in f32 and 12.6 in bf16; with four CUDA blocks 29.1 and 18.3;
+// staging each piece's H x 32 weights in shared memory instead of these L1
+// reads, four rows' weights a 16-byte load, 23.2 and 14.8.
+struct HeadLanes {
+  static constexpr bool kAux = true, kRound = true;
+  static constexpr int kMinBlocks = 3;
+  const float* weight;
+  int64_t TC;
+  int D, H;
+  __device__ int aux(int64_t, int pos, int64_t) const { return pos; }
+  template <int kDepth, int kNV>
+  __device__ HeadWeights<kDepth, kNV> weights(const int* aux_s, Piece pc,
+                                              int lane, int64_t chunk0) const {
+    HeadWeights<kDepth, kNV> wf;
+    wf.w = weight + chunk0;
+    wf.TC = TC;
+    wf.D = D;
+    wf.H = H;
+    wf.my_pos = lane < pc.len ? aux_s[pc.start + lane] : 0;
+    return wf;
+  }
+};
 
 // ---- B9: one traversal per (row block, head), per-row running max --------
 // up to D=64 three CUDA blocks share an SM (3 x 69 KB at W=256)
@@ -307,33 +339,6 @@ gat_flash_kernel(const void* x_rows, const float* __restrict__ alpha_src,
     }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-template <typename T>
-cudaError_t launch_multiweighted(const void* x, const int32_t* edge_src,
-                                 const int32_t* local_row,
-                                 const float* weight,
-                                 const int32_t* block_start, int num_blocks,
-                                 int64_t TC, int C, int W, int F, int D,
-                                 float* out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(W) * kTileF * sizeof(float);
-  auto kernel = spmm_multiweighted_kernel<T>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int num_tiles = (F + kTileF - 1) / kTileF;
-  const int64_t grid = static_cast<int64_t>(num_blocks) * num_tiles;
-  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), edge_src, local_row, weight, block_start, TC,
-      C, W, F, D, num_tiles, out);
-  return cudaGetLastError();
-}
-
 // every instantiation of gat_flash_kernel has this type
 using FlashKernel = void (*)(const void*, const float*, const float*, int,
                              const int32_t*, const int32_t*, const int32_t*,
@@ -374,24 +379,30 @@ int tgt_edge_softmax_multihead(const float* scores, const int32_t* local_row,
 }
 
 // B8: x (N, F) row-major, f32 (x_is_bf16 == 0) or bf16, F = H*D; weight
-// (H, num_chunks, C) f32; out (num_blocks*W, F) f32.
+// (H, num_chunks, C) f32; chunk_block (num_chunks,) int32; out
+// (num_blocks*W, F) f32.
 int tgt_spmm_multiweighted(const void* x, int x_is_bf16,
                            const int32_t* edge_src, const int32_t* local_row,
-                           const float* weight, const int32_t* block_start,
-                           int num_blocks, int num_chunks, int C, int W,
-                           int F, int D, float* out, void* stream) {
+                           const float* weight, const int32_t* chunk_block,
+                           const int32_t* block_start, int num_chunks,
+                           int num_blocks, int C, int W, int F, int D,
+                           float* out, void* stream) {
   if (num_blocks <= 0 || num_chunks <= 0 || C <= 0 || W <= 0 || F <= 0 ||
       D <= 0 || F % D)
     return static_cast<int>(cudaErrorInvalidValue);
+  const blocked::RowsArgs a{edge_src,   local_row,  chunk_block,
+                            block_start, num_chunks, num_blocks,
+                            C,          W,          F,
+                            out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t TC = static_cast<int64_t>(num_chunks) * C;
-  return static_cast<int>(
-      x_is_bf16 ? launch_multiweighted<__nv_bfloat16>(
-                      x, edge_src, local_row, weight, block_start, num_blocks,
-                      TC, C, W, F, D, out, s)
-                : launch_multiweighted<float>(x, edge_src, local_row, weight,
-                                              block_start, num_blocks, TC, C,
-                                              W, F, D, out, s));
+  const bool bf16 = x_is_bf16 != 0;
+  // one head: a staged lane weight, as B2's, with rounded terms
+  if (F == D)
+    return static_cast<int>(blocked::launch_rows_vec(
+        x, bf16, D, a, blocked::StagedWeight<true>{weight}, s));
+  const HeadLanes lanes{weight, static_cast<int64_t>(num_chunks) * C, D,
+                        F / D};
+  return static_cast<int>(blocked::launch_rows_vec(x, bf16, D, a, lanes, s));
 }
 
 // B9: x (N, H*D) row-major, f32 (x_is_bf16 == 0) or bf16; alpha_src (N, H)

@@ -38,8 +38,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "gat_blocked": {
         "tgt_edge_softmax_multihead": (_i, [_vp, _vp, _vp, _i, _i, _i, _i,
                                             _i, _vp, _vp]),
-        "tgt_spmm_multiweighted": (_i, [_vp, _i, _vp, _vp, _vp, _vp, _i, _i,
-                                        _i, _i, _i, _i, _vp, _vp]),
+        "tgt_spmm_multiweighted": (_i, [_vp, _i, _vp, _vp, _vp, _vp, _vp,
+                                        _i, _i, _i, _i, _i, _i, _vp, _vp]),
         "tgt_gat_flash": (_i, [_vp, _i, _vp, _vp, _i, _vp, _vp, _vp, _i, _i,
                                _i, _i, _i, ctypes.c_float, _vp, _vp, _vp,
                                _vp, _vp]),
@@ -50,8 +50,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
                                    _i, _i, _i, _i, _vp, _vp]),
         "tgt_edge_softmax_blocked": (_i, [_vp, _vp, _vp, _i, _i, _i, _vp,
                                           _vp]),
-        "tgt_attend_fused": (_i, [_vp, _i64, _vp, _i, _vp, _vp, _vp,
-                                  _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp]),
+        "tgt_attend_fused": (_i, [_vp, _i64, _vp, _i, _vp, _vp, _vp, _vp,
+                                  _i, _i, _i, _i, _i, _vp, _vp, _vp, _vp,
+                                  _vp]),
         "tgt_attend_flash_count": (_i, [_vp, _vp, _i, _i, _i, _vp, _vp, _vp,
                                         _vp]),
         "tgt_attend_flash": (_i, [_vp, _i64, _vp, _i, _i, _vp, _vp, _vp, _vp,

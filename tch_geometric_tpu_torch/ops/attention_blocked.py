@@ -492,18 +492,15 @@ def _check_layout(b: BlockedCsr, dev: torch.device) -> None:
 
 def _compute_rows(x: torch.Tensor, compute_dtype,
                   name: str = "x") -> torch.Tensor:
-    """``x`` as contiguous compute-dtype rows on a CUDA device, checked for
-    the kernels' two-column loads."""
+    """``x`` as contiguous compute-dtype rows on a CUDA device (the kernels
+    pick their load width from the rows' address, so any offset will do)."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute_dtype must be float32 or bfloat16, got "
                         f"{compute_dtype}")
     xc = x.to(compute_dtype).contiguous()
     if xc.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
-                         f"{xc.device}")
-    if xc.shape[-1] % 2 == 0 and xc.data_ptr() % (2 * xc.element_size()):
-        # with an even row width the kernels load two columns at a time
-        raise ValueError(f"{name} must start at a multiple of two elements")
+        raise ValueError(f"the CUDA kernel needs a CUDA tensor for {name}, "
+                         f"got {xc.device}")
     return xc
 
 
@@ -607,9 +604,11 @@ def attend_blocked_fused_cuda(b: BlockedCsr, x_dst: torch.Tensor,
                               scale: Optional[float] = None,
                               compute_dtype=torch.bfloat16) -> torch.Tensor:
     """B10: :func:`attend_blocked_fused` through the hand-written Hopper
-    kernels (pass A: scores and row stats per row block; pass B: normalise
-    and contract per 64-column tile) on a CUDA tensor; the plain version on
-    a CPU tensor."""
+    kernels on a CUDA tensor (one C call: B5's kernel scores the scaled
+    ``x_dst`` into a (T, C) scratch, a kernel per row block takes each
+    row's (m, z) from it, and B1's row-grouped weighted sum adds
+    ``bf16(w * x_src)`` with each lane's weight ``exp(s - m) / z``); the
+    plain version on a CPU tensor."""
     if x_src.device.type == "cpu":
         return attend_blocked_fused(b, x_dst, x_src, scale=scale,
                                     compute_dtype=compute_dtype)
@@ -619,6 +618,7 @@ def attend_blocked_fused_cuda(b: BlockedCsr, x_dst: torch.Tensor,
     T, C = b.edge_src.shape
     BW = b.num_blocks * b.rows_per_block
     dev = xs.device
+    _check(b.chunk_block, "chunk_block", torch.int32, (T,), dev)
     s = torch.empty((T, C), dtype=torch.float32, device=dev)
     m = torch.empty((BW,), dtype=torch.float32, device=dev)
     z = torch.empty((BW,), dtype=torch.float32, device=dev)
@@ -626,8 +626,9 @@ def attend_blocked_fused_cuda(b: BlockedCsr, x_dst: torch.Tensor,
     _run("attend_blocked", dev, "tgt_attend_fused", xd.data_ptr(),
          xd.shape[0], xs.data_ptr(), int(compute_dtype == torch.bfloat16),
          b.edge_src.data_ptr(), b.edge_local_row.data_ptr(),
-         b.block_start.data_ptr(), b.num_blocks, C, b.rows_per_block, F,
-         s.data_ptr(), m.data_ptr(), z.data_ptr(), out.data_ptr())
+         b.chunk_block.data_ptr(), b.block_start.data_ptr(), T,
+         b.num_blocks, C, b.rows_per_block, F, s.data_ptr(), m.data_ptr(),
+         z.data_ptr(), out.data_ptr())
     attend_blocked_fused_cuda.launches += 1
     return out[: b.num_rows]
 
@@ -816,9 +817,11 @@ def spmm_blocked_multiweighted_cuda(b: BlockedCsr, x: torch.Tensor,
                                     compute_dtype=torch.bfloat16
                                     ) -> torch.Tensor:
     """B8: :func:`spmm_blocked_multiweighted` through the hand-written
-    Hopper kernel (one CUDA block per (row block, 64-column tile), each
-    column weighted by its head's lane weight, terms rounded ``bf16(x *
-    w)``) on a CUDA tensor; the plain version on a CPU tensor."""
+    Hopper kernel (B1's row-grouped chunks: one CUDA block per chunk, its
+    lanes sorted by row, a warp per piece of at most 32 lanes of one row,
+    each column weighted by its head's lane weight, terms rounded
+    ``bf16(x * w)``) on a CUDA tensor; the plain version on a CPU
+    tensor."""
     if x.device.type == "cpu":
         return spmm_blocked_multiweighted(b, x, edge_weight,
                                           compute_dtype=compute_dtype)
@@ -833,13 +836,14 @@ def spmm_blocked_multiweighted_cuda(b: BlockedCsr, x: torch.Tensor,
     w = edge_weight.to(torch.float32).contiguous()
     _check(w, "edge_weight", torch.float32, (H, T, C), dev)
     _check_layout(b, dev)
+    _check(b.chunk_block, "chunk_block", torch.int32, (T,), dev)
     out = torch.empty((b.num_blocks * b.rows_per_block, F),
                       dtype=torch.float32, device=dev)
     _run("gat_blocked", dev, "tgt_spmm_multiweighted", xc.data_ptr(),
          int(compute_dtype == torch.bfloat16), b.edge_src.data_ptr(),
-         b.edge_local_row.data_ptr(), w.data_ptr(),
-         b.block_start.data_ptr(), b.num_blocks, T, C, b.rows_per_block,
-         F, F // H, out.data_ptr())
+         b.edge_local_row.data_ptr(), w.data_ptr(), b.chunk_block.data_ptr(),
+         b.block_start.data_ptr(), T, b.num_blocks, C, b.rows_per_block, F,
+         F // H, out.data_ptr())
     spmm_blocked_multiweighted_cuda.launches += 1
     return out[: b.num_rows]
 

@@ -14,7 +14,8 @@ single-head attention kernels B5 (``sddmm_blocked_cuda``), B6
 ``attend_blocked_cuda`` (B5, B6, B8) — :func:`run_attend_gates` — and B11
 (``spmm_blocked_q8_cuda``, sum and mean) — :func:`run_q8_gates` — and B5
 and B4 again on the cases that reach their row-grouped kernels' other
-paths — :func:`run_attend_mode_gates`.  Each
+paths — :func:`run_attend_mode_gates` — and B10 and B8 likewise —
+:func:`run_weighted_mode_gates`.  Each
 kernel runs on the given device and is compared with its plain version
 (``spmm_blocked``, ``gat_attend_blocked_packed``, ``sddmm_blocked``, ...)
 on the same inputs, computed on the same device.  On a CPU device both sides are the plain
@@ -65,7 +66,8 @@ import torch
 # to about 60 on the card); B6 and B7 are float32 throughout (2.4e-7 and
 # 1.8e-7).  B8 rounds each term bf16(x * w) from the same float32 weight as
 # its plain version, so the terms match bit for bit and only the sums'
-# order differs; B11's int8 rows times a bfloat16 scale are exact in
+# order differs (the kernel rounds the float32 product on its own, never
+# fused into its add); B11's int8 rows times a bfloat16 scale are exact in
 # float32, likewise.  B9 keeps an exact per-row running max, so the kernel's
 # expf and torch's exp on the card see the same float32 arguments and
 # bf16(e) matches too; a B9 or B8 that rounded at another point would be
@@ -76,13 +78,15 @@ import torch
 # stats, lies an ulp or so from the plain version's and can round its
 # bfloat16 term (bf16(x * w) or bf16(e)) the other way: one bfloat16 ulp
 # of the heaviest term, at most 2**-5 for |x| < 8.  On these gates an
-# NVIDIA H100 80GB HBM3 at 700 W read up to 2.0e-3 (composed attend, fused,
-# composed GAT), 1.4e-3 (flash, chunk max), 8.3e-7 (flash, row max), 3.0e-8
-# (B8), 4.8e-7 (B9) and 0 (B11) in bfloat16; at ogbn-products size 7.8e-3
-# (composed GAT, fused), 2.4e-7 (B8) and 9.5e-7 (B9) on outputs up to 3.2
-# (PERF.md, Findings; the flash readings are of the per-row tile kernel
-# that B4 replaced).  Each limit sits well above the card's reading and
-# well below the values compared.
+# NVIDIA H100 80GB HBM3 at 700 W read up to 3.9e-3 (fused: B10 on its
+# row-grouped kernels, the testbed and the short x_dst), 2.0e-3 (composed
+# attend, composed GAT), 1.4e-2 (flash, chunk max), 3.6e-3 (flash, row
+# max), 6.0e-8 (B8, also at H=4 heads of 36 columns, over the hub row and
+# in chunks of 8,192 lanes), 4.8e-7 (B9) and 0 (B11) in bfloat16, and at
+# most 8.8e-6 in float32 (B10 and B4 on the far scores); at ogbn-products
+# size 7.8e-3 (composed GAT, fused), 2.4e-7 (B8) and 9.5e-7 (B9) on outputs
+# up to 3.2 (PERF.md, Findings).  Each limit sits well above the card's
+# reading and well below the values compared.
 F32_THRESHOLD = 5e-4
 BF16_THRESHOLDS = {"spmm_blocked_cuda": 1e-3, "spmm_hot_split": 1e-3,
                    "spmm_blocked_weighted_cuda": 1e-3,
@@ -532,6 +536,73 @@ def run_attend_mode_gates(compute_dtype=torch.float32, device="cuda"
                                                          row_stats=rs, **kw),
                             ab.attend_blocked_flash(b, xd, xs, row_stats=rs,
                                                     **kw))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return errs
+
+
+def _softmax_weights(b, heads: int, seed: int) -> torch.Tensor:
+    """(heads, T, C) float32 weights of the lanes of ``b``: the plain
+    per-row, per-head softmax of seeded N(0, 1) logits, as B8 takes them
+    from B7 (each row's weights sum to 1, 0 on pad lanes)."""
+    from ..ops.attention_blocked import edge_softmax_blocked_multihead
+    gen = torch.Generator().manual_seed(seed)
+    logits = torch.randn((heads,) + tuple(b.edge_src.shape), generator=gen)
+    return edge_softmax_blocked_multihead(b, logits.to(b.edge_src.device))
+
+
+def run_weighted_mode_gates(compute_dtype=torch.float32, device="cuda"
+                            ) -> Dict[str, float]:
+    """``{case/kernel: max_abs_err}`` of B10 (``attend_blocked_fused_cuda``)
+    and B8 (``spmm_blocked_multiweighted_cuda``) against their plain
+    versions on ``device``, on the cases that reach their row-grouped
+    kernels' other paths: the hub row of 1,000 lanes (split over pieces and
+    chunks), the testbed in chunks of 8,192 lanes (more than the kernels
+    stage at once: the output is zeroed whole and every piece adds), the
+    testbed at 320 columns (wider than one 256-column slab), B10 with a
+    distinct ``x_dst`` 300 rows short of B*W and on
+    :func:`far_scores_case`, and B8 with one head (the rows as they are)
+    and with H=4 heads: D=36 on the hub row and at C=8192 (a bfloat16
+    vector of 8 would straddle two heads, so the kernel loads 4), D=80 at
+    320 columns.  B8 takes per-row softmax weights, as B7 gives them."""
+    from ..ops import attention_blocked as ab
+    from ..ops.spmm_blocked import build_blocked
+
+    indptr, src, x_np = build_testbed()
+    rng = np.random.default_rng(320)
+    x320 = rng.normal(size=(len(indptr) - 1, 320)).astype(np.float32)
+    short = rng.normal(size=(len(indptr) - 301, 128)).astype(np.float32)
+    hub = hub_row_graph()
+    far = far_scores_case()
+    # (name, indptr, src, x_dst, x_src, rows_per_block, chunk_edges, B8's
+    # head widths D; None: no B8 case)
+    cases = [hub[:3] + (hub[3],) + hub[3:] + ((34, 36),),
+             ("testbed[C=8192]", indptr, src, x_np, x_np, 256, 8192,
+              (128, 36)),
+             ("testbed_f320", indptr, src, x320, x320, 256, None, (320, 80)),
+             ("testbed_short_dst", indptr, src, short, x_np, 256, None, None),
+             far[:7] + (None,)]
+    errs: Dict[str, float] = {}
+    kw = dict(compute_dtype=compute_dtype)
+    with _strict_f32():
+        for name, ip, s, xd_np, xs_np, W, C, widths in cases:
+            b = build_blocked(ip, s, rows_per_block=W, chunk_edges=C,
+                              device=device)
+            xd = torch.from_numpy(xd_np).to(device)
+            xs = torch.from_numpy(xs_np).to(device)
+            errs[f"{name}/attend_blocked_fused_cuda"] = _maxerr(
+                ab.attend_blocked_fused_cuda(b, xd, xs, **kw),
+                ab.attend_blocked_fused(b, xd, xs, **kw))
+            for D in widths or ():
+                H = 1 if D == xs.shape[1] else 4
+                x = xs if H == 1 else torch.from_numpy(
+                    np.random.default_rng(D).normal(
+                        size=(len(ip) - 1, H * D)).astype(np.float32)
+                ).to(device)
+                w = _softmax_weights(b, H, seed=D)
+                errs[f"{name}[H={H},D={D}]/spmm_blocked_multiweighted_cuda"] \
+                    = _maxerr(ab.spmm_blocked_multiweighted_cuda(b, x, w, **kw),
+                              ab.spmm_blocked_multiweighted(b, x, w, **kw))
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return errs

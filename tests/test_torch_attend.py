@@ -324,3 +324,44 @@ def test_attend_mode_gates_harness_on_cpu(dtype, threshold):
     assert kernels == {"sddmm_blocked_cuda", "attend_blocked_flash_cuda"}
     ok, worst = kernel_gates.gate(errs, threshold)
     assert ok, worst
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_fused_hub_row_matches_jax(dtype):
+    """The plain fused attention (B10's function) on the hub row of 1,000
+    lanes (W = C = 128: the row fills several chunks) with a distinct
+    x_dst, against the JAX kernels in interpret mode."""
+    jdt, tdt = DTYPES[dtype]
+    _, indptr, src, x_src, W, C = kernel_gates.hub_row_graph()
+    b_t = tsb.build_blocked(indptr, src, rows_per_block=W, chunk_edges=C,
+                            device="cpu")
+    b_j = jsb.build_blocked(indptr, src.astype(np.int32), rows_per_block=W,
+                            chunk_edges=C)
+    x_dst = np.random.default_rng(70).normal(size=x_src.shape).astype(
+        np.float32)
+    ref = np.asarray(jab.attend_blocked_fused(
+        b_j, jnp.asarray(x_dst), jnp.asarray(x_src), compute_dtype=jdt,
+        interpret=True))
+    out = tab.attend_blocked_fused(
+        b_t, torch.from_numpy(x_dst), torch.from_numpy(x_src),
+        compute_dtype=tdt).numpy()
+    assert out.shape == ref.shape == x_src.shape
+    np.testing.assert_allclose(out, ref, rtol=_tol(dtype), atol=_tol(dtype))
+    empty = np.diff(indptr) == 0
+    assert not out[empty].any()
+
+
+@pytest.mark.parametrize("dtype,threshold", [
+    (torch.float32, kernel_gates.F32_THRESHOLD),
+    (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
+def test_weighted_mode_gates_harness_on_cpu(dtype, threshold):
+    errs = kernel_gates.run_weighted_mode_gates(dtype, device="cpu")
+    assert len(errs) == 5 + 6
+    cases = {k.rsplit("/", 1)[0].split("[H=")[0] for k in errs}
+    assert cases == {"hub_row", "testbed[C=8192]", "testbed_f320",
+                     "testbed_short_dst", "far_scores"}
+    kernels = {k.rsplit("/", 1)[1] for k in errs}
+    assert kernels == {"attend_blocked_fused_cuda",
+                       "spmm_blocked_multiweighted_cuda"}
+    ok, worst = kernel_gates.gate(errs, threshold)
+    assert ok, worst

@@ -107,6 +107,43 @@ def test_spmm_multiweighted_matches_pallas(case, dtype):
     np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
 
 
+def _d36_cases():
+    ip, src, *_ = kernel_gates.build_gat_testbed(n=512, e=4096)
+    _, hub_ip, hub_src, _, W, C = kernel_gates.hub_row_graph()
+    return {"testbed": (ip, src, 128, None),
+            "hub_row": (hub_ip, hub_src, W, C)}
+
+
+D36_CASES = _d36_cases()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", list(D36_CASES))
+def test_spmm_multiweighted_d36_matches_pallas(name, dtype):
+    """B8's plain version at H=4 heads of D=36 columns (the width at which
+    the kernel's bfloat16 loads drop to 4 elements, so that none straddles
+    two heads), on the GAT testbed and on the hub row of 1,000 lanes
+    (W = C = 128), against the JAX Pallas kernel in interpret mode."""
+    jdt, tdt, tol = DTYPES[dtype]
+    indptr, src, W, C = D36_CASES[name]
+    b_t = tsb.build_blocked(indptr, src, rows_per_block=W, chunk_edges=C,
+                            device="cpu")
+    b_j = jsb.build_blocked(indptr, src.astype(np.int32), rows_per_block=W,
+                            chunk_edges=C)
+    rng = np.random.default_rng(36)
+    n = len(indptr) - 1
+    x = rng.normal(size=(n, 4 * 36)).astype(np.float32)
+    w = rng.random((4,) + tuple(b_t.edge_src.shape)).astype(np.float32)
+    ref = np.asarray(jab.spmm_blocked_multiweighted_pallas(
+        b_j, jnp.asarray(x), jnp.asarray(w), compute_dtype=jdt,
+        interpret=True))
+    out = tab.spmm_blocked_multiweighted(b_t, torch.from_numpy(x),
+                                         torch.from_numpy(w),
+                                         compute_dtype=tdt).numpy()
+    assert out.shape == ref.shape == (n, 4 * 36)
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+
+
 ROUTES = ["gat_attend_blocked", "gat_attend_blocked_flash"]
 
 
