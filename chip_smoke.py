@@ -25,9 +25,12 @@ prints no result line):
    than the layout and a "far scores" case in which one chunk's scores sit
    150 above the rest of its row block; B10 on the same five cases, and B8
    on the hub row, the multi-pass layout and rows of 320 columns with one
-   head and with four, of 36 columns (80 at 320), softmax weights), in
-   float32 (5e-4, TF32 off) and bfloat16 (per-kernel limits of
-   ``utils/kernel_gates.py``);
+   head and with four, of 36 columns (80 at 320), softmax weights; B3
+   (both modes) and B9 on the hub row, the multi-pass layout, four heads
+   of 80 and of 36 columns, one head of 47 and a "far logits" case in
+   which three rows' logits sit 150 above the rest of their row block, and
+   B9's debug statistics on the hub row), in float32 (5e-4, TF32 off) and
+   bfloat16 (per-kernel limits of ``utils/kernel_gates.py``);
 3. the GraphSAGE serving path at ogbn-products size (synthetic graph with
    the dataset's node/edge counts, 100 features, 47 classes; model
    hidden=256, 3 layers, random weights from a seed):
@@ -158,6 +161,7 @@ def phase_kernel_checks(device):
         errs.update(kg.run_attend_gates(dtype, device=device))
         errs.update(kg.run_attend_mode_gates(dtype, device=device))
         errs.update(kg.run_weighted_mode_gates(dtype, device=device))
+        errs.update(kg.run_gat_mode_gates(dtype, device=device))
         errs.update(kg.run_q8_gates(dtype, device=device))
         ok, worst = kg.gate(errs, thr)
         log(f"kernel checks {str(dtype)[6:]} (limits {thr}): "
@@ -867,6 +871,8 @@ def gat_kernel_numbers(p, launches, device):
                 10)
         if H == GAT_HEADS:
             main = (h, a_d, vec)
+    # split-row slots of the last call (the layout's, whatever H and D)
+    slots = getattr(gat_attend_blocked_packed_cuda, "last_slots", None)
     h, a_d, vec = main
     H, D = h.shape[1:]
     plain_ms = cuda_ms(lambda: gat_attend_blocked_packed(
@@ -891,15 +897,16 @@ def gat_kernel_numbers(p, launches, device):
         f"by {'bytes' if t_bytes >= t_ops else 'operations'}), plain "
         f"{plain_ms:.3f} ms; all timings (vec mode) {ms}; launches on the "
         f"GAT path {launches[key]}; worst wrapper err f32 {err32:.2e} bf16 "
-        f"{err16:.2e}")
+        f"{err16:.2e}; split-row slots {slots}")
     return dict(
         name=f"{key} (B3)", route="cuda",
-        source="tch_geometric_tpu_torch/csrc/gat_packed.cu",
+        source="tch_geometric_tpu_torch/csrc/gat_blocked.cu",
         replaces="tch_geometric_tpu/ops/attention_blocked.py:765",
         launches=launches[key], max_abs_err=err32, ms=main_ms,
         plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, max_abs_err_bf16=err16, ms_by_shape=ms,
+        split_slots=slots,
         shape=dict(T=T, C=C, W=b.rows_per_block, H=H, D=D, N=n,
                    valid_lanes=valid, dtype="float32", mode="vec"),
         library_call=None)

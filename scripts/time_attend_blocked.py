@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the attention kernels B5, B4, B6, B10 and B8, the attend routes, and the kernels and passes beside them.
+"""Time the attention kernels B5, B4, B6, B10, B8, B3 and B9, the attend routes, and the kernels and passes beside them.
 
 Times the ``tch_geometric_tpu_torch`` package that comes first on
 ``sys.path``, through its public wrappers only, so the same script times an
@@ -24,7 +24,11 @@ in bfloat16; B6 at F=256 in bfloat16; B10 at F=256 in bfloat16 and float32
 and at F=100 in bfloat16; the three attend routes (composed, fused, flash
 with row stats) at F=256 in bfloat16; B8 at the GAT's layer 1 (H=4, D=64)
 in float32 and bfloat16, at its layer 3 (H=1, D=47) in float32 and with
-one head at F=256 in bfloat16.  Then B1,
+one head at F=256 in bfloat16; B3 (vec mode) at H=4, D=64 in float32 and
+bfloat16 and at H=1, D=47 in float32, and B9 at H=4, D=64 in float32 and
+bfloat16, with the kernels of one B3 call and one B9 call (float32, H=4)
+under ``torch.profiler``, the host clock of that call (its synchronisation
+on the slot count included) and its split-row slot count.  Then B1,
 B2, B11 and the SAGE forwards of ``scripts/time_spmm_blocked.py`` and the
 full-graph GAT pass through each of its three routes (B3; B7 + B8; B9), so
 that one process covers every kernel.
@@ -136,6 +140,52 @@ def b8_cases(p, xs, device):
             "B8_H1_F256_bf16": (b8(x256, w256, torch.bfloat16), 10)}
 
 
+def gat_kernel_cases(p, device):
+    """``{name: (fn, calls)}`` of B3 and B9 at the shapes the GAT gives
+    them, on seeded rows and logit tables: B3 in the vec mode (the GATv1
+    projection GATConv uses) at layers 1-2 (H=4, D=64) in float32 and
+    bfloat16 and at layer 3 (H=1, D=47) in float32; B9 at H=4, D=64 in
+    float32 and bfloat16."""
+    from tch_geometric_tpu_torch.ops import attention_blocked as ab
+
+    b = p["blocked"]
+    n = p["x_table"].shape[0]
+    gen = torch.Generator().manual_seed(5)
+    out = {}
+    for H, D in ((4, 64), (1, 47)):
+        h = torch.randn((n, H, D), generator=gen).to(device)
+        a_s = torch.randn((n, H), generator=gen).to(device)
+        a_d = torch.randn((n, H), generator=gen).to(device)
+        vec = (torch.randn((H, D), generator=gen) / D ** 0.5).to(device)
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            if H == 1 and dt == torch.bfloat16:
+                continue
+            hc = h.to(dt)
+            out[f"B3_vec_H{H}_D{D}_{tag}"] = (
+                lambda hc=hc, a_d=a_d, vec=vec, dt=dt:
+                ab.gat_attend_blocked_packed_cuda(
+                    b, hc, None, a_d, alpha_src_vec=vec, compute_dtype=dt),
+                10)
+            if H == 4:
+                out[f"B9_H{H}_D{D}_{tag}"] = (
+                    lambda hc=hc, a_s=a_s, a_d=a_d, dt=dt:
+                    ab.gat_attend_blocked_flash_cuda(
+                        b, hc, a_s, a_d, compute_dtype=dt), 10)
+    return out
+
+
+def host_ms(fn) -> float:
+    """Host clock of one call of ``fn`` ending in a synchronise, after one
+    warm-up call: what a caller waits, the wrapper's host work and its
+    synchronisations included."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def kernel_split(fn):
     """``{kernel name: device ms}`` of one call of ``fn`` under
     ``torch.profiler`` (empty where the profiler sees no device time)."""
@@ -145,12 +195,17 @@ def kernel_split(fn):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # the tracer can miss the first kernel of its window: a short
+            # spin kernel goes first and is left out below
+            torch.cuda._sleep(1000)
             fn()
             torch.cuda.synchronize()
     except RuntimeError as exc:          # a sandbox may refuse the tracer
         return {"error": str(exc).splitlines()[0]}
     out = {}
     for ev in prof.key_averages():
+        if "spin_kernel" in ev.key:
+            continue
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
@@ -207,6 +262,24 @@ def main(argv=None) -> int:
     res["b4_split_slots_last_call"] = slots
     time_cases(b8_cases(p, xs, device), res)
     del xs
+    torch.cuda.empty_cache()
+    # B3 and B9: times, the kernels of one call of each (projection,
+    # pre-pass, main, merge; the slot count's copy to the host), the host
+    # clock of that call and the split-row slot counts
+    gcases = gat_kernel_cases(p, device)
+    time_cases(gcases, res)
+    ab_mod = sys.modules["tch_geometric_tpu_torch.ops.attention_blocked"]
+    for k, wrapper in (("B3_vec_H4_D64_f32", "gat_attend_blocked_packed_cuda"),
+                       ("B9_H4_D64_f32", "gat_attend_blocked_flash_cuda")):
+        res["profile"][k] = kernel_split(gcases[k][0])
+        res.setdefault("host_ms", {})[k] = host_ms(gcases[k][0])
+        res.setdefault("split_slots_last_call", {})[k] = getattr(
+            getattr(ab_mod, wrapper), "last_slots", None)
+    print("profile", json.dumps({k: res["profile"][k] for k in
+                                 ("B3_vec_H4_D64_f32", "B9_H4_D64_f32")}),
+          "host_ms", res["host_ms"], "slots", res["split_slots_last_call"],
+          flush=True)
+    del gcases
     torch.cuda.empty_cache()
     time_cases(spmm_cases(p, device), res)
     torch.cuda.empty_cache()

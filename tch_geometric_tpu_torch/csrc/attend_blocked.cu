@@ -239,16 +239,8 @@ using blocked::Vec;
 // 7.3 against 6.7 at F=100); B4 in f32 21.0 against 22.9.
 constexpr int kRowMinBlocks = 3;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
+using blocked::warp_max;
+using blocked::warp_sum;
 
 // This thread's kAcc columns c0 + (k*32 + lane)*kVec .. +kVec, k < kAcc /
 // kVec, of the slab at c0 of `row` as floats; 0 where a column does not
@@ -508,11 +500,9 @@ __device__ __forceinline__ void flash_piece_wide(
 __global__ void __launch_bounds__(kRowThreads)
 flash_count_kernel(const int32_t* __restrict__ local_row,
                    const int32_t* __restrict__ chunk_block, int C, int W,
-                   int stage, int direct, int32_t* __restrict__ split,
+                   int stage, int32_t* __restrict__ split,
                    float* __restrict__ row_m, float* __restrict__ row_z) {
   extern __shared__ int cnt[];           // W lane counts of the pass
-  __shared__ int lo, hi, total;
-  const int lane = threadIdx.x & 31;
   const int t = blockIdx.x;
   const int b = chunk_block[t];
   if (t == 0 || chunk_block[t - 1] != b) {
@@ -521,49 +511,9 @@ flash_count_kernel(const int32_t* __restrict__ local_row,
       row_z[static_cast<int64_t>(b) * W + r] = 0.f;
     }
   }
-  if (threadIdx.x == 0) total = 0;
-  for (int s0 = 0; s0 < C; s0 += stage) {
-    const int n = min(stage, C - s0);
-    const int64_t e0 = static_cast<int64_t>(t) * C + s0;
-    for (int r = threadIdx.x; r < W; r += kRowThreads) cnt[r] = 0;
-    if (threadIdx.x == 0) {
-      lo = W;
-      hi = -1;
-    }
-    __syncthreads();
-    int my_lo = W, my_hi = -1;
-    for (int i = threadIdx.x; i < n; i += kRowThreads) {
-      const int r = local_row[e0 + i];
-      if (r < W) {
-        atomicAdd(&cnt[r], 1);
-        my_lo = min(my_lo, r);
-        my_hi = max(my_hi, r);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-      my_lo = min(my_lo, __shfl_xor_sync(kFull, my_lo, o));
-      my_hi = max(my_hi, __shfl_xor_sync(kFull, my_hi, o));
-    }
-    if (lane == 0) {
-      atomicMin(&lo, my_lo);
-      atomicMax(&hi, my_hi);
-    }
-    __syncthreads();
-    // Piece::own: whole pass, at most kPiece lanes, neither first nor last
-    const bool whole = direct && n == C;
-    int mine = 0;
-    for (int r = threadIdx.x; r < W; r += kRowThreads) {
-      const int c = cnt[r];
-      if (c > 0 && (!whole || c > kPiece || r == lo || r == hi))
-        mine += (c + kPiece - 1) / kPiece;
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) mine += __shfl_xor_sync(kFull, mine, o);
-    if (lane == 0) atomicAdd(&total, mine);
-    __syncthreads();                     // the next pass resets cnt
-  }
-  if (threadIdx.x == 0) split[t] = total;
+  const blocked::SplitCount sc = blocked::count_split_pieces(
+      local_row, static_cast<int64_t>(t) * C, C, W, stage, cnt);
+  if (threadIdx.x == 0) split[t] = sc.pieces;
 }
 
 // One CUDA block per chunk: stage and sort it, then each warp takes pieces.
@@ -634,93 +584,6 @@ flash_rows_kernel(const T* __restrict__ xd, int64_t nd,
   }
 }
 
-// After flash_rows_kernel, one CUDA block per row block b: merges the
-// block's split slots into their rows (ref = the row's max over its slots,
-// or with scalar stats the block's largest max), rescales or zeroes an
-// owned row whose z * exp(m - M_block) is below 1e-20 (scalar stats only),
-// and zeroes the rows no lane reaches.  kOut floats per access of a row.
-template <int kOut, bool kRowStats>
-__global__ void __launch_bounds__(kRowThreads)
-flash_merge_kernel(const int32_t* __restrict__ block_start,
-                   const int32_t* __restrict__ slot_off, int W, int F,
-                   const int32_t* __restrict__ slot_row,
-                   const float* __restrict__ slot_m,
-                   const float* __restrict__ slot_z,
-                   const float* __restrict__ slot_acc,
-                   const float* __restrict__ row_m,
-                   const float* __restrict__ row_z, float* __restrict__ out) {
-  extern __shared__ float mz[];
-  float* mr = mz;                        // W row maxima over the slots
-  float* zr = mr + W;                    // W merged sums
-  int* ns = reinterpret_cast<int*>(zr + W);   // W slot counts
-  __shared__ float red[kRowWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x;
-  const int s0 = slot_off[block_start[b]], s1 = slot_off[block_start[b + 1]];
-  const int64_t row0 = static_cast<int64_t>(b) * W;
-  for (int r = threadIdx.x; r < W; r += kRowThreads) {
-    mr[r] = -CUDART_INF_F;
-    zr[r] = 0.f;
-    ns[r] = 0;
-  }
-  __syncthreads();
-  for (int s = s0 + threadIdx.x; s < s1; s += kRowThreads) {
-    const int r = slot_row[s];
-    blocked::atomic_max_float(mr + r, slot_m[s]);
-    atomicAdd(ns + r, 1);
-  }
-  __syncthreads();
-  float mb = 0.f;                        // M_block (scalar stats)
-  if (!kRowStats) {
-    float v = -CUDART_INF_F;
-    for (int r = threadIdx.x; r < W; r += kRowThreads)
-      v = fmaxf(v, fmaxf(mr[r], row_m[row0 + r]));
-    v = warp_max(v);
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    v = -CUDART_INF_F;
-#pragma unroll
-    for (int w = 0; w < kRowWarps; ++w) v = fmaxf(v, red[w]);
-    // a block of pad chunks has no score; its rows are zeroed below
-    mb = isfinite(v) ? v : 0.f;
-  }
-  for (int s = s0 + threadIdx.x; s < s1; s += kRowThreads) {
-    const int r = slot_row[s];
-    atomicAdd(zr + r, slot_z[s] * expf(slot_m[s] - (kRowStats ? mr[r] : mb)));
-  }
-  __syncthreads();
-  for (int r = warp; r < W; r += kRowWarps) {
-    const float zo = row_z[row0 + r];
-    float scale = 1.f;                   // of an owned row, stored acc / z
-    if (ns[r] > 0 || !(zo > 0.f)) {
-      scale = 0.f;                       // split (added below) or no lanes
-    } else if (!kRowStats) {
-      const float zf = zo * expf(row_m[row0 + r] - mb);
-      scale = !(zf > 0.f) ? 0.f : zf < 1e-20f ? zf / 1e-20f : 1.f;
-    }
-    if (scale != 1.f) {                  // warp-uniform
-      float* o = out + (row0 + r) * F;
-      for (int c = lane; c < F; c += 32) o[c] = scale == 0.f ? 0.f : o[c] * scale;
-    }
-  }
-  __syncthreads();                       // the zeroed rows, before the adds
-  for (int s = s0 + warp; s < s1; s += kRowWarps) {
-    const int r = slot_row[s];
-    const float zs = zr[r];
-    if (!(zs > 0.f)) continue;           // the row stays 0
-    const float coef = expf(slot_m[s] - (kRowStats ? mr[r] : mb)) /
-                       fmaxf(zs, 1e-20f);
-    const float* a = slot_acc + static_cast<int64_t>(s) * F;
-    float* o = out + (row0 + r) * F;
-    for (int c = lane * kOut; c < F; c += 32 * kOut) {
-      float v[kOut];
-#pragma unroll
-      for (int e = 0; e < kOut; ++e) v[e] = a[c + e] * coef;
-      put<kOut>(o + c, v, true);
-    }
-  }
-}
-
 // Elements per load of both row tables: the widest that divides F and both
 // addresses (vec_elems), so each is a power of two dividing the other.
 inline int pair_vec(const void* xd, const void* xs, int F, int elem_bytes) {
@@ -768,18 +631,9 @@ cudaError_t launch_flash(const void* xd, int64_t nd, const void* xs,
       out, row_m, row_z, slot_row, slot_m, slot_z, slot_acc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t msmem = 3 * static_cast<size_t>(W) * sizeof(float);
-#define TGT_MERGE(V)                                                        \
-  (row_stats ? &flash_merge_kernel<V, true> : &flash_merge_kernel<V, false>)
-  auto merge = F % 4 == 0 ? TGT_MERGE(4)
-               : F % 2 == 0 ? TGT_MERGE(2) : TGT_MERGE(1);
-#undef TGT_MERGE
-  err = allow_smem(merge, msmem);
-  if (err != cudaSuccess) return err;
-  merge<<<num_blocks, kRowThreads, msmem, stream>>>(
-      block_start, slot_off, W, F, slot_row, slot_m, slot_z, slot_acc, row_m,
-      row_z, out);
-  return cudaGetLastError();
+  return blocked::launch_merge(row_stats, block_start, slot_off, num_blocks,
+                               W, 1, F, slot_row, slot_m, slot_z, slot_acc,
+                               row_m, row_z, out, nullptr, stream);
 }
 
 // B5 on the widest load that divides F and both row tables' addresses.
@@ -903,8 +757,7 @@ int tgt_attend_flash_count(const int32_t* local_row,
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_count_kernel<<<num_chunks, kRowThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      local_row, chunk_block, C, W, stage, stage == C ? 1 : 0, split, row_m,
-      row_z);
+      local_row, chunk_block, C, W, stage, split, row_m, row_z);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,19 +1,22 @@
 // Device and host helpers shared by the blocked-layout kernels
 // (spmm_blocked.cu: B1, B2, B11; attend_blocked.cu: B4, B5, B6, B10;
-// gat_blocked.cu: B7, B8).
+// gat_blocked.cu: B3, B7, B8, B9).
 //
 // The blocked layout: row block b owns W destination rows and the chunks
 // [block_start[b], block_start[b+1]) of C lanes each; a lane carries its
 // source row (edge_src) and its row within the block (local_row), pad lanes
 // local_row == W and edge_src == 0.  B11 still runs the tile design: an
 // output tile of W rows x kTileF columns of float32 in shared memory.  The
-// row-grouped kernels (B1, B2, B4, B5, B8, B10) stage a chunk in shared
-// memory instead and counting-sort its live lanes by row (stage_pass): each
-// row's lanes become one run, cut into pieces of at most kPiece lanes that
-// one warp takes, reading each lane's source row whole with Vec loads.  The
+// row-grouped kernels (B1-B5, B8-B10) stage a chunk in shared memory
+// instead and counting-sort its live lanes by row (stage_pass): each row's
+// lanes become one run, cut into pieces of at most kPiece lanes that one
+// warp takes, reading each lane's source row whole with Vec loads.  The
 // weighted sums among them (B1, B2, B8, B10's last step) are one kernel,
 // rows_kernel, instantiated per source file with a Lanes policy that stages
-// each lane's weight data and gives add_piece each piece's weights.
+// each lane's weight data and gives add_piece each piece's weights.  The
+// softmax-weighted ones (B4; B3 and B9 in gat_blocked.cu) store owned rows
+// and leave each split piece's partial sums in a slot: count_split_pieces
+// sizes the slots, flash_merge_kernel combines them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -127,7 +130,18 @@ __device__ __forceinline__ float softmax_weight(float s, float m, float z) {
   return isfinite(m) && z > 0.f ? expf(s - m) / fmaxf(z, 1e-38f) : 0.f;
 }
 
-// ---- row-grouped chunks (B1, B2, B4, B5, B8, B10) ------------------------
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// ---- row-grouped chunks (B1-B5, B8-B10) ----------------------------------
 
 constexpr int kRowThreads = 256;         // 8 warps per CUDA block
 constexpr int kRowWarps = kRowThreads / 32;
@@ -384,18 +398,30 @@ struct LaneWeight {
   }
 };
 
+// Where add_piece puts a piece's f32 sums: sink.store<kVec>(col, v) takes
+// the kVec sums of columns col .. col+kVec.  RowSink: into the output row,
+// stored when the piece owns the row, else added by vector atomics.
+struct RowSink {
+  float* out_row;
+  bool add;
+  template <int kVec>
+  __device__ void store(int col, const float* v) const {
+    put<kVec>(out_row + col, v, add);
+  }
+};
+
 // One warp adds the rows x[src_s[pc.start + j]], j < pc.len, of a piece,
 // each column weighted as wf says and, when kRound, each term rounded to T
 // (round_to<T>(w * x): the product rounded on its own, never fused into the
-// add), and writes the f32 sums to out_row: stored when the piece owns the
-// row, else added by vector atomics.  Thread `lane` holds columns
+// add), and hands the f32 sums to sink.  Thread `lane` holds columns
 // c0 + (k*32 + lane)*kVec .. +kVec of each 32*kAcc-column slab,
 // k < kAcc / kVec, so each row load of the warp is contiguous.
-template <typename T, int kVec, bool kRound, typename WeightFn>
+template <typename T, int kVec, bool kRound, typename WeightFn,
+          typename Sink>
 __device__ __forceinline__ void add_piece(const T* __restrict__ x, int F,
                                           const int* src_s, Piece pc,
-                                          float* __restrict__ out_row,
-                                          int lane, WeightFn& wf) {
+                                          int lane, WeightFn& wf,
+                                          const Sink& sink) {
   using Raw = typename Vec<T, kVec>::Raw;
   constexpr int kNV = kAcc / kVec;       // vectors a thread holds
   // rows in flight before their adds
@@ -450,7 +476,7 @@ __device__ __forceinline__ void add_piece(const T* __restrict__ x, int F,
     }
 #pragma unroll
     for (int k = 0; k < kNV; ++k)
-      if (has[k]) put<kVec>(out_row + col[k], acc + k * kVec, !pc.own);
+      if (has[k]) sink.template store<kVec>(col[k], acc + k * kVec);
   }
 }
 
@@ -533,8 +559,9 @@ rows_kernel(const T* __restrict__ x, const int32_t* __restrict__ edge_src,
       const Piece pc = st.piece[p];
       auto wf = lanes.template weights<load_depth<T, kVec>(), kAcc / kVec>(
           aux_s, pc, lane, chunk0);
-      add_piece<T, kVec, Lanes::kRound>(x, F, src_s, pc,
-                                        out + (row0 + pc.row) * F, lane, wf);
+      add_piece<T, kVec, Lanes::kRound>(
+          x, F, src_s, pc, lane, wf,
+          RowSink{out + (row0 + pc.row) * F, !pc.own});
     }
     __syncthreads();                     // the next pass reuses the stage
   }
@@ -594,6 +621,230 @@ zero_split_rows_kernel(const int32_t* __restrict__ local_row,
       for (int c = lane; c < F; c += 32) o[c] = 0.f;
     }
   }
+}
+
+// ---- split rows of the softmax-weighted kernels (B3, B4, B9) -------------
+//
+// Their main kernels store an owned row (Piece::own) as acc / z and leave
+// every other piece's partial sums in a slot: its row, per head its
+// reference max and sum z, and its F = H*D f32 sums acc.  Chunk t's split
+// pieces take slots [slot_off[t], slot_off[t+1]): count_split_pieces counts
+// them in a kernel before, the wrapper scans the counts and reads the total
+// to size the slots, and flash_merge_kernel combines them.
+
+// The split pieces of the chunk at chunk0 — every piece that a row-grouped
+// kernel staging `stage` lanes a pass will not own — and the chunk's lowest
+// and highest live row (W and -1 when it has none), returned to every
+// thread.  cnt: W ints of shared memory.  Called by the whole block.
+struct SplitCount {
+  int pieces, lo, hi;
+};
+__device__ inline SplitCount count_split_pieces(
+    const int32_t* __restrict__ local_row, int64_t chunk0, int C, int W,
+    int stage, int* cnt) {
+  __shared__ int lo, hi, total, chunk_lo, chunk_hi;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    total = 0;
+    chunk_lo = W;
+    chunk_hi = -1;
+  }
+  for (int s0 = 0; s0 < C; s0 += stage) {
+    const int n = min(stage, C - s0);
+    const int64_t e0 = chunk0 + s0;
+    for (int r = threadIdx.x; r < W; r += kRowThreads) cnt[r] = 0;
+    if (threadIdx.x == 0) {
+      lo = W;
+      hi = -1;
+    }
+    __syncthreads();
+    int my_lo = W, my_hi = -1;
+    for (int i = threadIdx.x; i < n; i += kRowThreads) {
+      const int r = local_row[e0 + i];
+      if (r < W) {
+        atomicAdd(&cnt[r], 1);
+        my_lo = min(my_lo, r);
+        my_hi = max(my_hi, r);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      my_lo = min(my_lo, __shfl_xor_sync(kFull, my_lo, o));
+      my_hi = max(my_hi, __shfl_xor_sync(kFull, my_hi, o));
+    }
+    if (lane == 0) {
+      atomicMin(&lo, my_lo);
+      atomicMax(&hi, my_hi);
+    }
+    __syncthreads();
+    // Piece::own: whole chunk in one pass, at most kPiece lanes, neither
+    // first nor last
+    const bool whole = n == C;
+    int mine = 0;
+    for (int r = threadIdx.x; r < W; r += kRowThreads) {
+      const int c = cnt[r];
+      if (c > 0 && (!whole || c > kPiece || r == lo || r == hi))
+        mine += (c + kPiece - 1) / kPiece;
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) mine += __shfl_xor_sync(kFull, mine, o);
+    if (lane == 0) atomicAdd(&total, mine);
+    if (threadIdx.x == 0) {
+      chunk_lo = min(chunk_lo, lo);
+      chunk_hi = max(chunk_hi, hi);
+    }
+    __syncthreads();                     // the next pass resets cnt
+  }
+  return SplitCount{total, chunk_lo, chunk_hi};
+}
+
+// After the main kernel, one CUDA block per row block b, for H heads of D
+// columns (row_m, row_z (B*W, H): an owned row's reference and sum, a
+// row no lane reaches (-inf, 0); slot_m, slot_z (S, H); slot_acc and out
+// (., H*D)).  Per row and head the reference `ref` is the row's largest
+// slot max (kRowStats) or the row block's largest max M_block (the chunk-max
+// recurrence, where a lane weighs exp(s - M_chunk) and chunks combine by
+// exp(M_chunk - M_block)).  Merges each split row's slots into it, Z =
+// sum z_p exp(m_p - ref) and out = sum acc_p exp(m_p - ref) / max(Z, 1e-20)
+// where Z > 0 (added by vector atomics onto the row zeroed here); without
+// kRowStats rescales an owned row whose z exp(m - M_block) is below 1e-20
+// as the division by max(z, 1e-20) would, or zeroes it where that is 0;
+// zeroes the rows no lane reaches.  With kRowStats a split row's (ref, Z)
+// go to row_m, row_z, and raw (when not null, the shape of out) gets the
+// undivided sums of the split rows and zeroes where out is zeroed (an owned
+// row's raw sums are the main kernel's).  kOut floats per access; kOut
+// divides D.
+template <int kOut, bool kRowStats>
+__global__ void __launch_bounds__(kRowThreads)
+flash_merge_kernel(const int32_t* __restrict__ block_start,
+                   const int32_t* __restrict__ slot_off, int W, int H, int D,
+                   const int32_t* __restrict__ slot_row,
+                   const float* __restrict__ slot_m,
+                   const float* __restrict__ slot_z,
+                   const float* __restrict__ slot_acc,
+                   float* __restrict__ row_m, float* __restrict__ row_z,
+                   float* __restrict__ out, float* __restrict__ raw) {
+  extern __shared__ float mz[];
+  float* mr = mz;                        // W x H maxima over the slots
+  float* zr = mr + W * H;                // W x H merged sums
+  float* mb = zr + W * H;                // H: M_block (chunk-max stats)
+  int* ns = reinterpret_cast<int*>(mb + H);   // W slot counts
+  __shared__ float red[kRowWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x, F = H * D;
+  const int s0 = slot_off[block_start[b]], s1 = slot_off[block_start[b + 1]];
+  const int64_t row0 = static_cast<int64_t>(b) * W;
+  for (int i = threadIdx.x; i < W * H; i += kRowThreads) {
+    mr[i] = -CUDART_INF_F;
+    zr[i] = 0.f;
+  }
+  for (int r = threadIdx.x; r < W; r += kRowThreads) ns[r] = 0;
+  __syncthreads();
+  for (int s = s0 + threadIdx.x; s < s1; s += kRowThreads) {
+    const int r = slot_row[s];
+    for (int h = 0; h < H; ++h)
+      atomic_max_float(mr + r * H + h, slot_m[static_cast<int64_t>(s) * H + h]);
+    atomicAdd(ns + r, 1);
+  }
+  __syncthreads();
+  if (!kRowStats) {
+    for (int h = 0; h < H; ++h) {
+      float v = -CUDART_INF_F;
+      for (int r = threadIdx.x; r < W; r += kRowThreads)
+        v = fmaxf(v, fmaxf(mr[r * H + h], row_m[(row0 + r) * H + h]));
+      v = warp_max(v);
+      if (lane == 0) red[warp] = v;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        v = -CUDART_INF_F;
+#pragma unroll
+        for (int w = 0; w < kRowWarps; ++w) v = fmaxf(v, red[w]);
+        // a block of pad chunks has no score; its rows are zeroed below
+        mb[h] = isfinite(v) ? v : 0.f;
+      }
+      __syncthreads();
+    }
+  }
+  auto ref = [&](int r, int h) { return kRowStats ? mr[r * H + h] : mb[h]; };
+  for (int s = s0 + threadIdx.x; s < s1; s += kRowThreads) {
+    const int r = slot_row[s];
+    for (int h = 0; h < H; ++h) {
+      const int64_t i = static_cast<int64_t>(s) * H + h;
+      atomicAdd(zr + r * H + h, slot_z[i] * expf(slot_m[i] - ref(r, h)));
+    }
+  }
+  __syncthreads();
+  for (int r = warp; r < W; r += kRowWarps) {
+    const int64_t row = row0 + r;
+    for (int h = 0; h < H; ++h) {
+      const float zo = row_z[row * H + h];
+      float scale = 1.f;                 // of an owned row, stored acc / z
+      if (ns[r] > 0 || !(zo > 0.f)) {
+        scale = 0.f;                     // split (added below) or no lanes
+      } else if (!kRowStats) {
+        const float zf = zo * expf(row_m[row * H + h] - mb[h]);
+        scale = !(zf > 0.f) ? 0.f : zf < 1e-20f ? zf / 1e-20f : 1.f;
+      }
+      if (scale != 1.f) {                // warp-uniform
+        float* o = out + row * F + h * D;
+        for (int c = lane; c < D; c += 32)
+          o[c] = scale == 0.f ? 0.f : o[c] * scale;
+        if (raw != nullptr && scale == 0.f)
+          for (int c = lane; c < D; c += 32) raw[row * F + h * D + c] = 0.f;
+      }
+      if (kRowStats && ns[r] > 0 && lane == 0) {
+        row_m[row * H + h] = mr[r * H + h];
+        row_z[row * H + h] = zr[r * H + h];
+      }
+    }
+  }
+  __syncthreads();                       // the zeroed rows, before the adds
+  for (int s = s0 + warp; s < s1; s += kRowWarps) {
+    const int r = slot_row[s];
+    const float* a = slot_acc + static_cast<int64_t>(s) * F;
+    const int64_t o = (row0 + r) * F;
+    for (int c = lane * kOut; c < F; c += 32 * kOut) {
+      const int h = c / D;
+      const float zs = zr[r * H + h];
+      const float f = expf(slot_m[static_cast<int64_t>(s) * H + h] - ref(r, h));
+      float v[kOut];
+      if (zs > 0.f) {                    // else the row's head stays 0
+        const float coef = f / fmaxf(zs, 1e-20f);
+#pragma unroll
+        for (int e = 0; e < kOut; ++e) v[e] = a[c + e] * coef;
+        put<kOut>(out + o + c, v, true);
+      }
+      if (raw != nullptr) {
+#pragma unroll
+        for (int e = 0; e < kOut; ++e) v[e] = a[c + e] * f;
+        put<kOut>(raw + o + c, v, true);
+      }
+    }
+  }
+}
+
+// flash_merge_kernel with the widest access (4, 2 or 1 floats) that divides
+// D, over num_blocks row blocks.
+inline cudaError_t launch_merge(bool row_stats, const int32_t* block_start,
+                                const int32_t* slot_off, int num_blocks,
+                                int W, int H, int D, const int32_t* slot_row,
+                                const float* slot_m, const float* slot_z,
+                                const float* slot_acc, float* row_m,
+                                float* row_z, float* out, float* raw,
+                                cudaStream_t stream) {
+  const size_t smem = (2 * static_cast<size_t>(W) * H + H) * sizeof(float) +
+                      static_cast<size_t>(W) * sizeof(int);
+#define TGT_MERGE(V)                                                        \
+  (row_stats ? &flash_merge_kernel<V, true> : &flash_merge_kernel<V, false>)
+  auto merge = D % 4 == 0 ? TGT_MERGE(4)
+               : D % 2 == 0 ? TGT_MERGE(2) : TGT_MERGE(1);
+#undef TGT_MERGE
+  cudaError_t err = allow_smem(merge, smem);
+  if (err != cudaSuccess) return err;
+  merge<<<num_blocks, kRowThreads, smem, stream>>>(
+      block_start, slot_off, W, H, D, slot_row, slot_m, slot_z, slot_acc,
+      row_m, row_z, out, raw);
+  return cudaGetLastError();
 }
 
 // A row-grouped weighted sum's layout and output: edge_src, local_row

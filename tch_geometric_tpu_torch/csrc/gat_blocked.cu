@@ -1,6 +1,13 @@
-// Multi-head blocked GAT for Hopper (sm_90a): kernels B7, B8 and B9.
+// Multi-head blocked GAT for Hopper (sm_90a): kernels B3, B7, B8 and B9.
 //
 // Replaces, in tch_geometric_tpu/ops/attention_blocked.py:
+//   B3  _gat_packed_kernel, _gat_packed_vec_kernel and _gat_packed_core
+//       (gat_attend_blocked_packed): multi-head GATv1, for every dst row i
+//       and head h over the valid lanes e of i's row block,
+//           s_e = leaky_relu(alpha_src[src(e), h] + alpha_dst[i, h]),
+//           out[i, h, :] = sum_e exp(s_e) h[src(e), h, :] / sum_e exp(s_e),
+//       rows with no edges 0; alpha_src a given (N, H) table or the GATv1
+//       projection sum_d h[n, h, d] * a[h, d] (the mode GATConv uses);
 //   B7  _mz_mh_kernel + _att_mh_kernel (edge_softmax_blocked_multihead): the
 //       per-dst-row softmax of (H, T, C) f32 scores for H heads, 0 on pad
 //       lanes;
@@ -8,11 +15,11 @@
 //       head-concatenated rows x and (H, T, C) f32 weights w,
 //           out[i, c] = sum_e bf16(x[src(e), c] * w[c / D, e])
 //       with f32 sums (each term rounded to the compute dtype);
-//   B9  _gat_flash_kernel (gat_attend_blocked_flash): multi-head GATv1 in
-//       one traversal, out[i, h, :] = sum_e e h[src(e), h, :] / sum_e e.
+//   B9  _gat_flash_kernel (gat_attend_blocked_flash): B3's function in one
+//       traversal with a per-row running max.
 // B7 and B8, after logits gathered by torch ops, make gat_attend_blocked
-// (the composed route); B9 is gat_attend_blocked_flash.  Both compute the
-// function of B3 (gat_packed.cu) with other rounding points.
+// (the composed route); B9 is gat_attend_blocked_flash.  B3, the composed
+// route and B9 compute one function with other rounding points.
 //
 // What the TPU kernels did and what changes here.
 // - B7: the TPU carries a (W, H) online (max, expsum) tile across a block's
@@ -38,40 +45,82 @@
 //   weight of its vectors' heads for every row in flight from the (H, T, C)
 //   weights (HeadWeights): a warp touches at most H addresses a row, which
 //   L1 serves.  No shared-memory float atomic is left.
-// - B9: the TPU gathers (T, C, H*D + H), the rows with alpha_src as H
-//   trailing columns in the compute dtype, and keeps a (W, H*D) f32
-//   accumulator.  Here one CUDA block owns one (row block, head) pair, as in
-//   B3: a W x D f32 tile in shared memory (64 KB at W=256, D=64), the
-//   head's D columns of each row, and alpha_src[src, h] read from the (N, H)
-//   f32 table and rounded to the compute dtype.  The recurrence is B4's per
-//   row, not B3's per-chunk shift: per chunk, each row's max logit; m_new =
-//   max(m, chunk max); a row whose max rose has its tile row and z rescaled
-//   by exp(m - m_new); then each lane adds e = exp(s - m_new) to z in f32
-//   and bf16(e) * x[src] to the tile.  So e is rounded against the same
-//   running row max as in the plain version.  The logit is computed again
-//   in the second sweep (alpha_src from L1/L2) instead of being kept in
-//   shared memory, so that three CUDA blocks fit an SM at D=64.
+// - B3 and B9: the TPU gathers a (T, C, H*D) tensor (B9: H more columns,
+//   alpha_src in the compute dtype) and carries a block's (W, H*D) f32
+//   accumulator across its chunks.  Here the two are one kernel template
+//   on B1's row-grouped chunks, all H heads in one CUDA block per chunk,
+//   in three steps (at most four kernels, two C calls):
+//   1. A pre-pass, one CUDA block per chunk, that reads no row: it counts
+//      the chunk's split pieces (blocked::count_split_pieces) and takes the
+//      references the plain versions round against.  A GAT logit needs
+//      only alpha_src[src, h] and alpha_dst[row, h] (16 bytes a lane at
+//      H=4), so the exact reference is known before any row is read.  B3
+//      shifts each chunk's logits by the chunk's max M_chunk over its valid
+//      lanes (the TPU takes it over the pad lanes too; the shift cancels in
+//      out / z) and combines chunks by exp(M_chunk - M_block): the pre-pass
+//      writes M_chunk.  B9 weighs a lane by exp(s - m), m the row's running
+//      max after the lane's chunk; only a chunk's lowest and highest row can
+//      span chunks, so the pre-pass writes their maxima, and the main kernel
+//      takes the prefix max over the lowest row's earlier chunks.  For B3's
+//      vec mode a kernel before it projects alpha_src once per node
+//      (reading h once, N rows, not 62M lanes): the same values as the
+//      TPU's per-lane projection on rows it had gathered.
+//   2. The main kernel stages the chunk (stage_pass); a warp takes a piece
+//      of at most 32 lanes of one row.  Per head each thread computes its
+//      lane's logit and e = exp(s - ref) (B9: for a row of several pieces
+//      the row's max in the chunk is taken first by one warp max and shared
+//      atomic max per piece and head), writes round_to<T>(e) into its
+//      warp's 32 x H tile in shared memory and sums e into z by a warp
+//      reduction (heads four at a time, their alpha loads issued
+//      together; with one head the staging threads compute each lane's
+//      logit).  Then add_piece reads each source row whole, all H*D
+//      columns once, with the widest vector load that divides H*D, D and
+//      the address (no vector straddles two heads), several rows in
+//      flight, and adds each vector times its head's weight, read from the
+//      tile (TileWeight), into f32 sums in registers.  Of the three ways to
+//      get lane j's weight for a vector's head (a shared tile, a shuffle
+//      from per-lane registers, L1 as B8 does) the tile takes one
+//      conflict-free shared load a row and vector for any H.  Shuffles
+//      need H known at compile time and all H of a row (then a select);
+//      for H <= 4 they read 20.2 ms against the tile's 17.0 for B3 at H=4,
+//      D=64 in bf16, 16.8 against 14.6 for B9, and the same within 1.5%
+//      in f32 and at one head (NVIDIA H100 80GB HBM3, 700 W,
+//      scripts/time_csrc_variants.py).  There is no weight array in device
+//      memory to read through L1.
+//   3. Owned and split rows as in B4: an owned row is stored as acc / z
+//      with its (ref, z) per head in row_m, row_z; every other piece
+//      writes a slot (row, per head ref and z, acc[H*D]); a merge kernel
+//      (blocked::flash_merge_kernel, one CUDA block per row block) combines
+//      the slots by exp(ref_p - ref_final), ref_final B9's row max over its
+//      slots (the plain version's product of rescales, in exact
+//      arithmetic) or B3's M_block, and rescales an owned B3 row by
+//      z exp(M_chunk - M_block) under B4's chunk-max rule (0 on underflow,
+//      the max(z, 1e-20) division below 1e-20).  B9's debug outputs come
+//      out of the main kernel (owned rows) and the merge (split rows).
+//   No shared-memory float atomic per lane and column is left, and each
+//   chunk is traversed once for all heads.
 // - Rounding: B8 rounds each term bf16(x * w), as the TPU kernel does (the
 //   port's B2 multiplies in f32): the product is rounded on its own
-//   (__fmul_rn, never fused into the add), then to the compute dtype;
-//   B9's term bf16(e) * x is exact in f32.
-//   No fast math: the z > 0 guards rely on IEEE exp.
+//   (__fmul_rn, never fused into the add), then to the compute dtype.  B3
+//   rounds bf16(x * bf16(e)) likewise, e against M_chunk; B9's term
+//   bf16(e) * x is exact in f32, e against the running row max: the same
+//   f32 arguments of exp as the plain versions, so bf16(e) matches them.
+//   A table alpha_src (B3) and B9's alpha_src are rounded to the compute
+//   dtype; every sum is f32.  No fast math: the z > 0 guards rely on IEEE
+//   exp.  The counting sort orders a row's lanes by shared atomics and the
+//   merge adds slots by global atomics, so the summation order changes from
+//   run to run.
 //
 // Bound on an H100 (3.35 TB/s) at ogbn-products size (W=256, T=19,222,
 // C=3,328, N=2,449,029, B*W=2,449,152), each input read once and the output
 // written once: B7 at H=4 moves the scores, local_row and the weights,
 // 2.30 GB (0.69 ms); B8 at H*D=256 in bf16 moves x, the lane metadata, the
-// weights and the f32 output, 5.30 GB (1.58 ms); B9 at H=4, D=64 moves h,
-// the lane metadata, both alpha tables and the f32 output, 4.35 GB in bf16
-// and 5.61 GB in f32 (1.30 and 1.67 ms).  The operations are far below the
-// f32 rate: all three are bound by bytes.  A gather cannot reach that for
-// B8 and B9: every live lane reads its row segment, lanes x H*D x bytes in
-// all.  B8 reads each live lane's row whole and once (above).  B9: pad lanes
-// are dropped by a warp ballot before any row read; a warp reads a lane's
-// columns as consecutive loads across its 32 threads; eight lanes' loads are
-// in flight before their shared-memory adds; the heads of a row block are
-// adjacent in the grid, so its lane metadata and hub rows come from L2
-// after the first.
+// weights and the f32 output, 5.30 GB (1.58 ms); B3 and B9 at H=4, D=64
+// move h, the lane metadata, both alpha tables and the f32 output, 4.35 GB
+// in bf16 and 5.61 GB in f32 (1.30 and 1.67 ms).  The operations are far
+// below the f32 rate: all four are bound by bytes.  A gather cannot reach
+// that for B3, B8 and B9: every live lane reads its source row, lanes x
+// H*D x bytes in all; they read it whole and once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -81,16 +130,27 @@
 
 namespace {
 
+using blocked::add_piece;
 using blocked::allow_smem;
 using blocked::atomic_max_float;
+using blocked::count_split_pieces;
+using blocked::kAcc;
 using blocked::kFull;
+using blocked::kMaxStage;
+using blocked::kRowThreads;
+using blocked::kRowWarps;
 using blocked::Piece;
+using blocked::put;
 using blocked::round_to;
 using blocked::softmax_weight;
+using blocked::SplitCount;
+using blocked::Stage;
+using blocked::stage_pass;
+using blocked::warp_max;
+using blocked::warp_sum;
 
-constexpr int kThreads = 512;            // 16 warps per CUDA block
-constexpr int kUnroll = 8;               // lanes loaded before their adds
-constexpr int kMaxD = 128;               // B9 columns per head: 4 per thread
+constexpr int kThreads = 512;            // B7: 16 warps per CUDA block
+constexpr int kMaxD = 128;               // B3, B9: columns per head
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -203,154 +263,526 @@ struct HeadLanes {
   }
 };
 
-// ---- B9: one traversal per (row block, head), per-row running max --------
-// up to D=64 three CUDA blocks share an SM (3 x 69 KB at W=256)
-template <typename T, int kCols>
-__global__ void __launch_bounds__(kThreads, kCols <= 2 ? 3 : 1)
-gat_flash_kernel(const void* x_rows, const float* __restrict__ alpha_src,
-                 const float* __restrict__ alpha_dst, int ad_rows,
-                 const int32_t* __restrict__ edge_src,
-                 const int32_t* __restrict__ local_row,
-                 const int32_t* __restrict__ block_start, int C, int W, int H,
-                 int D, float slope, float* __restrict__ out,
-                 float* __restrict__ raw_out, float* __restrict__ m_out,
-                 float* __restrict__ z_out) {
-  const T* __restrict__ x = static_cast<const T*>(x_rows);
-  extern __shared__ float smem[];
-  float* acc = smem;                     // W x D tile
-  float* m = acc + W * D;                // running row max
-  float* z = m + W;                      // running row sum
-  float* mc = z + W;                     // the chunk's row max
-  float* fac = mc + W;                   // per-row rescale factor
-  float* ad = fac + W;                   // alpha_dst of this head
-  const int b = blockIdx.x / H;          // the H heads of a block are adjacent
-  const int hd = blockIdx.x % H;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t HD = static_cast<int64_t>(H) * D;
+// ---- B3 and B9: one kernel template, all heads of a chunk per CUDA block --
 
-  for (int i = threadIdx.x; i < W * D; i += kThreads) acc[i] = 0.f;
-  for (int r = threadIdx.x; r < W; r += kThreads) {
-    const int64_t row = static_cast<int64_t>(b) * W + r;
-    m[r] = -CUDART_INF_F;
-    z[r] = 0.f;
-    mc[r] = -CUDART_INF_F;
-    ad[r] = row < ad_rows ? alpha_dst[row * H + hd] : 0.f;
-  }
-  __syncthreads();
-
-  // alpha_src rides the TPU's gather in the compute dtype
-  auto logit = [&](int src, int r) {
-    const float a = round_to<T>(alpha_src[static_cast<int64_t>(src) * H + hd]);
-    return leaky_relu(a + ad[r], slope);
-  };
-
-  const int t_end = block_start[b + 1];
-  for (int t = block_start[b]; t < t_end; ++t) {
-    const int64_t e0 = static_cast<int64_t>(t) * C, e1 = e0 + C;
-    // sweep 1: the chunk's max logit per row
-    for (int64_t e = e0 + threadIdx.x; e < e1; e += kThreads) {
-      const int r = local_row[e];
-      if (r < W) atomic_max_float(mc + r, logit(edge_src[e], r));
-    }
-    __syncthreads();
-    // m_new = max(m_old, chunk max) per row; rescale rows whose max rose
-    bool moved = false;
-    for (int r = threadIdx.x; r < W; r += kThreads) {
-      const float mo = m[r], mn = fmaxf(mo, mc[r]);
-      float f = 1.f;
-      if (mn > mo) {
-        // a row with no edges yet has a zero tile: nothing to rescale
-        if (mo != -CUDART_INF_F) f = expf(mo - mn);
-        m[r] = mn;
-      }
-      fac[r] = f;
-      moved |= f != 1.f;
-      mc[r] = -CUDART_INF_F;
-    }
-    if (__syncthreads_or(moved)) {
-      for (int i = threadIdx.x; i < W * D; i += kThreads) acc[i] *= fac[i / D];
-      for (int r = threadIdx.x; r < W; r += kThreads) z[r] *= fac[r];
-      __syncthreads();
-    }
-    // sweep 2: e = exp(s - m); z += e (f32); the tile += bf16(e) * h[src]
-    for (int64_t base = e0 + warp * 32; base < e1; base += kThreads) {
-      const int64_t e = base + lane;
-      int my_row = W, my_src = 0;
-      float my_e = 0.f;
-      if (e < e1) {
-        my_row = local_row[e];
-        my_src = edge_src[e];
-        if (my_row < W) {
-          const float mr = m[my_row];
-          my_e = expf(logit(my_src, my_row) - (isfinite(mr) ? mr : 0.f));
-          atomicAdd(z + my_row, my_e);
-        }
-      }
-      // pad lanes carry local_row == W (and edge_src == 0): dropped here
-      unsigned live = __ballot_sync(kFull, my_row < W);
-      while (live) {                     // warp-uniform loop
-        int rows[kUnroll];
-        float v[kUnroll][kCols];
-#pragma unroll
-        for (int q = 0; q < kUnroll; ++q) {
-          rows[q] = -1;
-          if (live) {                    // warp-uniform branch
-            const int j = __ffs(live) - 1;
-            live &= live - 1;
-            rows[q] = __shfl_sync(kFull, my_row, j);
-            const int64_t src = __shfl_sync(kFull, my_src, j);
-            const float ew = round_to<T>(__shfl_sync(kFull, my_e, j));
-            const T* p = x + src * HD + hd * D;
-#pragma unroll
-            for (int k = 0; k < kCols; ++k) {
-              const int c = lane + 32 * k;
-              v[q][k] = c < D ? to_float(p[c]) * ew : 0.f;
-            }
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kUnroll; ++q) {
-          if (rows[q] < 0) continue;
-          float* ar = acc + rows[q] * D;
-#pragma unroll
-          for (int k = 0; k < kCols; ++k) {
-            const int c = lane + 32 * k;
-            if (c < D) atomicAdd(ar + c, v[q][k]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // out = acc / z where z > 0, else 0 (rows with no edges)
-  for (int i = threadIdx.x; i < W * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const float zr = z[r];
-    const int64_t o = (static_cast<int64_t>(b) * W + r) * HD + hd * D + c;
-    out[o] = zr > 0.f ? acc[i] / fmaxf(zr, 1e-20f) : 0.f;
-    if (raw_out) raw_out[o] = acc[i];
-  }
-  if (m_out)
-    for (int r = threadIdx.x; r < W; r += kThreads) {
-      const int64_t o = (static_cast<int64_t>(b) * W + r) * H + hd;
-      m_out[o] = m[r];
-      z_out[o] = z[r];
-    }
+// alpha_src[n, h] = sum_d h[n, h, d] * round(a[h, d]), f32 sum; one warp
+// per (node, head): B3's GATv1 projection, once per node.
+template <typename T>
+__global__ void __launch_bounds__(256)
+gat_alpha_src_kernel(const T* __restrict__ x, const float* __restrict__ avec,
+                     int64_t rows, int H, int D,
+                     float* __restrict__ alpha_src) {
+  const int64_t w =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= rows * H) return;             // whole warps leave together
+  const int hd = static_cast<int>(w % H);
+  const T* row = x + w * D;              // (n*H + hd) * D
+  const float* a = avec + hd * D;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc += to_float(row[d]) * round_to<T>(a[d]);
+  acc = warp_sum(acc);
+  if (lane == 0) alpha_src[w] = acc;
 }
 
-// every instantiation of gat_flash_kernel has this type
-using FlashKernel = void (*)(const void*, const float*, const float*, int,
-                             const int32_t*, const int32_t*, const int32_t*,
-                             int, int, int, int, float, float*, float*,
-                             float*, float*);
+// Heads are taken kHeads at a time: a lane's kHeads logits are loaded
+// together, then used.
+constexpr int kHeads = 4;
 
-// the instantiation whose kCols 32-column slices cover D
+// A lane's logits, leaky_relu(alpha_src[src, h] + alpha_dst[row, h]):
+// alpha_src rounded to the compute dtype T where round_alpha (B3's table
+// and B9: it rides the TPU's row gather), alpha_dst 0 past ad_rows.  vec4:
+// H % 4 == 0 and both tables 16-byte aligned, so kHeads of a row are one
+// float4 load.
+struct Logits {
+  const float* alpha_src;
+  const float* alpha_dst;
+  int64_t ad_rows;
+  int H;
+  float slope;
+  int round_alpha;
+  int vec4;
+  // heads h0 .. h0+kHeads of lane (src, row) into s (-inf past H)
+  template <typename T>
+  __device__ void at(int src, int64_t row, int h0, float (&s)[kHeads]) const {
+    const float* a = alpha_src + static_cast<int64_t>(src) * H + h0;
+    const float* d = alpha_dst + row * H + h0;
+    const bool has_d = row < ad_rows;
+    float av[kHeads], dv[kHeads];
+    if (vec4) {
+      const float4 a4 = __ldg(reinterpret_cast<const float4*>(a));
+      const float4 d4 = has_d ? __ldg(reinterpret_cast<const float4*>(d))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      av[0] = a4.x; av[1] = a4.y; av[2] = a4.z; av[3] = a4.w;
+      dv[0] = d4.x; dv[1] = d4.y; dv[2] = d4.z; dv[3] = d4.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < kHeads; ++q) {
+        const bool ok = h0 + q < H;
+        av[q] = ok ? __ldg(a + q) : 0.f;
+        dv[q] = ok && has_d ? __ldg(d + q) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kHeads; ++q) {
+      const float x = round_alpha ? round_to<T>(av[q]) : av[q];
+      s[q] = h0 + q < H ? leaky_relu(x + dv[q], slope) : -CUDART_INF_F;
+    }
+  }
+};
+
+// Step 1, one CUDA block per chunk, no row read: the chunk's split pieces
+// (count_split_pieces) into split[t]; B3 (!kFlash): the chunk's max logit
+// per head over its valid lanes, M_chunk, into chunk_ref (T, H); B9: the
+// max logit per head of the chunk's lowest and of its highest live row, the
+// only rows that can span chunks, into chunk_ref (T, 2, H), and those rows
+// into chunk_rows (T,) (W, -1 for a chunk of pads).  The block's first
+// chunk resets its row stats to (-inf, 0).
+template <typename T, bool kFlash>
+__global__ void __launch_bounds__(kRowThreads)
+gat_prepass_kernel(Logits lg, const int32_t* __restrict__ edge_src,
+                   const int32_t* __restrict__ local_row,
+                   const int32_t* __restrict__ chunk_block, int C, int W,
+                   int stage, int32_t* __restrict__ split,
+                   float* __restrict__ chunk_ref, int2* __restrict__ chunk_rows,
+                   float* __restrict__ row_m, float* __restrict__ row_z) {
+  extern __shared__ int cnt[];           // W lane counts of a pass
+  __shared__ float red[kRowWarps][2][kHeads];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = blockIdx.x, H = lg.H;
+  const int b = chunk_block[t];
+  const int64_t chunk0 = static_cast<int64_t>(t) * C;
+  const int64_t row0 = static_cast<int64_t>(b) * W;
+  if (t == 0 || chunk_block[t - 1] != b) {
+    for (int i = threadIdx.x; i < W * H; i += kRowThreads) {
+      row_m[row0 * H + i] = -CUDART_INF_F;
+      row_z[row0 * H + i] = 0.f;
+    }
+  }
+  const SplitCount sc =
+      count_split_pieces(local_row, chunk0, C, W, stage, cnt);
+  if (threadIdx.x == 0) {
+    split[t] = sc.pieces;
+    if (kFlash) chunk_rows[t] = make_int2(sc.lo, sc.hi);
+  }
+  for (int h0 = 0; h0 < H; h0 += kHeads) {
+    float m0[kHeads], m1[kHeads];
+#pragma unroll
+    for (int q = 0; q < kHeads; ++q) m0[q] = m1[q] = -CUDART_INF_F;
+    for (int i = threadIdx.x; i < C; i += kRowThreads) {
+      const int r = local_row[chunk0 + i];
+      if (r >= W || (kFlash && r != sc.lo && r != sc.hi)) continue;
+      float s[kHeads];
+      lg.at<T>(edge_src[chunk0 + i], row0 + r, h0, s);
+#pragma unroll
+      for (int q = 0; q < kHeads; ++q) {
+        if (!kFlash || r == sc.lo) m0[q] = fmaxf(m0[q], s[q]);
+        if (kFlash && r == sc.hi) m1[q] = fmaxf(m1[q], s[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kHeads; ++q) {
+      m0[q] = warp_max(m0[q]);
+      if (kFlash) m1[q] = warp_max(m1[q]);
+      if (lane == 0) {
+        red[warp][0][q] = m0[q];
+        red[warp][1][q] = m1[q];
+      }
+    }
+    __syncthreads();
+    const int q = threadIdx.x;
+    if (q < kHeads && h0 + q < H) {
+      float v0 = -CUDART_INF_F, v1 = -CUDART_INF_F;
+#pragma unroll
+      for (int w = 0; w < kRowWarps; ++w) {
+        v0 = fmaxf(v0, red[w][0][q]);
+        v1 = fmaxf(v1, red[w][1][q]);
+      }
+      if (kFlash) {
+        chunk_ref[(static_cast<int64_t>(t) * 2) * H + h0 + q] = v0;
+        chunk_ref[(static_cast<int64_t>(t) * 2 + 1) * H + h0 + q] = v1;
+      } else {
+        chunk_ref[static_cast<int64_t>(t) * H + h0 + q] = v0;
+      }
+    }
+    __syncthreads();                     // red is reused by the next heads
+  }
+}
+
+// The weights of a piece's lanes per column, from the warp's 32 x H tile
+// in shared memory (w[j*H + h]: lane j's rounded weight for head h).  kVec
+// divides D, so each of a thread's vectors lies in one head: its kNV heads
+// are set per slab, and each row's weights are shared-memory reads (the
+// warp reads at most H consecutive words a row: no bank conflict).  With
+// one head (kOneHead) a row's weight is one read for all the vectors.
+template <int kNV, bool kOneHead>
+struct TileWeight {
+  static constexpr bool kWeighted = true;
+  const float* w;
+  int H, D;
+  int head[kNV];
+  __device__ void slab(const int (&col)[kNV]) {
+    if constexpr (!kOneHead) {
+#pragma unroll
+      for (int k = 0; k < kNV; ++k)      // a column past F takes the last head
+        head[k] = min(col[k] / D, H - 1);
+    }
+  }
+  __device__ void load(int, int, int) {}
+  __device__ void get(int, int j, float (&out)[kNV]) {
+    if constexpr (kOneHead) {
+      const float v = w[j & 31];
+#pragma unroll
+      for (int k = 0; k < kNV; ++k) out[k] = v;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kNV; ++k) out[k] = w[(j & 31) * H + head[k]];
+    }
+  }
+};
+
+// Where a warp's piece puts its sums (GatSink): o, an owned row's output
+// row or a split piece's slot; raw, an owned row's undivided sums (B9's
+// debug output) or null; zinv, the piece's 1 / max(z, 1e-20) per head (0
+// where z is not positive); own.  Kept in shared memory and read at each
+// slab's end, not held in registers through add_piece's row loop, which
+// needs them all: B3 at H=1, D=47 read 11.45 ms with these fields in
+// registers, 10.97 with them here, and 10.57 with the piece's stats also
+// written before its sums (NVIDIA H100 80GB HBM3, 700 W,
+// scripts/time_csrc_variants.py; 3-4% less at H=4, D=64 too).
+struct PieceOut {
+  float* o;
+  float* raw;
+  const float* zinv;
+  int D, own;
+};
+__shared__ PieceOut piece_out[kRowWarps];
+
+// An owned row is stored as acc times its head's 1 / z (the plain version
+// divides: the two differ by an ulp), a split piece's slot as it is.
+template <bool kOneHead>
+struct GatSink {
+  template <int kVec>
+  __device__ void store(int col, const float* v) const {
+    const PieceOut& p = piece_out[threadIdx.x >> 5];
+    if (!p.own) {
+      put<kVec>(p.o + col, v, false);
+      return;
+    }
+    const float zi = p.zinv[kOneHead ? 0 : col / p.D];
+    float q[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) q[e] = v[e] * zi;
+    put<kVec>(p.o + col, q, false);
+    if (p.raw != nullptr) put<kVec>(p.raw + col, v, false);
+  }
+};
+
+// Three CUDA blocks an SM (80 registers), as B8's rounded-term policies.
+// On an NVIDIA H100 80GB HBM3 at 700 W (scripts/time_csrc_variants.py), B3
+// at H=4, D=64 read 25.0 ms in f32 and 18.9 in bf16, against 24.9 and 19.6
+// with two CUDA blocks and 27.4 and 24.3 with four; B9 20.5 and 16.1
+// against 21.2 and 16.6 (two) and 23.0 and 20.0 (four).
+constexpr int kGatMinBlocks = 3;
+
+// Step 2, one CUDA block per chunk: stage it (stage_pass), then each warp
+// takes a piece of at most kPiece lanes of one row.  Per head, each thread
+// computes its lane's logit and e = exp(s - ref) against the reference the
+// plain version rounds against — B3: the chunk's max M_chunk; B9: the row's
+// running max after this chunk, i.e. the row's max in the chunk (a warp max
+// for a row of one piece, else the row maxima taken over the whole chunk
+// first) and, for the chunk's lowest row, the prefix max over the earlier
+// chunks of its run (chunk_ref, chunk_rows) — writes round_to<T>(e) into
+// the warp's tile and sums e into z.  Then add_piece reads each source row
+// whole, all H*D columns once, and adds round_to<T>(bf16(e) * x) (B3) or
+// bf16(e) * x (B9, exact in f32) per column.  An owned row is stored as
+// acc / z with its (ref, z) in row_m, row_z; a split piece takes a slot.
+// kOneHead: H == 1.
+template <typename T, int kVec, bool kFlash, bool kOneHead>
+__global__ void __launch_bounds__(kRowThreads, kGatMinBlocks)
+gat_rows_kernel(const T* __restrict__ x, Logits lg,
+                const int32_t* __restrict__ edge_src,
+                const int32_t* __restrict__ local_row,
+                const int32_t* __restrict__ chunk_block,
+                const int32_t* __restrict__ block_start,
+                const int32_t* __restrict__ slot_off,
+                const float* __restrict__ chunk_ref,
+                const int2* __restrict__ chunk_rows, int C, int W, int D,
+                int stage, float* __restrict__ out, float* __restrict__ raw,
+                float* __restrict__ row_m, float* __restrict__ row_z,
+                int32_t* __restrict__ slot_row, float* __restrict__ slot_m,
+                float* __restrict__ slot_z, float* __restrict__ slot_acc) {
+  extern __shared__ int4 smem[];
+  const Stage st(smem, stage, W);
+  int* src_s = st.lanes;
+  const int H = lg.H, F = H * D;
+  float* tile = reinterpret_cast<float*>(src_s + stage);  // per warp 32 x H
+  float* piece_z = tile + kRowWarps * 32 * H;             // per warp H
+  float* piece_ref = piece_z + kRowWarps * H;             // per warp H
+  float* piece_zinv = piece_ref + kRowWarps * H;          // per warp H
+  float* chunk_h = piece_zinv + kRowWarps * H;  // H: B3 M_chunk; B9 prefix
+  float* row_max = chunk_h + H;                // B9: W x H
+  // one head: each lane's logit, staged in sorted order
+  float* lane_s = row_max + (kFlash ? W * H : 0);
+  __shared__ int next_slot;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = blockIdx.x;
+  const int64_t chunk0 = static_cast<int64_t>(t) * C;
+  const int b = chunk_block[t];
+  const int64_t row0 = static_cast<int64_t>(b) * W;
+  const int slot_end = slot_off[t + 1];
+  const int lo = kFlash ? chunk_rows[t].x : 0;
+  // stage_pass's first barrier publishes next_slot, chunk_h and row_max
+  if (threadIdx.x == 0) next_slot = slot_off[t];
+  for (int h = threadIdx.x; h < H; h += kRowThreads) {
+    if (!kFlash) {
+      chunk_h[h] = chunk_ref[static_cast<int64_t>(t) * H + h];
+    } else {
+      // the lowest row's max over the earlier chunks of its run (a chunk of
+      // pads carries the running max on)
+      float p = -CUDART_INF_F;
+      for (int u = t - 1; u >= block_start[b]; --u) {
+        const int2 rows = chunk_rows[u];
+        if (rows.y < 0) continue;
+        if (rows.y != lo) break;
+        p = fmaxf(p, chunk_ref[(static_cast<int64_t>(u) * 2 + 1) * H + h]);
+        if (rows.x != lo) break;
+      }
+      chunk_h[h] = p;
+    }
+  }
+  if (kFlash)
+    for (int i = threadIdx.x; i < W * H; i += kRowThreads)
+      row_max[i] = -CUDART_INF_F;
+  const bool one_pass = stage >= C;
+
+  // with one head the staging threads also compute each lane's logit, so
+  // that a piece starts without a dependent gather of alpha_src
+  auto place = [&](int64_t e0) {
+    return [=](int i, int pos) {
+      const int src = edge_src[e0 + i];
+      src_s[pos] = src;
+      if constexpr (kOneHead) {
+        float s[kHeads];
+        lg.at<T>(src, row0 + st.row_s[i], 0, s);
+        lane_s[pos] = s[0];
+      }
+    };
+  };
+  // the logits of heads h0 .. h0+kHeads of lane `lane` of a piece
+  auto piece_logits = [&](const Piece& pc, int my_src, int h0,
+                          float (&s)[kHeads]) {
+    if constexpr (kOneHead) {
+#pragma unroll
+      for (int q = 0; q < kHeads; ++q) s[q] = -CUDART_INF_F;
+      if (lane < pc.len) s[0] = lane_s[pc.start + lane];
+    } else {
+      lg.at<T>(my_src, row0 + pc.row, h0, s);
+    }
+  };
+  // B9: the piece's max logit per head into its row's row_max
+  auto piece_max = [&](const Piece& pc) {
+    const bool live = lane < pc.len;
+    const int my_src = live ? src_s[pc.start + lane] : 0;
+    for (int h0 = 0; h0 < H; h0 += kHeads) {
+      float s[kHeads];
+      piece_logits(pc, my_src, h0, s);
+#pragma unroll
+      for (int q = 0; q < kHeads; ++q) {
+        if (h0 + q >= H) break;
+        const float m = warp_max(live ? s[q] : -CUDART_INF_F);
+        if (lane == 0) atomic_max_float(row_max + pc.row * H + h0 + q, m);
+      }
+    }
+  };
+  if (kFlash && !one_pass) {             // the row maxima over every pass
+    for (int s0 = 0; s0 < C; s0 += stage) {
+      const int n = min(stage, C - s0);
+      const int num_pieces = stage_pass(local_row, chunk0 + s0, n, W, false,
+                                        st, place(chunk0 + s0), [](int) {});
+      for (int p = warp; p < num_pieces; p += kRowWarps)
+        piece_max(st.piece[p]);
+      __syncthreads();
+    }
+  }
+
+  float* tw = tile + warp * 32 * H;
+  float* zw = piece_z + warp * H;
+  float* rw = piece_ref + warp * H;
+  float* zi = piece_zinv + warp * H;
+  // the number of pieces of row r in the pass (scan[r].y is its first)
+  auto pieces_of = [&](int r) { return st.scan[r + 1].y - st.scan[r].y; };
+  for (int s0 = 0; s0 < C; s0 += stage) {
+    const int n = min(stage, C - s0);
+    const int64_t e0 = chunk0 + s0;
+    const int num_pieces = stage_pass(local_row, e0, n, W, one_pass, st,
+                                      place(e0), [](int) {});
+    if (kFlash && one_pass) {            // rows of several pieces
+      for (int p = warp; p < num_pieces; p += kRowWarps)
+        if (pieces_of(st.piece[p].row) > 1) piece_max(st.piece[p]);
+      __syncthreads();
+    }
+    for (int p = warp; p < num_pieces; p += kRowWarps) {
+      const Piece pc = st.piece[p];
+      const int64_t row = row0 + pc.row;
+      const bool live = lane < pc.len;
+      const int my_src = live ? src_s[pc.start + lane] : 0;
+      const bool single = one_pass && pieces_of(pc.row) == 1;
+      for (int h0 = 0; h0 < H; h0 += kHeads) {
+        float s[kHeads];
+        piece_logits(pc, my_src, h0, s);
+#pragma unroll
+        for (int q = 0; q < kHeads; ++q) {
+          const int h = h0 + q;
+          if (h >= H) break;
+          float ref;
+          if (!kFlash) {
+            ref = chunk_h[h];
+          } else {
+            ref = single ? warp_max(live ? s[q] : -CUDART_INF_F)
+                         : row_max[pc.row * H + h];
+            if (pc.row == lo) ref = fmaxf(ref, chunk_h[h]);
+          }
+          const float e = live ? expf(s[q] - ref) : 0.f;
+          tw[lane * H + h] = round_to<T>(e);
+          const float z = warp_sum(e);
+          if (lane == 0) {
+            zw[h] = z;
+            rw[h] = ref;
+            zi[h] = z > 0.f ? 1.f / fmaxf(z, 1e-20f) : 0.f;
+          }
+        }
+      }
+      int slot = 0;
+      if (!pc.own) {
+        if (lane == 0) slot = atomicAdd(&next_slot, 1);
+        slot = __shfl_sync(kFull, slot, 0);
+        if (slot >= slot_end) __trap();  // the count disagrees: fail loudly
+      }
+      if (lane == 0)
+        piece_out[warp] = PieceOut{
+            pc.own ? out + row * F : slot_acc + static_cast<int64_t>(slot) * F,
+            pc.own && raw != nullptr ? raw + row * F : nullptr, zi, D, pc.own};
+      __syncwarp();                      // the tile, zw, rw, zi, piece_out
+      // the piece's stats before its sums, so that row and slot are not
+      // held through add_piece
+      for (int h = lane; h < H; h += 32) {
+        if (pc.own) {
+          row_m[row * H + h] = rw[h];
+          row_z[row * H + h] = zw[h];
+        } else {
+          slot_m[static_cast<int64_t>(slot) * H + h] = rw[h];
+          slot_z[static_cast<int64_t>(slot) * H + h] = zw[h];
+        }
+      }
+      if (!pc.own && lane == 0) slot_row[slot] = pc.row;
+      TileWeight<kAcc / kVec, kOneHead> wf{tw, H, D};
+      add_piece<T, kVec, !kFlash>(x, F, src_s, pc, lane, wf,
+                                  GatSink<kOneHead>{});
+      __syncwarp();                      // the next piece rewrites them
+    }
+    __syncthreads();                     // the next pass reuses the stage
+  }
+}
+
+inline Logits logits(const float* alpha_src, const float* alpha_dst,
+                     int ad_rows, int H, float slope, int round_alpha) {
+  const bool vec4 = H % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(alpha_src) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(alpha_dst) % 16 == 0;
+  return Logits{alpha_src, alpha_dst, ad_rows, H, slope, round_alpha,
+                vec4 ? 1 : 0};
+}
+
+// The arguments of B3 and B9 (gat_prepass_kernel, gat_rows_kernel).
+struct GatArgs {
+  Logits lg;
+  const int32_t* edge_src;
+  const int32_t* local_row;
+  const int32_t* chunk_block;
+  const int32_t* block_start;
+  int num_chunks, num_blocks, C, W, D;
+};
+
+// Lanes staged per pass: a chunk in one pass when it fits kMaxStage.
+inline int gat_stage(int C) { return std::min(C, kMaxStage); }
+
 template <typename T>
-FlashKernel flash_kernel(int D) {
-  if (D <= 32) return gat_flash_kernel<T, 1>;
-  if (D <= 64) return gat_flash_kernel<T, 2>;
-  return gat_flash_kernel<T, 4>;
+cudaError_t launch_prepass(const GatArgs& a, bool flash, int32_t* split,
+                           float* chunk_ref, int2* chunk_rows, float* row_m,
+                           float* row_z, cudaStream_t stream) {
+  auto kernel = flash ? gat_prepass_kernel<T, true>
+                      : gat_prepass_kernel<T, false>;
+  const size_t smem = static_cast<size_t>(a.W) * sizeof(int);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.num_chunks, kRowThreads, smem, stream>>>(
+      a.lg, a.edge_src, a.local_row, a.chunk_block, a.C, a.W, gat_stage(a.C),
+      split, chunk_ref, chunk_rows, row_m, row_z);
+  return cudaGetLastError();
+}
+
+template <typename T, int kVec>
+cudaError_t launch_gat_rows(const void* x, const GatArgs& a, bool flash,
+                            const int32_t* slot_off, const float* chunk_ref,
+                            const int2* chunk_rows, float* out, float* raw,
+                            float* row_m, float* row_z, int32_t* slot_row,
+                            float* slot_m, float* slot_z, float* slot_acc,
+                            cudaStream_t stream) {
+  const int stage = gat_stage(a.C), H = a.lg.H;
+  const size_t smem =
+      blocked::stage_smem_bytes(stage, a.W, 1) +
+      (static_cast<size_t>(kRowWarps) * (32 + 3) * H + H +
+       (flash ? static_cast<size_t>(a.W) * H : 0) + (H == 1 ? stage : 0)) *
+          sizeof(float);
+  auto kernel = H == 1 ? (flash ? gat_rows_kernel<T, kVec, true, true>
+                                : gat_rows_kernel<T, kVec, false, true>)
+                       : (flash ? gat_rows_kernel<T, kVec, true, false>
+                                : gat_rows_kernel<T, kVec, false, false>);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.num_chunks, kRowThreads, smem, stream>>>(
+      static_cast<const T*>(x), a.lg, a.edge_src, a.local_row, a.chunk_block,
+      a.block_start, slot_off, chunk_ref, chunk_rows, a.C, a.W, a.D, stage,
+      out, raw, row_m, row_z, slot_row, slot_m, slot_z, slot_acc);
+  return cudaGetLastError();
+}
+
+// gat_rows_kernel with the widest load that divides H*D, D and the address
+// of x (so that no vector straddles two heads), then the merge.
+cudaError_t launch_gat(const void* x, bool bf16, const GatArgs& a, bool flash,
+                       const int32_t* slot_off, const float* chunk_ref,
+                       const int2* chunk_rows, float* out, float* raw,
+                       float* row_m, float* row_z, int32_t* slot_row,
+                       float* slot_m, float* slot_z, float* slot_acc,
+                       cudaStream_t s) {
+  const int F = a.lg.H * a.D;
+  int v = blocked::vec_elems(x, F, bf16 ? 2 : 4);
+  while (a.D % v) v /= 2;
+#define TGT_GAT(T, V)                                                       \
+  launch_gat_rows<T, V>(x, a, flash, slot_off, chunk_ref, chunk_rows, out,  \
+                        raw, row_m, row_z, slot_row, slot_m, slot_z,        \
+                        slot_acc, s)
+  cudaError_t err;
+  if (bf16) {
+    switch (v) {
+      case 8: err = TGT_GAT(__nv_bfloat16, 8); break;
+      case 4: err = TGT_GAT(__nv_bfloat16, 4); break;
+      case 2: err = TGT_GAT(__nv_bfloat16, 2); break;
+      default: err = TGT_GAT(__nv_bfloat16, 1);
+    }
+  } else {
+    switch (v) {
+      case 4: err = TGT_GAT(float, 4); break;
+      case 2: err = TGT_GAT(float, 2); break;
+      default: err = TGT_GAT(float, 1);
+    }
+  }
+#undef TGT_GAT
+  if (err != cudaSuccess) return err;
+  return blocked::launch_merge(flash, a.block_start, slot_off, a.num_blocks,
+                               a.W, a.lg.H, a.D, slot_row, slot_m, slot_z,
+                               slot_acc, row_m, row_z, out, raw, s);
 }
 
 }  // namespace
@@ -405,32 +837,91 @@ int tgt_spmm_multiweighted(const void* x, int x_is_bf16,
   return static_cast<int>(blocked::launch_rows_vec(x, bf16, D, a, lanes, s));
 }
 
-// B9: x (N, H*D) row-major, f32 (x_is_bf16 == 0) or bf16; alpha_src (N, H)
-// f32 (rounded to the compute dtype here); alpha_dst (ad_rows, H) f32, rows
-// past ad_rows read 0; out (num_blocks*W, H*D) f32, divided by z.  raw_out
-// (the same shape, undivided), m_out and z_out ((num_blocks*W, H) f32 row
-// stats) are written when not null.  Needs D <= 128.
-int tgt_gat_flash(const void* x, int x_is_bf16, const float* alpha_src,
+// B3 and B9 share the next two functions (flash == 0: B3, 1: B9).  x (N,
+// H*D) row-major, f32 (x_is_bf16 == 0) or bf16; alpha_src (N, H) f32, the
+// given table, or for B3 with alpha_src_vec (H, D) f32 not null written
+// here with the GATv1 projection; round_alpha != 0: alpha_src rounded to the
+// compute dtype in the logits (B3's table, B9); alpha_dst (ad_rows, H) f32,
+// rows past ad_rows read 0; chunk_block (num_chunks,) int32; row_m, row_z
+// (num_blocks*W, H) f32.  Needs D <= 128.
+
+// Step 1 (and B3's projection): split (num_chunks,) int32, each chunk's
+// split pieces; chunk_ref f32, B3 (num_chunks, H) the chunk max, B9
+// (num_chunks, 2, H) the max of the chunk's lowest and highest row;
+// chunk_rows (num_chunks, 2) int32 those rows (B9 only, else null); row_m,
+// row_z reset to (-inf, 0).  The caller scans split into the slot offsets
+// and sizes the slots for tgt_gat_attend.
+int tgt_gat_count(const void* x, int x_is_bf16, int flash, int round_alpha,
+                  float* alpha_src, const float* alpha_src_vec,
                   const float* alpha_dst, int ad_rows,
                   const int32_t* edge_src, const int32_t* local_row,
-                  const int32_t* block_start, int num_blocks, int C, int W,
-                  int H, int D, float negative_slope, float* out,
-                  float* raw_out, float* m_out, float* z_out, void* stream) {
-  if (num_blocks <= 0 || C <= 0 || W <= 0 || H <= 0 || D <= 0 || D > kMaxD ||
-      (m_out == nullptr) != (z_out == nullptr))
+                  const int32_t* chunk_block, int N, int num_chunks, int C,
+                  int W, int H, int D, float negative_slope, int32_t* split,
+                  float* chunk_ref, int32_t* chunk_rows, float* row_m,
+                  float* row_z, void* stream) {
+  if (N <= 0 || num_chunks <= 0 || C <= 0 || W <= 0 || H <= 0 || D <= 0 ||
+      D > kMaxD || (flash != 0) != (chunk_rows != nullptr) ||
+      (flash && alpha_src_vec))
     return static_cast<int>(cudaErrorInvalidValue);
-  const FlashKernel kernel = x_is_bf16 ? flash_kernel<__nv_bfloat16>(D)
-                                       : flash_kernel<float>(D);
-  const size_t smem = (static_cast<size_t>(W) * D + 5 * W) * sizeof(float);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t grid = static_cast<int64_t>(num_blocks) * H;
-  if (grid > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  kernel<<<static_cast<unsigned>(grid), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      x, alpha_src, alpha_dst, ad_rows, edge_src, local_row, block_start, C,
-      W, H, D, negative_slope, out, raw_out, m_out, z_out);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (alpha_src_vec) {                   // the projection, once per node
+    const int64_t threads = static_cast<int64_t>(N) * H * 32;
+    const int64_t grid = (threads + 255) / 256;
+    if (grid > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (x_is_bf16)
+      gat_alpha_src_kernel<__nv_bfloat16><<<static_cast<unsigned>(grid), 256,
+                                            0, s>>>(
+          static_cast<const __nv_bfloat16*>(x), alpha_src_vec, N, H, D,
+          alpha_src);
+    else
+      gat_alpha_src_kernel<float><<<static_cast<unsigned>(grid), 256, 0, s>>>(
+          static_cast<const float*>(x), alpha_src_vec, N, H, D, alpha_src);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const GatArgs a{logits(alpha_src, alpha_dst, ad_rows, H, negative_slope,
+                         round_alpha),
+                  edge_src, local_row, chunk_block, nullptr, num_chunks, 0, C,
+                  W, D};
+  int2* rows = reinterpret_cast<int2*>(chunk_rows);
+  return static_cast<int>(
+      x_is_bf16 ? launch_prepass<__nv_bfloat16>(a, flash != 0, split,
+                                                chunk_ref, rows, row_m, row_z,
+                                                s)
+                : launch_prepass<float>(a, flash != 0, split, chunk_ref, rows,
+                                        row_m, row_z, s));
+}
+
+// Step 2, the main and merge kernels.  block_start (num_blocks + 1,)
+// int32; slot_off (num_chunks + 1,) int32: chunk t's split pieces take
+// slots [slot_off[t], slot_off[t+1]); slot_row (S,) int32, slot_m, slot_z
+// (S, H) and slot_acc (S, H*D) f32 scratch; chunk_ref, chunk_rows, row_m,
+// row_z as tgt_gat_count left them; out (num_blocks*W, H*D) f32, divided
+// by z.  B9 only: raw_out (the shape of out, undivided) when not null, and
+// row_m, row_z then hold each row's final (m, z).
+int tgt_gat_attend(const void* x, int x_is_bf16, int flash, int round_alpha,
+                   const float* alpha_src, const float* alpha_dst,
+                   int ad_rows, const int32_t* edge_src,
+                   const int32_t* local_row, const int32_t* chunk_block,
+                   const int32_t* block_start, const int32_t* slot_off,
+                   const float* chunk_ref, const int32_t* chunk_rows,
+                   int num_chunks, int num_blocks, int C, int W, int H, int D,
+                   float negative_slope, float* row_m, float* row_z,
+                   int32_t* slot_row, float* slot_m, float* slot_z,
+                   float* slot_acc, float* out, float* raw_out,
+                   void* stream) {
+  if (num_chunks <= 0 || num_blocks <= 0 || C <= 0 || W <= 0 || H <= 0 ||
+      D <= 0 || D > kMaxD || (flash != 0) != (chunk_rows != nullptr) ||
+      (!flash && raw_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GatArgs a{logits(alpha_src, alpha_dst, ad_rows, H, negative_slope,
+                         round_alpha),
+                  edge_src, local_row, chunk_block, block_start, num_chunks,
+                  num_blocks, C, W, D};
+  return static_cast<int>(launch_gat(
+      x, x_is_bf16 != 0, a, flash != 0, slot_off, chunk_ref,
+      reinterpret_cast<const int2*>(chunk_rows), out, raw_out, row_m, row_z,
+      slot_row, slot_m, slot_z, slot_acc, static_cast<cudaStream_t>(stream)));
 }
 
 const char* tgt_cuda_error_string(int err) {

@@ -40,9 +40,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
                                             _i, _vp, _vp]),
         "tgt_spmm_multiweighted": (_i, [_vp, _i, _vp, _vp, _vp, _vp, _vp,
                                         _i, _i, _i, _i, _i, _i, _vp, _vp]),
-        "tgt_gat_flash": (_i, [_vp, _i, _vp, _vp, _i, _vp, _vp, _vp, _i, _i,
-                               _i, _i, _i, ctypes.c_float, _vp, _vp, _vp,
-                               _vp, _vp]),
+        "tgt_gat_count": (_i, [_vp, _i, _i, _i, _vp, _vp, _vp, _i, _vp, _vp,
+                               _vp, _i, _i, _i, _i, _i, _i, ctypes.c_float,
+                               _vp, _vp, _vp, _vp, _vp, _vp]),
+        "tgt_gat_attend": (_i, [_vp, _i, _i, _i, _vp, _vp, _i, _vp, _vp, _vp,
+                                _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
+                                ctypes.c_float, _vp, _vp, _vp, _vp, _vp, _vp,
+                                _vp, _vp, _vp]),
         "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
     "attend_blocked": {
@@ -58,12 +62,6 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "tgt_attend_flash": (_i, [_vp, _i64, _vp, _i, _i, _vp, _vp, _vp, _vp,
                                   _vp, _i, _i, _i, _i, _i, _vp, _vp, _vp, _vp,
                                   _vp, _vp, _vp, _vp]),
-        "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
-    },
-    "gat_packed": {
-        "tgt_gat_packed": (_i, [_vp, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp,
-                                _i, _i, _i, _i, _i, _i, ctypes.c_float,
-                                _vp, _vp]),
         "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
 }

@@ -8,8 +8,8 @@ its kernel wrapper):
 * :func:`spmm_blocked_weighted_cuda` — B2, the weighted blocked SpMM (the
   hot half of ``spmm_hot_split`` and the weighted segmented path);
 * :func:`gat_attend_blocked_packed` (plain) and
-  :func:`gat_attend_blocked_packed_cuda` (B3, ``csrc/gat_packed.cu``) — the
-  multi-head GATv1 aggregation that ``GATConv(blocked=...)`` runs;
+  :func:`gat_attend_blocked_packed_cuda` (B3, ``csrc/gat_blocked.cu``) —
+  the multi-head GATv1 aggregation that ``GATConv(blocked=...)`` runs;
 * single-head softmax(<x_dst, x_src> * scale)-weighted aggregation, kernels
   in ``csrc/attend_blocked.cu``: :func:`sddmm_blocked` (B5, the per-lane
   scores of ``sddmm_blocked_pallas`` and ``_v2``),
@@ -186,6 +186,62 @@ def gat_attend_blocked_packed(b: BlockedCsr, h: torch.Tensor,
     return out[: b.num_rows]
 
 
+def _gat_cuda(b: BlockedCsr, hc: torch.Tensor, H: int, D: int,
+              asrc: torch.Tensor, vec: Optional[torch.Tensor],
+              ad: torch.Tensor, *, flash: bool, round_alpha: bool,
+              negative_slope: float, debug_stats: bool = False):
+    """B3 (``flash=False``) or B9 through ``csrc/gat_blocked.cu`` on the
+    compute-dtype rows ``hc`` (N, H*D).  Two C calls, four kernels: B3's
+    projection of ``vec`` into ``asrc`` (vec mode only), a pre-pass over
+    each chunk's lanes without row reads (split-piece count, reference
+    maxima), then the main kernel (one CUDA block per chunk, all heads) and
+    the merge of the split rows.  Between the two calls the host reads the
+    number of split-row slots to size their scratch (one synchronisation).
+    Returns ``(out (B*W, H*D), raw or None, m (B*W, H), z (B*W, H),
+    slots)``; ``raw``, ``m`` and ``z`` are B9's ``debug_stats``."""
+    T, C = b.edge_src.shape
+    W, B = b.rows_per_block, b.num_blocks
+    BW = B * W
+    dev = hc.device
+    _check_layout(b, dev)
+    _check(b.chunk_block, "chunk_block", torch.int32, (T,), dev)
+    f32, i32 = torch.float32, torch.int32
+    bf16 = int(hc.dtype == torch.bfloat16)
+    split = torch.empty((T,), dtype=i32, device=dev)
+    chunk_ref = torch.empty((T, 2 if flash else 1, H), dtype=f32, device=dev)
+    chunk_rows = (torch.empty((T, 2), dtype=i32, device=dev) if flash
+                  else None)
+    row_m = torch.empty((BW, H), dtype=f32, device=dev)
+    row_z = torch.empty((BW, H), dtype=f32, device=dev)
+    lanes = (b.edge_src.data_ptr(), b.edge_local_row.data_ptr(),
+             b.chunk_block.data_ptr())
+    rows_ptr = None if chunk_rows is None else chunk_rows.data_ptr()
+    _run("gat_blocked", dev, "tgt_gat_count", hc.data_ptr(), bf16,
+         int(flash), int(round_alpha), asrc.data_ptr(),
+         None if vec is None else vec.data_ptr(), ad.data_ptr(), ad.shape[0],
+         *lanes, asrc.shape[0], T, C, W, H, D, float(negative_slope),
+         split.data_ptr(), chunk_ref.data_ptr(), rows_ptr, row_m.data_ptr(),
+         row_z.data_ptr())
+    slot_off = torch.zeros((T + 1,), dtype=i32, device=dev)
+    torch.cumsum(split, 0, out=slot_off[1:])
+    S = int(slot_off[-1])
+    slot_row = torch.empty((S,), dtype=i32, device=dev)
+    slot_m = torch.empty((S, H), dtype=f32, device=dev)
+    slot_z = torch.empty((S, H), dtype=f32, device=dev)
+    slot_acc = torch.empty((S, H * D), dtype=f32, device=dev)
+    out = torch.empty((BW, H * D), dtype=f32, device=dev)
+    raw = torch.empty_like(out) if debug_stats else None
+    _run("gat_blocked", dev, "tgt_gat_attend", hc.data_ptr(), bf16,
+         int(flash), int(round_alpha), asrc.data_ptr(), ad.data_ptr(),
+         ad.shape[0], *lanes, b.block_start.data_ptr(), slot_off.data_ptr(),
+         chunk_ref.data_ptr(), rows_ptr, T, B, C, W, H, D,
+         float(negative_slope), row_m.data_ptr(), row_z.data_ptr(),
+         slot_row.data_ptr(), slot_m.data_ptr(), slot_z.data_ptr(),
+         slot_acc.data_ptr(), out.data_ptr(),
+         None if raw is None else raw.data_ptr())
+    return out, raw, row_m, row_z, S
+
+
 def gat_attend_blocked_packed_cuda(b: BlockedCsr, h: torch.Tensor,
                                    alpha_src: Optional[torch.Tensor],
                                    alpha_dst: torch.Tensor, *,
@@ -194,8 +250,13 @@ def gat_attend_blocked_packed_cuda(b: BlockedCsr, h: torch.Tensor,
                                    alpha_src_vec: Optional[torch.Tensor] = None
                                    ) -> torch.Tensor:
     """B3: :func:`gat_attend_blocked_packed` through the hand-written
-    Hopper kernel of ``csrc/gat_packed.cu`` on a CUDA tensor; the plain
-    version on a CPU tensor.  Same arguments and result."""
+    Hopper kernels of ``csrc/gat_blocked.cu`` (one CUDA block per chunk for
+    all heads, its lanes sorted by row, a warp per piece of at most 32
+    lanes of one row reading each source row whole; each lane weighed
+    against its chunk's max, taken by a pre-pass; split rows merged against
+    the row block's max) on a CUDA tensor; the plain version on a CPU
+    tensor.  Same arguments and result; ``.last_slots`` holds the last
+    call's split-row slot count."""
     if h.device.type == "cpu":
         return gat_attend_blocked_packed(
             b, h, alpha_src, alpha_dst, negative_slope=negative_slope,
@@ -204,41 +265,30 @@ def gat_attend_blocked_packed_cuda(b: BlockedCsr, h: torch.Tensor,
     if h.dim() != 3:
         raise ValueError(f"h must be (N, H, D), got {tuple(h.shape)}")
     N, H, D = h.shape
-    C = b.edge_src.shape[1]
-    B, W = b.num_blocks, b.rows_per_block
     hc = _compute_rows(h.reshape(N, H * D), compute_dtype, "h")
     dev = hc.device
     ad = alpha_dst.to(torch.float32).contiguous()
     _check(ad, "alpha_dst", torch.float32, (ad.shape[0], H), dev)
-    _check_layout(b, dev)
     if alpha_src is not None:
-        # the table; the kernel rounds it to the compute dtype
+        # the table; the kernels round it to the compute dtype
         asrc = alpha_src.to(torch.float32).contiguous()
         _check(asrc, "alpha_src", torch.float32, (N, H), dev)
         vec = None
     else:
-        # the kernel's projection writes the per-node logits here
+        # the projection kernel writes the per-node logits here
         asrc = torch.empty((N, H), dtype=torch.float32, device=dev)
         vec = alpha_src_vec.to(torch.float32).contiguous()
         _check(vec, "alpha_src_vec", torch.float32, (H, D), dev)
-    out = torch.empty((B * W, H * D), dtype=torch.float32, device=dev)
-    lib = _build.load("gat_packed")
-    with torch.cuda.device(dev):
-        rc = lib.tgt_gat_packed(
-            hc.data_ptr(), int(compute_dtype == torch.bfloat16),
-            asrc.data_ptr(), None if vec is None else vec.data_ptr(),
-            ad.data_ptr(), ad.shape[0], b.edge_src.data_ptr(),
-            b.edge_local_row.data_ptr(), b.block_start.data_ptr(),
-            N, B, C, W, H, D, float(negative_slope), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        msg = lib.tgt_cuda_error_string(rc).decode()
-        raise RuntimeError(f"tgt_gat_packed launch failed: {msg} ({rc})")
+    out, _, _, _, S = _gat_cuda(b, hc, H, D, asrc, vec, ad, flash=False,
+                                round_alpha=vec is None,
+                                negative_slope=negative_slope)
     gat_attend_blocked_packed_cuda.launches += 1
+    gat_attend_blocked_packed_cuda.last_slots = S
     return out[: b.num_rows].reshape(-1, H, D)
 
 
 gat_attend_blocked_packed_cuda.launches = 0
+gat_attend_blocked_packed_cuda.last_slots = 0   # of the last call
 
 
 # ---------------------------------------------------------------------------
@@ -878,9 +928,13 @@ def gat_attend_blocked_flash_cuda(b: BlockedCsr, h: torch.Tensor,
                                   compute_dtype=torch.bfloat16,
                                   debug_stats: bool = False):
     """B9: :func:`gat_attend_blocked_flash` through the hand-written Hopper
-    kernel (one CUDA block per (row block, head), a W x D float32 tile in
-    shared memory, the per-row running max) on a CUDA tensor; the plain
-    version on a CPU tensor.  Same arguments and results."""
+    kernels of ``csrc/gat_blocked.cu`` (B3's, with each lane weighed
+    against its row's running max after its chunk, as the plain version
+    rounds it: a pre-pass takes the max of each chunk's first and last
+    row, the only rows that span chunks; split rows merged against the
+    row's final max) on a CUDA tensor; the plain version on a CPU tensor.
+    Same arguments and results; ``.last_slots`` holds the last call's
+    split-row slot count."""
     if h.device.type == "cpu":
         return gat_attend_blocked_flash(
             b, h, alpha_src, alpha_dst, negative_slope=negative_slope,
@@ -897,25 +951,15 @@ def gat_attend_blocked_flash_cuda(b: BlockedCsr, h: torch.Tensor,
     ad = alpha_dst.to(torch.float32).contiguous()
     _check(asrc, "alpha_src", torch.float32, (N, H), dev)
     _check(ad, "alpha_dst", torch.float32, (ad.shape[0], H), dev)
-    _check_layout(b, dev)
-    BW = b.num_blocks * b.rows_per_block
-    out = torch.empty((BW, H * D), dtype=torch.float32, device=dev)
-    # the undivided accumulator and the row stats, for debug_stats
-    stats = ((torch.empty_like(out),
-              torch.empty((BW, H), dtype=torch.float32, device=dev),
-              torch.empty((BW, H), dtype=torch.float32, device=dev))
-             if debug_stats else ())
-    _run("gat_blocked", dev, "tgt_gat_flash", hc.data_ptr(),
-         int(compute_dtype == torch.bfloat16), asrc.data_ptr(),
-         ad.data_ptr(), ad.shape[0], b.edge_src.data_ptr(),
-         b.edge_local_row.data_ptr(), b.block_start.data_ptr(),
-         b.num_blocks, b.edge_src.shape[1], b.rows_per_block, H, D,
-         float(negative_slope), out.data_ptr(),
-         *([t.data_ptr() for t in stats] or [None] * 3))
+    out, raw, m, z, S = _gat_cuda(b, hc, H, D, asrc, None, ad, flash=True,
+                                  round_alpha=True,
+                                  negative_slope=negative_slope,
+                                  debug_stats=debug_stats)
     gat_attend_blocked_flash_cuda.launches += 1
+    gat_attend_blocked_flash_cuda.last_slots = S
     att = out[: b.num_rows].reshape(-1, H, D)
-    return (att, *stats) if debug_stats else att
+    return (att, raw, m, z) if debug_stats else att
 
 
 gat_attend_blocked_flash_cuda.launches = 0
-attend_blocked_flash_cuda.last_slots = 0   # split-row slots of the last call
+gat_attend_blocked_flash_cuda.last_slots = 0    # of the last call

@@ -14,8 +14,9 @@ single-head attention kernels B5 (``sddmm_blocked_cuda``), B6
 ``attend_blocked_cuda`` (B5, B6, B8) — :func:`run_attend_gates` — and B11
 (``spmm_blocked_q8_cuda``, sum and mean) — :func:`run_q8_gates` — and B5
 and B4 again on the cases that reach their row-grouped kernels' other
-paths — :func:`run_attend_mode_gates` — and B10 and B8 likewise —
-:func:`run_weighted_mode_gates`.  Each
+paths — :func:`run_attend_mode_gates` — B10 and B8 likewise —
+:func:`run_weighted_mode_gates` — and B3 and B9 likewise —
+:func:`run_gat_mode_gates`.  Each
 kernel runs on the given device and is compared with its plain version
 (``spmm_blocked``, ``gat_attend_blocked_packed``, ``sddmm_blocked``, ...)
 on the same inputs, computed on the same device.  On a CPU device both sides are the plain
@@ -53,8 +54,10 @@ import torch
 # atomics order each row's lanes and global atomics add a row split over
 # several pieces (csrc/spmm_blocked.cu).  B3 rounds at the
 # same points as its plain version (h, each lane's weight and their
-# product in bfloat16, every sum in float32), so it differs by summation
-# order and the rare term whose rounding flips.  B4 rounds each lane's
+# product in bfloat16, every sum in float32), each weight against the same
+# chunk max, which a pre-pass takes before any row is read, so it differs
+# by summation order and the rare term whose rounding flips.  B4 rounds
+# each lane's
 # weight bf16(e) against its piece's running max (a piece: at most 32 lanes
 # of one row in one chunk; the max moves once per batch of rows in flight,
 # or is the piece's max for rows wider than 256 columns), where the plain
@@ -68,7 +71,9 @@ import torch
 # its plain version, so the terms match bit for bit and only the sums'
 # order differs (the kernel rounds the float32 product on its own, never
 # fused into its add); B11's int8 rows times a bfloat16 scale are exact in
-# float32, likewise.  B9 keeps an exact per-row running max, so the kernel's
+# float32, likewise.  B9 takes the exact per-row running max (a pre-pass
+# takes the max of each chunk's first and last row, the only rows that span
+# chunks, before any row is read), so the kernel's
 # expf and torch's exp on the card see the same float32 arguments and
 # bf16(e) matches too; a B9 or B8 that rounded at another point would be
 # off by up to 2**-9 of a term, about 6e-3 at |h| near 3, and fails the
@@ -82,8 +87,11 @@ import torch
 # row-grouped kernels, the testbed and the short x_dst), 2.0e-3 (composed
 # attend, composed GAT), 1.4e-2 (flash, chunk max), 3.6e-3 (flash, row
 # max), 6.0e-8 (B8, also at H=4 heads of 36 columns, over the hub row and
-# in chunks of 8,192 lanes), 4.8e-7 (B9) and 0 (B11) in bfloat16, and at
-# most 8.8e-6 in float32 (B10 and B4 on the far scores); at ogbn-products
+# in chunks of 8,192 lanes), 7.2e-7 (B3 and B9 on one CUDA block per chunk
+# for all heads, also over the hub row, in chunks of 8,192 lanes, at H=4
+# heads of 80 and 36 columns and on far logits) and 0 (B11) in bfloat16,
+# and at most 8.8e-6 in float32 (B10 and B4 on the far scores); at
+# ogbn-products
 # size 7.8e-3 (composed GAT, fused), 2.4e-7 (B8) and 9.5e-7 (B9) on outputs
 # up to 3.2 (PERF.md, Findings).  Each limit sits well above the card's
 # reading and well below the values compared.
@@ -223,6 +231,28 @@ def far_scores_case(f: int = 32, seed: int = 3):
     return ("far_scores", indptr, src, x_dst, x_src, 128, 128, far)
 
 
+def far_logits_case(heads: int = 4, d: int = 32, seed: int = 4):
+    """``(name, indptr, src, rows_per_block, chunk_edges, (h, alpha_src,
+    alpha_dst, vec), far_rows)`` of the "far logits" case of the GAT gates:
+    the layout of :func:`far_scores_case` (rows 0-127 of 40 in-edges each
+    fill block 0's 40 chunks of 128 lanes, W = C = 128) with ``alpha_dst``
+    set to 150 on rows 16-18, whose lanes all lie in chunk 5.  Their logits
+    sit near 150, every other lane's near 0: B3 (a chunk-max shift) weighs
+    every other row of block 0 by ``exp(M_chunk - M_block)`` or, for row 19
+    which shares chunk 5, by ``exp(s - 150)``, both 0 in float32, so they
+    read 0; B9 (a per-row running max) keeps every row's softmax."""
+    rng = np.random.default_rng(seed)
+    n = 512
+    deg = np.ones(n, np.int64)
+    deg[:128] = 40
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    src = rng.integers(0, n, int(indptr[-1]))
+    h, a_s, a_d, vec = _gat_inputs(rng, n, heads, d)
+    far = np.array([16, 17, 18])
+    a_d[far] = 150.0
+    return ("far_logits", indptr, src, 128, 128, (h, a_s, a_d, vec), far)
+
+
 def _lane_weights(b, compute_dtype) -> torch.Tensor:
     """U(0, 1) float32 weights of the lanes of ``b``, seeded; for bfloat16
     gates rounded to values that bfloat16 holds exactly."""
@@ -357,6 +387,87 @@ def _gat_cases():
     cases.append(("testbed_h1_d47", indptr, src, 256, None,
                   _gat_inputs(r, len(indptr) - 1, 1, 47)))
     return cases
+
+
+def _gat_mode_cases():
+    """``(name, indptr, src, rows_per_block, chunk_edges, (h, alpha_src,
+    alpha_dst, vec))`` of :func:`run_gat_mode_gates`."""
+    indptr, src, _ = build_testbed()
+    n = len(indptr) - 1
+    _, hub_ip, hub_src, _, hub_w, hub_c = hub_row_graph()
+
+    def inputs(seed, nodes, heads, d):
+        return _gat_inputs(np.random.default_rng(seed), nodes, heads, d)
+
+    return [
+        ("hub_row", hub_ip, hub_src, hub_w, hub_c,
+         inputs(70, len(hub_ip) - 1, 4, 32)),
+        ("testbed[C=8192]", indptr, src, 256, 8192, inputs(8192, n, 4, 32)),
+        ("testbed_h4_d80", indptr, src, 256, None, inputs(80, n, 4, 80)),
+        ("testbed_h4_d36", indptr, src, 256, None, inputs(36, n, 4, 36)),
+        ("testbed_h1_d47", indptr, src, 256, None, inputs(47, n, 1, 47)),
+        far_logits_case()[:6]]
+
+
+def _stats_err(got, ref) -> float:
+    """B9's ``debug_stats`` (undivided accumulator, m, z) against the plain
+    version's: the largest of |m - m_ref| (infinite m must match, the rows
+    with no edges) and the accumulator's and z's differences as fractions
+    of their largest values."""
+    _, acc, m, z = got
+    _, acc_r, m_r, z_r = ref
+    fin = torch.isfinite(m_r)
+    if not torch.equal(fin, torch.isfinite(m)) or not torch.equal(
+            m[~fin], m_r[~fin]):
+        return float("inf")
+    err = _maxerr(m[fin], m_r[fin]) if bool(fin.any()) else 0.0
+    for a, r in ((acc, acc_r), (z, z_r)):
+        err = max(err, _maxerr(a, r) / max(float(r.abs().max()), 1.0))
+    return err
+
+
+def run_gat_mode_gates(compute_dtype=torch.float32, device="cuda"
+                       ) -> Dict[str, float]:
+    """``{case/kernel: max_abs_err}`` of B3 (table and vec modes) and B9
+    against their plain versions on ``device``, on the cases that reach the
+    GAT kernels' other paths: the hub row of 1,000 lanes (split over pieces
+    and chunks), the testbed in chunks of 8,192 lanes (more than the kernel
+    stages at once, so every piece is a split one, and B9 takes its row
+    maxima in a first sweep), H=4 heads of 80 columns (320, wider than one
+    256-column register slab), of 36 (a bfloat16 vector of 8 would straddle
+    two heads), one head of 47 and :func:`far_logits_case` (B3's chunk-max
+    underflow).  On the hub row also B9's ``debug_stats`` (``_stats_err``:
+    m exactly, the accumulator and z relative to their largest values)."""
+    from ..ops import attention_blocked as ab
+    from ..ops.spmm_blocked import build_blocked
+
+    errs: Dict[str, float] = {}
+    kw = dict(compute_dtype=compute_dtype)
+    with _strict_f32():
+        for name, ip, s, W, C, arrays in _gat_mode_cases():
+            b = build_blocked(ip, s, rows_per_block=W, chunk_edges=C,
+                              device=device)
+            hh, asrc, adst, v = (torch.from_numpy(a).to(device)
+                                 for a in arrays)
+            for mode, table, vv in (("table", asrc, None), ("vec", None, v)):
+                errs[f"{name}[{mode}]/gat_attend_blocked_packed_cuda"] = \
+                    _maxerr(ab.gat_attend_blocked_packed_cuda(
+                                b, hh, table, adst, alpha_src_vec=vv, **kw),
+                            ab.gat_attend_blocked_packed(
+                                b, hh, table, adst, alpha_src_vec=vv, **kw))
+            errs[f"{name}/gat_attend_blocked_flash_cuda"] = _maxerr(
+                ab.gat_attend_blocked_flash_cuda(b, hh, asrc, adst, **kw),
+                ab.gat_attend_blocked_flash(b, hh, asrc, adst, **kw))
+            if name == "hub_row":
+                errs[f"{name}[debug_stats]/gat_attend_blocked_flash_cuda"] = \
+                    _stats_err(
+                        ab.gat_attend_blocked_flash_cuda(
+                            b, hh, asrc, adst, debug_stats=True, **kw),
+                        ab.gat_attend_blocked_flash(
+                            b, hh, asrc, adst, debug_stats=True, **kw))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return errs
 
 
 def run_gat_route_gates(compute_dtype=torch.float32, device="cuda"

@@ -7,8 +7,12 @@ B8) and ``gat_attend_blocked_flash`` (B9) — against its JAX counterpart,
 the Pallas kernels run with ``interpret=True`` as
 ``tests/test_attention_blocked.py`` runs them, on the same numpy inputs: the
 GAT gates' testbed (cut to 512 nodes and 4096 edges, W=128), the three
-layout edge cases of ``kernel_gates.edge_case_graphs()`` (W=128 and 256) at
-H=4, D=32, and the testbed at one head of 47 columns (GAT's last layer).
+layout edge cases of ``kernel_gates.edge_case_graphs()`` (W=128 and 256) and
+the hub row of ``kernel_gates.hub_row_graph()`` (1,000 lanes over several
+chunks, W = C = 128) at H=4, D=32, and the testbed at one head of 47
+columns (GAT's last layer).  The head-packed GAT's plain version (B3,
+``gat_attend_blocked_packed``) likewise on the same cases, and B3 and B9 on
+``kernel_gates.far_logits_case()``, where B3's chunk-max shift underflows.
 
 Tolerances: float32 at 2e-4, the JAX package's own.  In bfloat16 both sides
 round at the same points (rows, ``bf16(x * w)`` in B8, ``alpha_src`` and
@@ -48,6 +52,10 @@ def _cases():
     r = np.random.default_rng(47)
     h_, a_s_, a_d_, _ = kernel_gates._gat_inputs(r, len(ip) - 1, 1, 47)
     cases["testbed_h1_d47"] = (ip, src, 256, None, (h_, a_s_, a_d_))
+    _, hip, hsrc, _, W, C = kernel_gates.hub_row_graph()
+    r = np.random.default_rng(70)
+    h_, a_s_, a_d_, _ = kernel_gates._gat_inputs(r, len(hip) - 1, 4, 32)
+    cases["hub_row"] = (hip, hsrc, W, C, (h_, a_s_, a_d_))
     return cases
 
 
@@ -181,6 +189,69 @@ def test_gat_flash_debug_stats_match_jax(case):
                                    atol=F32_TOL)
 
 
+def _packed_both(b_t, b_j, h, a_s, a_d, vec, mode, jdt, tdt):
+    """(port, JAX) outputs of the plain head-packed GAT (B3) in ``mode``
+    (``table``: the (N, H) alpha_src; ``vec``: the GATv1 projection)."""
+    table = mode == "table"
+    out = tab.gat_attend_blocked_packed(
+        b_t, torch.from_numpy(h), torch.from_numpy(a_s) if table else None,
+        torch.from_numpy(a_d),
+        alpha_src_vec=None if table else torch.from_numpy(vec),
+        compute_dtype=tdt).numpy()
+    ref = np.asarray(jab.gat_attend_blocked_packed(
+        b_j, jnp.asarray(h), jnp.asarray(a_s) if table else None,
+        jnp.asarray(a_d), alpha_src_vec=None if table else jnp.asarray(vec),
+        compute_dtype=jdt, interpret=True))
+    return out, ref
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("mode", ["table", "vec"])
+def test_plain_packed_gat_matches_jax(case, mode, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    h, a_s, a_d = case["arrays"]
+    H, D = h.shape[1:]
+    vec = (np.random.default_rng(D).normal(size=(H, D))
+           / np.sqrt(D)).astype(np.float32)
+    out, ref = _packed_both(case["b_t"], case["b_j"], h, a_s, a_d, vec, mode,
+                            jdt, tdt)
+    assert out.shape == ref.shape == h.shape
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+
+
+FAR_ROUTES = ["packed_table", "packed_vec", "flash"]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("route", FAR_ROUTES)
+def test_far_logits_match_jax(route, dtype):
+    """Three rows' logits 150 above the rest of their row block: the plain
+    B3 reads 0 on every other row of the block (its chunk-max shift
+    underflows), as the JAX kernel does, and B9 keeps every row's softmax,
+    as its JAX kernel does."""
+    jdt, tdt, tol = DTYPES[dtype]
+    _, indptr, src, W, C, (h, a_s, a_d, vec), far = \
+        kernel_gates.far_logits_case()
+    b_t = tsb.build_blocked(indptr, src, rows_per_block=W, chunk_edges=C,
+                            device="cpu")
+    b_j = jsb.build_blocked(indptr, src.astype(np.int32), rows_per_block=W,
+                            chunk_edges=C)
+    if route == "flash":
+        ref = np.asarray(jab.gat_attend_blocked_flash(
+            b_j, jnp.asarray(h), jnp.asarray(a_s), jnp.asarray(a_d),
+            compute_dtype=jdt, interpret=True))
+        out = tab.gat_attend_blocked_flash(
+            b_t, torch.from_numpy(h), torch.from_numpy(a_s),
+            torch.from_numpy(a_d), compute_dtype=tdt).numpy()
+    else:
+        out, ref = _packed_both(b_t, b_j, h, a_s, a_d, vec,
+                                route.split("_")[1], jdt, tdt)
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+    others = np.setdiff1d(np.arange(W), far)
+    zero_rows = int((np.abs(out[others]).sum((1, 2)) == 0).sum())
+    assert zero_rows == (0 if route == "flash" else len(others))
+
+
 def test_routes_agree_with_packed(case):
     """The composed and flash routes compute B3's function: in float32 they
     agree with the port's plain head-packed GAT."""
@@ -239,6 +310,22 @@ def test_gat_route_gates_harness_on_cpu(dtype, threshold):
     assert kernels == {"edge_softmax_blocked_multihead_cuda",
                        "spmm_blocked_multiweighted_cuda",
                        "gat_attend_blocked_cuda",
+                       "gat_attend_blocked_flash_cuda"}
+    ok, worst = kernel_gates.gate(errs, threshold)
+    assert ok, worst
+
+
+@pytest.mark.parametrize("dtype,threshold", [
+    (torch.float32, kernel_gates.F32_THRESHOLD),
+    (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
+def test_gat_mode_gates_harness_on_cpu(dtype, threshold):
+    """B3's and B9's gates of the new design's paths run on the CPU (plain
+    against plain): six cases, B3 in both modes and B9, and B9's debug
+    statistics on the hub row."""
+    errs = kernel_gates.run_gat_mode_gates(dtype, device="cpu")
+    assert len(errs) == 6 * 3 + 1
+    kernels = {k.rsplit("/", 1)[1] for k in errs}
+    assert kernels == {"gat_attend_blocked_packed_cuda",
                        "gat_attend_blocked_flash_cuda"}
     ok, worst = kernel_gates.gate(errs, threshold)
     assert ok, worst
