@@ -13,14 +13,16 @@ prints no result line):
 
 1. build the CUDA kernels from ``tch_geometric_tpu_torch/csrc`` (nvcc, one
    process per source, all at once);
-2. kernel checks: B1, B2, the hot split, B3 (both modes), B7, B8, the
-   composed GAT route (B7, B8), B9, B5, B6, the composed attend (B5, B6,
-   B8), B10, B4 (both stat modes) and B11 (sum and mean) against their
-   plain versions on the card, on the kernel-gate testbed and three layout
-   edge cases (the GAT kernels also at one head of 47 columns; the ragged
-   case at 37 columns; B1, B2 and the hot split also on a hub row of 1,000
-   lanes at 34 columns, and B1 and B2 in their multi-pass mode on chunks
-   of 8,192 lanes; B5 and B4 (both stat modes) also on the hub row, the
+2. kernel checks: B1, B2, the hot split, B3 (both modes), B7 (scores in,
+   and the GAT logits computed from the (N, H) tables), B8, the composed
+   GAT route (B7, B8), B9, B5, B6, the composed attend (B5, B6, B8), B10,
+   B4 (both stat modes) and B11 (sum and mean) against their plain
+   versions on the card, on the kernel-gate testbed and three layout edge
+   cases (the GAT kernels also at one head of 47 columns, B7's logits also
+   with a short alpha_dst; the ragged case at 37 columns; B1, B2, B11 and
+   the hot split also on a hub row of 1,000 lanes at 34 columns, and B1,
+   B2 and B11 in their multi-pass mode on chunks of 8,192 lanes; B11 also
+   at W=64, C=256 and F=100; B5 and B4 (both stat modes) also on the hub row, the
    multi-pass layout, rows of 320 columns, a distinct x_dst with fewer rows
    than the layout and a "far scores" case in which one chunk's scores sit
    150 above the rest of its row block; B10 on the same five cases, and B8
@@ -28,8 +30,9 @@ prints no result line):
    head and with four, of 36 columns (80 at 320), softmax weights; B3
    (both modes) and B9 on the hub row, the multi-pass layout, four heads
    of 80 and of 36 columns, one head of 47 and a "far logits" case in
-   which three rows' logits sit 150 above the rest of their row block, and
-   B9's debug statistics on the hub row), in float32 (5e-4, TF32 off) and
+   which three rows' logits sit 150 above the rest of their row block,
+   B9's debug statistics on the hub row, and B7's two entries on the hub
+   row and the multi-pass layout), in float32 (5e-4, TF32 off) and
    bfloat16 (per-kernel limits of ``utils/kernel_gates.py``);
 3. the GraphSAGE serving path at ogbn-products size (synthetic graph with
    the dataset's node/edge counts, 100 features, 47 classes; model
@@ -58,15 +61,18 @@ prints no result line):
    both dtypes, and timed; the outputs are checked finite.
    Then the GAT routes: the same float32 full-graph pass three ways, each
    layer's attention through B3, through the composed route
-   (``gat_attend_blocked_cuda``: torch gathers of the logits, B7, B8) and
-   through the flash route (``gat_attend_blocked_flash_cuda``, B9).  The
+   (``gat_attend_blocked_cuda``: B7 computing the logits from the (N, H)
+   tables, then B8) and through the flash route
+   (``gat_attend_blocked_flash_cuda``, B9).  The
    launch counts of B3, B7, B8 and B9 are zeroed just before and read just
    after; each must have run.  The three passes' logits agree within 5e-4,
    and on a 5% node subgraph each agrees with ``GAT.forward`` (segment ops)
-   within 5e-4.  B7, B8, the composed route and B9 are held against their
-   plain versions at both layer shapes (H=4, D=64 and H=1, D=47) in both
-   dtypes, and timed at layer 1's shape beside their bounds, plain
-   versions and, for B7 and B8, one PyTorch library call.
+   within 5e-4.  B7 (both entries), B8, the composed route and B9 are held
+   against their plain versions at both layer shapes (H=4, D=64 and H=1,
+   D=47) in both dtypes, and timed at layer 1's shape beside their bounds,
+   plain versions and, for B7 and B8, one PyTorch library call; the torch
+   gathers of the logits that B7's second entry replaced are timed beside
+   it.
 5. single-head dot-product attention (``examples/gat_attention.py``'s
    function, x_dst = x_src) on the same graph and layout: the routes
    ``attend_blocked_cuda`` (B5, B6, B8), ``attend_blocked_fused_cuda`` (B10)
@@ -500,7 +506,7 @@ def gat_route_pass(gat, x, blocked, route="packed"):
     """``GAT.forward``'s composition over the blocked layout, ELU between
     layers, each layer's attention step through one route: ``packed``, each
     ``GATConv(blocked=...)`` (B3); ``composed``, ``gat_attend_blocked_cuda``
-    (torch gathers of the logits, B7, B8); ``flash``,
+    (B7 on the logit tables, B8); ``flash``,
     ``gat_attend_blocked_flash_cuda`` (B9).  The last two take the
     layer's ``project`` and ``logit_tables`` (alpha_src as an (N, H)
     table) in its compute dtype."""
@@ -665,6 +671,13 @@ def gat_route_kernel_numbers(p, launches, device):
             lambda v, dt: ab.edge_softmax_blocked_multihead_cuda(
                 b, v["logits"]),
             lambda v, dt: ab.edge_softmax_blocked_multihead(b, v["logits"])),
+        # B7's second entry: the logits computed from the tables
+        "edge_softmax_blocked_multihead_cuda[logits]": (
+            lambda v, dt: ab._gat_edge_softmax_blocked_cuda(
+                b, v["a_s"], v["a_d"]),
+            lambda v, dt: ab.edge_softmax_blocked_multihead(
+                b, ab.gat_edge_logits_blocked(b, v["a_s"], v["a_d"])
+                .movedim(-1, 0))),
         "spmm_blocked_multiweighted_cuda": (
             lambda v, dt: ab.spmm_blocked_multiweighted_cuda(
                 b, v["xs"][dt], v["att"], compute_dtype=dt),
@@ -690,7 +703,8 @@ def gat_route_kernel_numbers(p, launches, device):
             v = _route_inputs(b, n, H, D, device)
             for dt in (f32, b16):
                 for key, (run, plain) in specs.items():
-                    thr = F32_THRESHOLD if dt == f32 else BF16_THRESHOLDS[key]
+                    thr = (F32_THRESHOLD if dt == f32 else
+                           BF16_THRESHOLDS[key.split("[")[0]])
                     got, ref = run(v, dt), plain(v, dt)
                     check(got.shape == ref.shape,
                           f"{key} shape {tuple(got.shape)}")
@@ -705,8 +719,9 @@ def gat_route_kernel_numbers(p, launches, device):
                   for dt in (f32, b16)} for k, (run, _) in specs.items()}
         plain_ms = {k: cuda_ms(lambda: plain(v, f32), 2)
                     for k, (_, plain) in specs.items()}
-        # the composed route's logits as its wrapper makes them: torch
-        # gathers, then the (H, T, C) copy B7 reads (no kernel of the port)
+        # the composed route's logits as its wrapper made them before B7
+        # took them in: torch gathers, then the (H, T, C) copy B7's first
+        # entry reads (no kernel of the port; a yardstick)
         logits_ms = cuda_ms(lambda: ab.gat_edge_logits_blocked(
             b, v["a_s"], v["a_d"]).movedim(-1, 0).contiguous(), 10)
         logits, x = v["logits"], v["xs"][f32]
@@ -723,8 +738,14 @@ def gat_route_kernel_numbers(p, launches, device):
     meta = lanes * 8 + (B + 1) * 4
     bounds = {
         "edge_softmax_blocked_multihead_cuda": lambda eb: (
-            H * lanes * 4 + lanes * 4 + (B + 1) * 4 + H * lanes * 4,
+            H * lanes * 4 + lanes * 4 + T * 4 + (B + 1) * 4 + H * lanes * 4,
             valid * H * 6),
+        # the two (N, H) tables, edge_src and local_row, chunk_block and
+        # block_start in; the weights out; a logit is an add, a compare and
+        # a multiply more
+        "edge_softmax_blocked_multihead_cuda[logits]": lambda eb: (
+            2 * n * H * 4 + lanes * 8 + T * 4 + (B + 1) * 4 + H * lanes * 4,
+            valid * H * 9),
         "spmm_blocked_multiweighted_cuda": lambda eb: (
             n * H * D * eb + meta + T * 4 + H * lanes * 4 + out_bytes,
             valid * H * D * 2),
@@ -735,19 +756,23 @@ def gat_route_kernel_numbers(p, launches, device):
     info = {"edge_softmax_blocked_multihead_cuda": ("B7", ":289"),
             "spmm_blocked_multiweighted_cuda": ("B8", ":485"),
             "gat_attend_blocked_flash_cuda": ("B9", ":621")}
-    log(f"composed GAT route (torch logits, B7, B8) at H={H} D={D}: "
-        f"{ms['gat_attend_blocked_cuda']} ms, of which the torch logits "
-        f"{logits_ms:.3f} ms; plain {plain_ms['gat_attend_blocked_cuda']:.3f}"
-        f" ms; wrapper err {errs['gat_attend_blocked_cuda']}")
+    def bound_ms(key, eb):
+        by, ops = bounds[key](eb)
+        t_bytes = by / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_FLOP_PER_S * 1e3
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    b7l = "edge_softmax_blocked_multihead_cuda[logits]"
+    log(f"composed GAT route (B7 on the logit tables, B8) at H={H} D={D}: "
+        f"{ms['gat_attend_blocked_cuda']} ms, of which B7 {ms[b7l]} ms; the "
+        f"torch logits B7 replaced {logits_ms:.3f} ms; plain "
+        f"{plain_ms['gat_attend_blocked_cuda']:.3f} ms; wrapper err "
+        f"{errs['gat_attend_blocked_cuda']}")
     rows = []
     for key, (label, line) in info.items():
-        t = {}
-        for dt, eb in (("float32", 4), ("bfloat16", 2)):
-            by, ops = bounds[key](eb)
-            t_bytes = by / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / F32_FLOP_PER_S * 1e3
-            t[dt] = (max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations")
+        t = {dt: bound_ms(key, eb) for dt, eb in (("float32", 4),
+                                                    ("bfloat16", 2))}
         rows.append(dict(
             name=f"{key} ({label})", route="cuda",
             source="tch_geometric_tpu_torch/csrc/gat_blocked.cu",
@@ -760,6 +785,16 @@ def gat_route_kernel_numbers(p, launches, device):
             ms_bf16=ms[key]["bfloat16"], bound_ms_bf16=t["bfloat16"][0],
             shape=dict(T=T, C=C, W=W, H=H, D=D, N=n, valid_lanes=valid,
                        dtype="float32")))
+        if key == "edge_softmax_blocked_multihead_cuda":
+            # the second entry, on the (N, H) logit tables
+            rows[-1].update(ms_logits=ms[b7l]["float32"],
+                            plain_ms_logits=plain_ms[b7l],
+                            bound_ms_logits=bound_ms(b7l, 4)[0],
+                            max_abs_err_logits=max(worst[b7l].values()),
+                            torch_logits_ms=logits_ms)
+            log(f"kernel {key} (B7) on the logit tables: {ms[b7l]} ms (bound "
+                f"{bound_ms(b7l, 4)[0]:.3f} ms), plain {plain_ms[b7l]:.3f} ms, "
+                f"worst wrapper err {errs[b7l]}")
         log(f"kernel {key} ({label}): T={T} C={C} H={H} D={D} lanes valid "
             f"{valid}: {ms[key]} ms (bound f32 {t['float32'][0]:.3f} ms, "
             f"bf16 {t['bfloat16'][0]:.3f} ms, by {t['float32'][1]}), plain "

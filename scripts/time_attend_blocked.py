@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the attention kernels B5, B4, B6, B10, B8, B3 and B9, the attend routes, and the kernels and passes beside them.
+"""Time the attention kernels B5, B4, B6, B10, B8, B7, B3 and B9, the attend routes, and the kernels and passes beside them.
 
 Times the ``tch_geometric_tpu_torch`` package that comes first on
 ``sys.path``, through its public wrappers only, so the same script times an
@@ -24,7 +24,9 @@ in bfloat16; B6 at F=256 in bfloat16; B10 at F=256 in bfloat16 and float32
 and at F=100 in bfloat16; the three attend routes (composed, fused, flash
 with row stats) at F=256 in bfloat16; B8 at the GAT's layer 1 (H=4, D=64)
 in float32 and bfloat16, at its layer 3 (H=1, D=47) in float32 and with
-one head at F=256 in bfloat16; B3 (vec mode) at H=4, D=64 in float32 and
+one head at F=256 in bfloat16; B7 on scores and on the logit tables at
+H=4 and H=1 (``b7_cases``), with the kernels of one call of each entry at
+H=4 under ``torch.profiler``; B3 (vec mode) at H=4, D=64 in float32 and
 bfloat16 and at H=1, D=47 in float32, and B9 at H=4, D=64 in float32 and
 bfloat16, with the kernels of one B3 call and one B9 call (float32, H=4)
 under ``torch.profiler``, the host clock of that call (its synchronisation
@@ -138,6 +140,39 @@ def b8_cases(p, xs, device):
             "B8_H4_D64_bf16": (b8(x1, w1, torch.bfloat16), 10),
             "B8_H1_D47_f32": (b8(x3, w3, torch.float32), 10),
             "B8_H1_F256_bf16": (b8(x256, w256, torch.bfloat16), 10)}
+
+
+def b7_cases(p, device):
+    """``{name: (fn, calls)}`` of B7 at the GAT's layer shapes (H=4, layers
+    1-2; H=1, layer 3) on seeded (N, H) logit tables: on their (H, T, C)
+    logits with NaN in the pad lanes (the scores-in entry) and on the
+    tables themselves (the logits-in entry; a tree without it times what
+    its composed route ran instead: the torch gathers of the logits, then
+    the scores-in entry)."""
+    from tch_geometric_tpu_torch.ops import attention_blocked as ab
+
+    b = p["blocked"]
+    n = p["x_table"].shape[0]
+    gen = torch.Generator().manual_seed(7)
+    logits_in = getattr(ab, "_gat_edge_softmax_blocked_cuda", None)
+
+    def torch_logits(a_s, a_d):
+        return ab.edge_softmax_blocked_multihead_cuda(
+            b, ab.gat_edge_logits_blocked(b, a_s, a_d).movedim(-1, 0))
+
+    out = {}
+    for H in (4, 1):
+        a_s = torch.randn((n, H), generator=gen).to(device)
+        a_d = torch.randn((n, H), generator=gen).to(device)
+        s = chip_smoke._nan_pads(b, ab.gat_edge_logits_blocked(
+            b, a_s, a_d).movedim(-1, 0).contiguous())
+        out[f"B7_scores_H{H}"] = (
+            lambda s=s: ab.edge_softmax_blocked_multihead_cuda(b, s), 10)
+        out[f"B7_logits_H{H}"] = (
+            (lambda a_s=a_s, a_d=a_d: logits_in(b, a_s, a_d))
+            if logits_in is not None else
+            (lambda a_s=a_s, a_d=a_d: torch_logits(a_s, a_d)), 10)
+    return out
 
 
 def gat_kernel_cases(p, device):
@@ -262,6 +297,18 @@ def main(argv=None) -> int:
     res["b4_split_slots_last_call"] = slots
     time_cases(b8_cases(p, xs, device), res)
     del xs
+    torch.cuda.empty_cache()
+    # B7's two entries, and the kernels of one call of each at H=4
+    # (pre-pass, main kernel; the parent's one kernel, or its torch
+    # logits and kernel)
+    b7 = b7_cases(p, device)
+    time_cases(b7, res)
+    for k in ("B7_scores_H4", "B7_logits_H4"):
+        res["profile"][k] = kernel_split(b7[k][0])
+    print("profile", json.dumps({k: res["profile"][k] for k in
+                                 ("B7_scores_H4", "B7_logits_H4")}),
+          flush=True)
+    del b7
     torch.cuda.empty_cache()
     # B3 and B9: times, the kernels of one call of each (projection,
     # pre-pass, main, merge; the slot count's copy to the host), the host

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the row-grouped kernels (B1-B3, B5, B8-B10) and B11 built from several copies of the kernel sources, in one process.
+"""Time the row-grouped kernels (B1-B3, B5, B7-B11) built from several copies of the kernel sources, in one process.
 
 A variant is a copy of ``tch_geometric_tpu_torch/csrc`` with one change (a
 launch bound, another way to read the weights).  Each is built from its own
@@ -14,7 +14,8 @@ card: from the root of a checkout,
 ``base`` is the package's own ``csrc``.  On chip_smoke's ogbn-products
 graph and layout (``host_prep``, W=256), prepared once: B5 at F=256 in
 bfloat16, B10 at F=256 in bfloat16 and float32 and at F=100 in bfloat16, B8
-at the shapes of ``time_attend_blocked.b8_cases``, B3 and B9 at those of
+at the shapes of ``time_attend_blocked.b8_cases``, B7 at those of
+``time_attend_blocked.b7_cases``, B3 and B9 at those of
 ``time_attend_blocked.gat_kernel_cases``, and B1, B2, B11 and the SAGE
 forwards of ``time_spmm_blocked.spmm_cases`` (``--only B3,B9`` keeps the
 cases whose names start so), each by chip_smoke's
@@ -34,7 +35,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
-from time_attend_blocked import b8_cases, gat_kernel_cases  # noqa: E402
+from time_attend_blocked import (b7_cases, b8_cases,  # noqa: E402
+                                 gat_kernel_cases)
 from time_spmm_blocked import spmm_cases  # noqa: E402
 
 
@@ -55,6 +57,7 @@ def cases(p, device):
     }
     out = {k: (fn, 10) for k, fn in out.items()}
     out.update(b8_cases(p, xs, device))
+    out.update(b7_cases(p, device))
     out.update(gat_kernel_cases(p, device))
     out.update(spmm_cases(p, device))
     return out

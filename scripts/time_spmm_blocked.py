@@ -17,8 +17,8 @@ git-ignored directory:
 On chip_smoke's ogbn-products graph and layouts (``host_prep``, W=256), each
 case is timed by chip_smoke's ``cuda_ms`` (CUDA events over 10 calls after a
 warm-up): B1 at F=256 in bfloat16 and float32 and at F=100 in bfloat16, B2 on
-the hot half of the hot split at F=256 and F=100 in bfloat16, B11 at F=256,
-and the full-graph SAGE ``blocked_forward`` over the plain and the hot-split
+the hot half of the hot split at F=256 and F=100 in bfloat16, B11 at F=256
+and F=100, and the full-graph SAGE ``blocked_forward`` over the plain and the hot-split
 layout (3 calls each).  Each output's float64 sum is printed beside its time,
 so the turns can be compared.  Prints one JSON object (also written to
 ``--out`` when given) and the card's name and power limit.
@@ -37,8 +37,9 @@ import chip_smoke
 
 
 def spmm_cases(p, device):
-    """``{name: (fn, calls)}``: B1, B2 and B11 at chip_smoke's shapes (10
-    calls each) and the SAGE forward over both layouts (3 calls each), on
+    """``{name: (fn, calls)}``: B1, B2 and B11 (F=256 and F=100) at
+    chip_smoke's shapes (10 calls each) and the SAGE forward over both
+    layouts (3 calls each), on
     the layouts and model of ``chip_smoke.host_prep``."""
     from tch_geometric_tpu_torch.ops.attention_blocked import \
         spmm_blocked_weighted_cuda
@@ -60,6 +61,7 @@ def spmm_cases(p, device):
                                                   compute_dtype=x.dtype)
 
     q, s = quantize_rows(x32)
+    q100, s100 = quantize_rows(x_table)
     cases = {
         "B1_F256_bf16": b1(x32.to(torch.bfloat16)),
         "B1_F256_f32": b1(x32),
@@ -67,6 +69,8 @@ def spmm_cases(p, device):
         "B2_hot_F256_bf16": b2(x32[hot.hot_ids].to(torch.bfloat16)),
         "B2_hot_F100_bf16": b2(x_table[hot.hot_ids].to(torch.bfloat16)),
         "B11_F256": lambda: spmm_blocked_q8_cuda(blocked, q, s, agg="sum"),
+        "B11_F100": lambda: spmm_blocked_q8_cuda(blocked, q100, s100,
+                                                 agg="sum"),
     }
     out = {k: (fn, 10) for k, fn in cases.items()}
     model = p["model"]

@@ -5,18 +5,20 @@
 // The blocked layout: row block b owns W destination rows and the chunks
 // [block_start[b], block_start[b+1]) of C lanes each; a lane carries its
 // source row (edge_src) and its row within the block (local_row), pad lanes
-// local_row == W and edge_src == 0.  B11 still runs the tile design: an
-// output tile of W rows x kTileF columns of float32 in shared memory.  The
-// row-grouped kernels (B1-B5, B8-B10) stage a chunk in shared memory
-// instead and counting-sort its live lanes by row (stage_pass): each row's
-// lanes become one run, cut into pieces of at most kPiece lanes that one
-// warp takes, reading each lane's source row whole with Vec loads.  The
-// weighted sums among them (B1, B2, B8, B10's last step) are one kernel,
-// rows_kernel, instantiated per source file with a Lanes policy that stages
-// each lane's weight data and gives add_piece each piece's weights.  The
-// softmax-weighted ones (B4; B3 and B9 in gat_blocked.cu) store owned rows
-// and leave each split piece's partial sums in a slot: count_split_pieces
-// sizes the slots, flash_merge_kernel combines them.
+// local_row == W and edge_src == 0.  The row-grouped kernels (all but B6)
+// stage a chunk in shared memory and counting-sort its live lanes by row
+// (stage_pass, or stage_sort after a kernel's own read of the chunk): each
+// row's lanes become one run, cut into pieces of at most kPiece lanes that
+// one warp takes.  The weighted sums among them (B1, B2, B8, B10's last
+// step, B11) are one kernel, rows_kernel, instantiated per source file with
+// a Lanes policy that stages each lane's weight data and gives add_piece
+// each piece's weights; add_piece reads each lane's source row whole with
+// Vec loads (f32, bf16 or int8 elements).  The softmax-weighted ones (B4;
+// B3 and B9 in gat_blocked.cu) store owned rows and leave each split
+// piece's partial sums in a slot: count_split_pieces sizes the slots,
+// flash_merge_kernel combines them.  B7 (gat_blocked.cu) reduces each
+// piece's (max, sum) with one thread and takes the rows that span chunks
+// from a pre-pass.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,81 +39,6 @@ __device__ __forceinline__ float round_to(float v) { return v; }
 template <>
 __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-// ---- the tile design (B11) ------------------------------------------------
-
-constexpr int kTileF = 64;               // output columns per tile
-
-// Each thread owns columns 2*lane and 2*lane+1 of a tile.  In shared memory
-// column j of a row sits at (j & 1) * 32 + (j >> 1), so a warp's two atomic
-// adds each touch 32 distinct banks.
-__device__ __forceinline__ int tile_slot(int j) {
-  return (j & 1) * 32 + (j >> 1);
-}
-
-// Columns c and c+1 of an int8 row as floats (0 where a column does not
-// exist): one 2-byte load when `pair` (both exist, address aligned), else
-// scalars.
-__device__ __forceinline__ float2 load2(const int8_t* p, bool pair, bool has0,
-                                        bool has1) {
-  if (pair) {
-    const char2 v = *reinterpret_cast<const char2*>(p);
-    return make_float2(v.x, v.y);
-  }
-  return make_float2(has0 ? p[0] : 0.f, has1 ? p[1] : 0.f);
-}
-
-// Adds my_w * x[src] of the warp's live lanes into the tile `acc`, columns
-// c0 and c0+1 of this thread.  Every thread of the warp brings one lane's
-// row, source and weight.  Pad lanes (row == W) are dropped by a ballot
-// before any row read; kUnroll lanes' loads are in flight before their adds.
-template <int kUnroll>
-__device__ __forceinline__ void warp_accumulate(const int8_t* __restrict__ x,
-                                                int F, int c0, int my_row,
-                                                int my_src, float my_w, int W,
-                                                int lane, float* acc) {
-  const bool has0 = c0 < F, has1 = c0 + 1 < F;
-  const bool pair = has1 && F % 2 == 0;
-  unsigned live = __ballot_sync(kFull, my_row < W);
-  while (live) {                         // warp-uniform loop
-    int rows[kUnroll];
-    float2 v[kUnroll];
-#pragma unroll
-    for (int q = 0; q < kUnroll; ++q) {
-      rows[q] = -1;
-      if (live) {                        // warp-uniform branch
-        const int j = __ffs(live) - 1;
-        live &= live - 1;
-        rows[q] = __shfl_sync(kFull, my_row, j);
-        const int64_t src = __shfl_sync(kFull, my_src, j);
-        v[q] = load2(x + src * F + c0, pair, has0, has1);
-        const float w = __shfl_sync(kFull, my_w, j);
-        v[q].x *= w;
-        v[q].y *= w;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kUnroll; ++q) {
-      if (rows[q] < 0) continue;
-      float* ar = acc + rows[q] * kTileF;
-      if (has0) atomicAdd(ar + lane, v[q].x);
-      if (has1) atomicAdd(ar + 32 + lane, v[q].y);
-    }
-  }
-}
-
-// Writes the tile's W rows into out rows row0.. (F columns), columns
-// f0 .. min(f0 + kTileF, F); every row, rows with no edges as zeros.
-__device__ __forceinline__ void store_tile(const float* acc,
-                                           float* __restrict__ out,
-                                           int64_t row0, int W, int F,
-                                           int f0) {
-  const int fw = min(kTileF, F - f0);
-  for (int i = threadIdx.x; i < W * kTileF; i += blockDim.x) {
-    const int r = i / kTileF, j = i % kTileF;
-    if (j < fw) out[(row0 + r) * F + f0 + j] = acc[r * kTileF + tile_slot(j)];
-  }
 }
 
 // Float max in shared memory: integer order matches float order for
@@ -141,7 +68,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// ---- row-grouped chunks (B1-B5, B8-B10) ----------------------------------
+// ---- row-grouped chunks (B1-B5, B7-B11) ----------------------------------
 
 constexpr int kRowThreads = 256;         // 8 warps per CUDA block
 constexpr int kRowWarps = kRowThreads / 32;
@@ -159,6 +86,12 @@ template <> struct Vec<__nv_bfloat16, 8> { using Raw = uint4; };
 template <> struct Vec<__nv_bfloat16, 4> { using Raw = uint2; };
 template <> struct Vec<__nv_bfloat16, 2> { using Raw = unsigned; };
 template <> struct Vec<__nv_bfloat16, 1> { using Raw = unsigned short; };
+// int8 rows (B11): at most kAcc elements a load, so 8 bytes.  Packed in
+// 32- or 16-bit words (a char4 or char2 load would take a register a byte).
+template <> struct Vec<int8_t, 8> { using Raw = int2; };
+template <> struct Vec<int8_t, 4> { using Raw = int; };
+template <> struct Vec<int8_t, 2> { using Raw = short; };
+template <> struct Vec<int8_t, 1> { using Raw = signed char; };
 
 // Rows a warp loads before it uses them: 32 registers of loads a thread
 // (kAcc / kVec vectors of a row each), at most 8.
@@ -199,6 +132,22 @@ __device__ __forceinline__ void unpack(unsigned v, float* f) {
 __device__ __forceinline__ void unpack(unsigned short v, float* f) {
   f[0] = bf16_lo(v);
 }
+// int8 -> f32 is exact; byte k of a word is element k (little-endian)
+__device__ __forceinline__ void unpack_i8x4(int w, float* f) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = static_cast<int8_t>(static_cast<unsigned>(w) >> (8 * k));
+}
+__device__ __forceinline__ void unpack(int2 v, float* f) {
+  unpack_i8x4(v.x, f);
+  unpack_i8x4(v.y, f + 4);
+}
+__device__ __forceinline__ void unpack(int v, float* f) { unpack_i8x4(v, f); }
+__device__ __forceinline__ void unpack(short v, float* f) {
+  f[0] = static_cast<int8_t>(v);
+  f[1] = static_cast<int8_t>(static_cast<unsigned short>(v) >> 8);
+}
+__device__ __forceinline__ void unpack(signed char v, float* f) { f[0] = v; }
 
 // Stores (add == false) or atomically adds kVec f32 values at o, as float4,
 // float2 or float accesses (o is aligned to min(kVec, 4) floats).
@@ -271,13 +220,18 @@ __device__ inline void scan_rows(int2* scan, int W) {
   __syncthreads();
 }
 
+__host__ __device__ inline size_t align16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
 // Shared memory of a row-grouped kernel that stages `stage` lanes a pass:
 // the pieces, the scan, the row cursors, the staged rows, and `arrays`
 // more int or float arrays of one entry a lane.
 __host__ __device__ inline int max_pieces(int stage, int W) {
   return stage / kPiece + W + 1;
 }
-inline size_t stage_smem_bytes(int stage, int W, int arrays) {
+__host__ __device__ inline size_t stage_smem_bytes(int stage, int W,
+                                                    int arrays) {
   return static_cast<size_t>(max_pieces(stage, W)) * sizeof(Piece) +
          static_cast<size_t>(W + 1) * sizeof(int2) +
          static_cast<size_t>(W) * sizeof(int) +
@@ -301,28 +255,18 @@ struct Stage {
   }
 };
 
-// Stages lanes [e0, e0 + n) of a chunk: reads local_row once, counts the
-// live lanes of each row, scans, cuts each row's run into pieces (own as
-// Piece says, only when `whole`: the pass is the whole chunk), and calls
-// place(i, pos) for each live lane i with its position pos in the sorted
-// order, pad(i) for each pad lane (by the thread that read row_s[i]).  The
-// order of a row's lanes follows the shared atomics on its cursor, so it
-// can change from run to run.  Called by the whole block; returns the
-// number of pieces, after a barrier.
+// The second half of stage_pass, after row_s[0..n) holds the pass's local
+// rows and scan[r].x each row's live-lane count (with a barrier since):
+// scans, cuts each row's run into pieces (own as Piece says, only when
+// `whole`: the pass is the whole chunk), and calls place(i, pos) for each
+// live lane i with its position pos in the sorted order, pad(i) for each
+// pad lane.  The order of a row's lanes follows the shared atomics on its
+// cursor, so it can change from run to run.  Called by the whole block;
+// returns the number of pieces, after a barrier.
 template <typename Place, typename Pad>
-__device__ __forceinline__ int stage_pass(const int32_t* __restrict__ local_row,
-                                          int64_t e0, int n, int W, bool whole,
+__device__ __forceinline__ int stage_sort(int n, int W, bool whole,
                                           const Stage& st, Place place,
                                           Pad pad) {
-  for (int r = threadIdx.x; r <= W; r += kRowThreads)
-    st.scan[r] = make_int2(0, 0);
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kRowThreads) {
-    const int r = local_row[e0 + i];
-    st.row_s[i] = r;
-    if (r < W) atomicAdd(&st.scan[r].x, 1);
-  }
-  __syncthreads();
   scan_rows(st.scan, W);
   const int live = st.scan[W].x;
   for (int r = threadIdx.x; r < W; r += kRowThreads) {
@@ -343,6 +287,26 @@ __device__ __forceinline__ int stage_pass(const int32_t* __restrict__ local_row,
   return st.scan[W].y;
 }
 
+// Stages lanes [e0, e0 + n) of a chunk: reads local_row once into row_s,
+// counts the live lanes of each row, then stage_sort (place(i, pos) and
+// pad(i) as it says; pad(i) by the thread that read row_s[i]).
+template <typename Place, typename Pad>
+__device__ __forceinline__ int stage_pass(const int32_t* __restrict__ local_row,
+                                          int64_t e0, int n, int W, bool whole,
+                                          const Stage& st, Place place,
+                                          Pad pad) {
+  for (int r = threadIdx.x; r <= W; r += kRowThreads)
+    st.scan[r] = make_int2(0, 0);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kRowThreads) {
+    const int r = local_row[e0 + i];
+    st.row_s[i] = r;
+    if (r < W) atomicAdd(&st.scan[r].x, 1);
+  }
+  __syncthreads();
+  return stage_sort(n, W, whole, st, place, pad);
+}
+
 // Elements per load: the widest of 16, 8 and 4 bytes that divides the row
 // (F elements) and the address of x, else one element.
 inline int vec_elems(const void* x, int F, int elem_bytes) {
@@ -360,7 +324,7 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// ---- the row-grouped weighted sum (B1, B2, B8, B10) ----------------------
+// ---- the row-grouped weighted sum (B1, B2, B8, B10, B11) -----------------
 //
 // out[b*W + local_row] += w * x[edge_src] over the lanes of the chunks of
 // row block b, with f32 sums; one CUDA block per chunk (rows_kernel).  The
@@ -504,17 +468,17 @@ __device__ __forceinline__ LaneWeight lane_weight(const int* aux_s, Piece pc,
   return {lane < pc.len ? __int_as_float(aux_s[pc.start + lane]) : 0.f};
 }
 
-// A float32 weight a lane, weight[e] (B2; B8 with one head, kRound).  With
-// rounded terms three CUDA blocks an SM (80 registers): on an NVIDIA H100
-// 80GB HBM3 at 700 W (scripts/time_csrc_variants.py) B8 with one head took
-// 11.7 ms at F=256 bf16 and 7.3 at F=47 f32, against 14.6 and 14.3 with
-// four.  B1 and B2 keep four: at three, B1 read 11.1 against 10.7 ms at
-// F=256 bf16 and 5.7 against 5.1 at F=100 (B2 2.1 against 3.9 on the hot
-// half).
+// A float32 weight a lane, weight[e] (B2; B8 with one head, kRound).  Three
+// CUDA blocks an SM (80 registers): on an NVIDIA H100 80GB HBM3 at 700 W
+// (scripts/time_csrc_variants.py) B8 with one head took 11.7 ms at F=256
+// bf16 and 7.3 at F=47 f32, against 14.6 and 14.3 with four; B2 on the hot
+// half 2.13 ms at F=256 bf16 against 3.90 with four, and 1.79 against
+// 1.80 at F=100.  B1 keeps four: at three it read 11.1 against 10.7 ms at
+// F=256 bf16 and 5.7 against 5.1 at F=100.
 template <bool kRoundTerms>
 struct StagedWeight {
   static constexpr bool kAux = true, kRound = kRoundTerms;
-  static constexpr int kMinBlocks = kRoundTerms ? 3 : 4;
+  static constexpr int kMinBlocks = 3;
   const float* weight;
   __device__ int aux(int64_t e, int, int64_t) const {
     return __float_as_int(weight[e]);

@@ -10,23 +10,47 @@
 //       projection sum_d h[n, h, d] * a[h, d] (the mode GATConv uses);
 //   B7  _mz_mh_kernel + _att_mh_kernel (edge_softmax_blocked_multihead): the
 //       per-dst-row softmax of (H, T, C) f32 scores for H heads, 0 on pad
-//       lanes;
+//       lanes; a second entry computes the scores, the GAT logits
+//       leaky_relu(alpha_src[src, h] + alpha_dst[row, h]), from the (N, H)
+//       tables (the XLA fusion before the TPU kernel);
 //   B8  _spmm_mw_kernel (spmm_blocked_multiweighted_pallas): over (N, H*D)
 //       head-concatenated rows x and (H, T, C) f32 weights w,
 //           out[i, c] = sum_e bf16(x[src(e), c] * w[c / D, e])
 //       with f32 sums (each term rounded to the compute dtype);
 //   B9  _gat_flash_kernel (gat_attend_blocked_flash): B3's function in one
 //       traversal with a per-row running max.
-// B7 and B8, after logits gathered by torch ops, make gat_attend_blocked
-// (the composed route); B9 is gat_attend_blocked_flash.  B3, the composed
-// route and B9 compute one function with other rounding points.
+// B7's second entry and B8 make gat_attend_blocked (the composed route); B9
+// is gat_attend_blocked_flash.  B3, the composed route and B9 compute one
+// function with other rounding points.
 //
 // What the TPU kernels did and what changes here.
 // - B7: the TPU carries a (W, H) online (max, expsum) tile across a block's
-//   chunks.  Here one CUDA block owns a row block and keeps its W x H
-//   (m, z) in shared memory (8 KB at W=256, H=4), taken in two sweeps (max,
-//   then the exp-sum) as B6 takes them: the same function up to f32
-//   rounding.  Each sweep reads a lane's local_row once for all heads.
+//   chunks and sweeps them twice.  Here, on B1's row-grouped chunks, two
+//   kernels, one CUDA block per chunk each.  A pre-pass finds the chunk's
+//   lowest and highest live row, the only rows that can have lanes in
+//   another chunk, and takes their (max, sum) over this chunk by an online
+//   update per lane, reading only their scores.  The main kernel copies the
+//   chunk's local_row and H scores into shared memory with cp.async (the
+//   whole pass in flight at once, the scores in lane order) and
+//   counting-sorts the live lanes by row (stage_sort); a thread reduces a
+//   piece of at most 32 lanes of one row to its (max, sum) per head, in two
+//   sweeps over the staged scores, and one thread per row and head merges
+//   the row's pieces in order.  The lowest and highest row take the merge of
+//   their run's pre-pass partials, in chunk order from the run's first
+//   chunk, so that every chunk of a run sees the same (m, z).  Each weight
+//   exp(s - m) * (1 / z) is written in lane order, so the (H, T, C) stores
+//   are coalesced.  A chunk wider than one pass of shared memory keeps
+//   per-row stats across its passes and reads its scores a second time to
+//   write the weights (its first read skips the lowest and highest row), so
+//   every score is read from device memory at most twice.  No float atomic
+//   is left (the first design made one in shared memory per lane and head
+//   in each of two sweeps); the function is the plain version's up to the
+//   order of the sums in z and the reciprocal of z.  The second entry
+//   computes each lane's H logits in both kernels from the tables
+//   (GatLogitLanes: one float4 load from each at H=4, the row clamped to
+//   alpha_dst's last row, the add before the slope, as
+//   gat_edge_logits_blocked does: bit for bit its f32 logits), so the
+//   (H, T, C) logits never reach device memory.
 // - B8: the TPU gathers a (T, C, H*D) tensor and expands the (C, H) weights
 //   over each head's columns with a one-hot matmul.  Here B8 is B1's
 //   row-grouped weighted sum (blocked::rows_kernel, blocked_common.cuh;
@@ -113,8 +137,9 @@
 //
 // Bound on an H100 (3.35 TB/s) at ogbn-products size (W=256, T=19,222,
 // C=3,328, N=2,449,029, B*W=2,449,152), each input read once and the output
-// written once: B7 at H=4 moves the scores, local_row and the weights,
-// 2.30 GB (0.69 ms); B8 at H*D=256 in bf16 moves x, the lane metadata, the
+// written once: B7 at H=4 moves the scores, local_row, chunk_block and the
+// weights, 2.30 GB (0.69 ms), or on the logit tables the two (N, H) tables,
+// edge_src and local_row and the weights, 1.62 GB (0.48 ms); B8 at H*D=256 in bf16 moves x, the lane metadata, the
 // weights and the f32 output, 5.30 GB (1.58 ms); B3 and B9 at H=4, D=64
 // move h, the lane metadata, both alpha tables and the f32 output, 4.35 GB
 // in bf16 and 5.61 GB in f32 (1.30 and 1.67 ms).  The operations are far
@@ -142,14 +167,12 @@ using blocked::kRowWarps;
 using blocked::Piece;
 using blocked::put;
 using blocked::round_to;
-using blocked::softmax_weight;
 using blocked::SplitCount;
 using blocked::Stage;
 using blocked::stage_pass;
 using blocked::warp_max;
 using blocked::warp_sum;
 
-constexpr int kThreads = 512;            // B7: 16 warps per CUDA block
 constexpr int kMaxD = 128;               // B3, B9: columns per head
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -159,47 +182,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 
 __device__ __forceinline__ float leaky_relu(float s, float slope) {
   return s > 0.f ? s : slope * s;
-}
-
-// ---- B7: per-row softmax of H heads, one CUDA block per row block --------
-__global__ void __launch_bounds__(kThreads)
-edge_softmax_mh_kernel(const float* __restrict__ scores,
-                       const int32_t* __restrict__ local_row,
-                       const int32_t* __restrict__ block_start, int64_t TC,
-                       int C, int W, int H, float* __restrict__ att) {
-  extern __shared__ float stats[];
-  float* m = stats;                      // W x H row maxima
-  float* z = stats + W * H;              // W x H row sums
-  const int b = blockIdx.x;
-  for (int i = threadIdx.x; i < W * H; i += kThreads) {
-    m[i] = -CUDART_INF_F;
-    z[i] = 0.f;
-  }
-  __syncthreads();
-  const int64_t e_begin = static_cast<int64_t>(block_start[b]) * C;
-  const int64_t e_end = static_cast<int64_t>(block_start[b + 1]) * C;
-  // pad lanes (local_row == W) are skipped, whatever their scores hold
-  for (int64_t e = e_begin + threadIdx.x; e < e_end; e += kThreads) {
-    const int r = local_row[e];
-    if (r < W)
-      for (int h = 0; h < H; ++h)
-        atomic_max_float(m + r * H + h, scores[h * TC + e]);
-  }
-  __syncthreads();
-  for (int64_t e = e_begin + threadIdx.x; e < e_end; e += kThreads) {
-    const int r = local_row[e];
-    if (r < W)
-      for (int h = 0; h < H; ++h)
-        atomicAdd(z + r * H + h, expf(scores[h * TC + e] - m[r * H + h]));
-  }
-  __syncthreads();
-  for (int64_t e = e_begin + threadIdx.x; e < e_end; e += kThreads) {
-    const int r = local_row[e];
-    for (int h = 0; h < H; ++h)
-      att[h * TC + e] = r < W ? softmax_weight(scores[h * TC + e],
-                                               m[r * H + h], z[r * H + h])
-                              : 0.f;
-  }
 }
 
 // ---- B8: per-head weighted SpMM on row-grouped chunks -------------------
@@ -330,6 +312,479 @@ struct Logits {
     }
   }
 };
+
+// ---- B7: per-(row, head) softmax on row-grouped chunks -----------------
+
+// Softmax statistics (max, sum of exp(s - max)) of a set of lanes as a
+// float2.  mz_merge combines two sets (a max of -inf: no finite lane, sum
+// 0), symmetric in its arguments; mz_add adds one lane, rescaling the sum
+// when the max moves (a lane of -inf adds nothing).
+__device__ __forceinline__ float2 mz_merge(float2 a, float2 b) {
+  if (a.x == -CUDART_INF_F) return b;
+  if (b.x == -CUDART_INF_F) return a;
+  const float m = fmaxf(a.x, b.x);
+  return make_float2(m, a.y * expf(a.x - m) + b.y * expf(b.x - m));
+}
+__device__ __forceinline__ void mz_add(float2& mz, float s) {
+  if (s > mz.x) {
+    mz.y = mz.y * expf(mz.x - s) + 1.f;
+    mz.x = s;
+  } else if (s > -CUDART_INF_F) {
+    mz.y += expf(s - mz.x);
+  }
+}
+
+// Where B7 takes a lane's scores, heads h0 .. h0+kHeads at a time (-inf
+// past H): at(e, src, row, h0, s) for lane e of source src and destination
+// row `row` of the output.  kCopy: the main kernel copies the scores of a
+// pass into shared memory as they are (cp.async from `scores`); else it
+// copies edge_src and computes each live lane's scores with at().
+// ScoreLanes, entry (a): the (H, T, C) f32 scores.
+struct ScoreLanes {
+  static constexpr bool kCopy = true;
+  const float* scores;
+  int64_t TC;
+  int H;
+  __device__ void at(int64_t e, int, int64_t, int h0,
+                     float (&s)[kHeads]) const {
+#pragma unroll
+    for (int q = 0; q < kHeads; ++q)
+      s[q] = h0 + q < H ? __ldg(scores + (h0 + q) * TC + e) : -CUDART_INF_F;
+  }
+};
+
+// GatLogitLanes, entry (b): the GAT logits of gat_edge_logits_blocked,
+// leaky_relu(alpha_src[src, h] + alpha_dst[row, h], slope), the add first,
+// row clamped to alpha_dst's last row: bit for bit the plain version's f32
+// logits.  vec4: kHeads of a row are one float4 load (H % 4 == 0, both
+// tables 16-byte aligned).
+struct GatLogitLanes {
+  static constexpr bool kCopy = false;
+  const int32_t* edge_src;
+  const float* alpha_src;
+  const float* alpha_dst;
+  int64_t ad_last;
+  int H;
+  float slope;
+  int vec4;
+  __device__ void at(int64_t, int src, int64_t row, int h0,
+                     float (&s)[kHeads]) const {
+    const float* a = alpha_src + static_cast<int64_t>(src) * H + h0;
+    const float* d = alpha_dst + (row < ad_last ? row : ad_last) * H + h0;
+    float av[kHeads], dv[kHeads];
+    if (vec4) {
+      const float4 a4 = __ldg(reinterpret_cast<const float4*>(a));
+      const float4 d4 = __ldg(reinterpret_cast<const float4*>(d));
+      av[0] = a4.x; av[1] = a4.y; av[2] = a4.z; av[3] = a4.w;
+      dv[0] = d4.x; dv[1] = d4.y; dv[2] = d4.z; dv[3] = d4.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < kHeads; ++q) {
+        const bool ok = h0 + q < H;
+        av[q] = ok ? __ldg(a + q) : 0.f;
+        dv[q] = ok ? __ldg(d + q) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kHeads; ++q)
+      s[q] = h0 + q < H ? leaky_relu(av[q] + dv[q], slope) : -CUDART_INF_F;
+  }
+};
+
+// A lane's source for at(): none for ScoreLanes.
+__device__ __forceinline__ int lane_src(const ScoreLanes&, int64_t) {
+  return 0;
+}
+__device__ __forceinline__ int lane_src(const GatLogitLanes& l, int64_t e) {
+  return __ldg(l.edge_src + e);
+}
+
+// Asynchronous 4-byte copies from device to shared memory (cp.async): each
+// thread issues its copies and goes on; cp_async_wait waits for its own,
+// and a barrier after it publishes every thread's.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+constexpr int kSoftmaxBatch = 4;         // logits in: lanes a thread takes at once
+
+// B7 step 1, one CUDA block per chunk: its lowest and highest live row,
+// the only rows that can have lanes in another chunk, into chunk_rows[t]
+// ((W, -1) for a chunk of pads), and each one's statistics over this
+// chunk's lanes, per head, into chunk_mz (T, 2, H): an online update per
+// lane, reading only those rows' scores.  The chunk's first `cap` local
+// rows are copied into shared memory (cp.async) and read from there.
+template <typename Lanes>
+__global__ void __launch_bounds__(kRowThreads)
+softmax_prepass_kernel(Lanes lanes, const int32_t* __restrict__ local_row,
+                       const int32_t* __restrict__ chunk_block, int C, int W,
+                       int H, int cap, int2* __restrict__ chunk_rows,
+                       float2* __restrict__ chunk_mz) {
+  extern __shared__ int lr_s[];          // cap local rows
+  __shared__ int lo, hi;
+  __shared__ float2 red[kRowWarps][2][kHeads];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = blockIdx.x;
+  const int64_t chunk0 = static_cast<int64_t>(t) * C;
+  const int64_t row0 = static_cast<int64_t>(chunk_block[t]) * W;
+  for (int i = threadIdx.x; i < cap; i += kRowThreads)
+    cp_async4(lr_s + i, local_row + chunk0 + i);
+  if (threadIdx.x == 0) {
+    lo = W;
+    hi = -1;
+  }
+  cp_async_wait();
+  __syncthreads();
+  auto row_of = [&](int i) {
+    return i < cap ? lr_s[i] : local_row[chunk0 + i];
+  };
+  int my_lo = W, my_hi = -1;
+  for (int i = threadIdx.x; i < C; i += kRowThreads) {
+    const int r = row_of(i);
+    if (r < W) {
+      my_lo = min(my_lo, r);
+      my_hi = max(my_hi, r);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    my_lo = min(my_lo, __shfl_xor_sync(kFull, my_lo, o));
+    my_hi = max(my_hi, __shfl_xor_sync(kFull, my_hi, o));
+  }
+  if (lane == 0) {
+    atomicMin(&lo, my_lo);
+    atomicMax(&hi, my_hi);
+  }
+  __syncthreads();
+  const int r_lo = lo, r_hi = hi;
+  if (threadIdx.x == 0) chunk_rows[t] = make_int2(r_lo, r_hi);
+  for (int h0 = 0; h0 < H; h0 += kHeads) {
+    float2 mz[2][kHeads];
+#pragma unroll
+    for (int q = 0; q < kHeads; ++q)
+      mz[0][q] = mz[1][q] = make_float2(-CUDART_INF_F, 0.f);
+    for (int i = threadIdx.x; r_hi >= 0 && i < C; i += kRowThreads) {
+      const int r = row_of(i);
+      if (r != r_lo && r != r_hi) continue;
+      const int64_t e = chunk0 + i;
+      float s[kHeads];
+      lanes.at(e, lane_src(lanes, e), row0 + r, h0, s);
+#pragma unroll
+      for (int q = 0; q < kHeads; ++q) {
+        if (r == r_lo) mz_add(mz[0][q], s[q]);
+        if (r == r_hi) mz_add(mz[1][q], s[q]);
+      }
+    }
+    // the warp's statistics: its max, each thread's sum rescaled to it,
+    // their sum (one exp a thread and value)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int q = 0; q < kHeads; ++q) {
+        const float m = warp_max(mz[k][q].x);
+        const float z = warp_sum(mz[k][q].x == -CUDART_INF_F
+                                     ? 0.f
+                                     : mz[k][q].y * expf(mz[k][q].x - m));
+        if (lane == 0) red[warp][k][q] = make_float2(m, z);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 2 * kHeads) {
+      const int k = threadIdx.x / kHeads, q = threadIdx.x % kHeads;
+      if (h0 + q < H) {
+        float2 v = red[0][k][q];
+#pragma unroll
+        for (int w = 1; w < kRowWarps; ++w) v = mz_merge(v, red[w][k][q]);
+        chunk_mz[(static_cast<int64_t>(t) * 2 + k) * H + h0 + q] = v;
+      }
+    }
+    __syncthreads();                     // red is reused by the next heads
+  }
+}
+
+// The final statistics of head h of row r, chunk t's lowest or highest row:
+// the merge of the partials of the row's chunks (chunk_mz: slot 1 of a
+// chunk where r is the highest row, else slot 0) in chunk order from the
+// first chunk of the row's run in its block ([tb0, tb1)), so that every
+// chunk of the run computes the same values.
+__device__ float2 split_row_stats(int r, int t, int tb0, int tb1,
+                                  const int2* __restrict__ chunk_rows,
+                                  const float2* __restrict__ chunk_mz, int H,
+                                  int h) {
+  int u0 = t;
+  for (int u = t - 1; u >= tb0; --u) {
+    const int2 ru = chunk_rows[u];
+    if (ru.y < 0) continue;              // a chunk of pads
+    if (ru.y != r) break;
+    u0 = u;
+    if (ru.x != r) break;
+  }
+  float2 mz = make_float2(-CUDART_INF_F, 0.f);
+  for (int u = u0; u < tb1; ++u) {
+    const int2 ru = chunk_rows[u];
+    if (ru.y < 0) continue;
+    if (u > u0 && ru.x != r) break;
+    mz = mz_merge(mz, chunk_mz[(static_cast<int64_t>(u) * 2 + (ru.y == r)) * H
+                               + h]);
+    if (ru.y != r) break;
+  }
+  return mz;
+}
+
+
+// B7 step 2, one CUDA block per chunk.  Each pass of `stage` lanes: the
+// lanes' local rows and H scores are copied into shared memory with
+// cp.async (a chunk's whole pass in flight at once), the scores in lane
+// order (logits in: edge_src is copied, then each live lane's logits
+// computed, kSoftmaxBatch lanes a thread at once), and the live lanes
+// counting-sorted by row (stage_sort; perm maps a sorted position to its
+// lane).  A thread takes a piece of at most 32 lanes of one row and
+// reduces its (max, sum) per head in registers, in two sweeps over the
+// piece's staged scores (the max, then the sum of exp(s - max)); one
+// thread per row and head merges the row's pieces in piece order into its
+// statistics row_mz (W x H).  The chunk's lowest and highest row take the
+// statistics of their whole run (split_row_stats over the pre-pass's
+// partials) instead.  Once final, row_mz holds each row's max and 1 / z
+// (0 where the max is not finite or z not positive).  Then each lane's
+// weight exp(s - m) / z is written in lane order, from the staged scores
+// (one pass) or from a second read of the chunk (a chunk of several
+// passes, whose first read skips the lowest and highest row).  mz_off: the
+// byte offset of the float2 arrays in shared memory, after the scores.
+// kMinBlocks: two CUDA blocks an SM at H > 1 (106 KB of shared memory at
+// H=4), three at one head.
+template <typename Lanes, int kMinBlocks>
+__global__ void __launch_bounds__(kRowThreads, kMinBlocks)
+softmax_rows_kernel(Lanes lanes, const int32_t* __restrict__ local_row,
+                    const int32_t* __restrict__ chunk_block,
+                    const int32_t* __restrict__ block_start,
+                    const int2* __restrict__ chunk_rows,
+                    const float2* __restrict__ chunk_mz, int C, int W, int H,
+                    int stage, int mz_off, int64_t TC,
+                    float* __restrict__ att) {
+  extern __shared__ int4 smem[];
+  const Stage st(smem, stage, W);
+  int* perm = st.lanes;                  // sorted position -> lane
+  char* base = reinterpret_cast<char*>(smem);
+  float* s_s = reinterpret_cast<float*>(
+      base + blocked::align16(blocked::stage_smem_bytes(stage, W, 1)));
+  float2* piece_mz = reinterpret_cast<float2*>(base + mz_off);  // pieces x H
+  float2* row_mz = piece_mz + blocked::max_pieces(stage, W) * H;  // W x H
+  float2* bnd = row_mz + W * H;          // 2 x H: lowest, highest row
+  const int t = blockIdx.x;
+  const int64_t chunk0 = static_cast<int64_t>(t) * C;
+  const int b = chunk_block[t];
+  const int64_t row0 = static_cast<int64_t>(b) * W;
+  const int2 rows = chunk_rows[t];
+  const bool one_pass = stage >= C;
+  for (int i = threadIdx.x; i < W * H; i += kRowThreads)
+    row_mz[i] = make_float2(-CUDART_INF_F, 0.f);
+  if (rows.y >= 0)
+    for (int j = threadIdx.x; j < 2 * H; j += kRowThreads)
+      bnd[j] = split_row_stats(j < H ? rows.x : rows.y, t, block_start[b],
+                               block_start[b + 1], chunk_rows, chunk_mz, H,
+                               j % H);
+  // several passes: the lowest and highest row are not read in the first
+  // sweep (their statistics are bnd's)
+  auto staged = [&](int r) {
+    return r < W && (one_pass || (r != rows.x && r != rows.y));
+  };
+  // exp(s - m) / z from row_mz's final (m, 1 / z)
+  auto weight = [&](float s, int r, int h) {
+    const float2 mi = row_mz[r * H + h];
+    return mi.y > 0.f ? expf(s - mi.x) * mi.y : 0.f;
+  };
+
+  for (int s0 = 0; s0 < C; s0 += stage) {
+    const int n = min(stage, C - s0);
+    const int64_t e0 = chunk0 + s0;
+    for (int r = threadIdx.x; r <= W; r += kRowThreads)
+      st.scan[r] = make_int2(0, 0);
+    for (int i = threadIdx.x; i < n; i += kRowThreads)
+      cp_async4(st.row_s + i, local_row + e0 + i);
+    if constexpr (Lanes::kCopy) {
+      if (one_pass) {                    // every lane's scores, pads too
+        for (int h = 0; h < H; ++h)
+          for (int i = threadIdx.x; i < n; i += kRowThreads)
+            cp_async4(s_s + h * stage + i, lanes.scores + h * TC + e0 + i);
+      }
+    } else {                             // perm holds edge_src until sorted
+      for (int i = threadIdx.x; i < n; i += kRowThreads)
+        cp_async4(perm + i, lanes.edge_src + e0 + i);
+    }
+    cp_async_wait();
+    __syncthreads();                     // also publishes row_mz and bnd
+    if constexpr (Lanes::kCopy) {
+      if (!one_pass) {
+        for (int h = 0; h < H; ++h)
+          for (int i = threadIdx.x; i < n; i += kRowThreads)
+            if (staged(st.row_s[i]))
+              cp_async4(s_s + h * stage + i, lanes.scores + h * TC + e0 + i);
+        cp_async_wait();
+      }
+    } else {
+      for (int i0 = threadIdx.x; i0 < n; i0 += kRowThreads * kSoftmaxBatch) {
+        int r[kSoftmaxBatch], src[kSoftmaxBatch];
+#pragma unroll
+        for (int u = 0; u < kSoftmaxBatch; ++u) {
+          const int i = i0 + u * kRowThreads;
+          r[u] = i < n ? st.row_s[i] : W;
+          src[u] = i < n ? perm[i] : 0;
+        }
+        for (int h0 = 0; h0 < H; h0 += kHeads) {
+          float s[kSoftmaxBatch][kHeads];
+#pragma unroll
+          for (int u = 0; u < kSoftmaxBatch; ++u)
+            if (staged(r[u]))
+              lanes.at(0, src[u], row0 + r[u], h0, s[u]);
+#pragma unroll
+          for (int u = 0; u < kSoftmaxBatch; ++u) {
+            if (!staged(r[u])) continue;
+#pragma unroll
+            for (int q = 0; q < kHeads; ++q)
+              if (h0 + q < H)
+                s_s[(h0 + q) * stage + i0 + u * kRowThreads] = s[u][q];
+          }
+        }
+      }
+    }
+    for (int i = threadIdx.x; i < n; i += kRowThreads) {
+      const int r = st.row_s[i];
+      if (r < W) atomicAdd(&st.scan[r].x, 1);
+    }
+    __syncthreads();
+    const int num_pieces = blocked::stage_sort(
+        n, W, false, st, [&](int i, int pos) { perm[pos] = i; },
+        [](int) {});
+    for (int p = threadIdx.x; p < num_pieces; p += kRowThreads) {
+      const Piece pc = st.piece[p];
+      if (!staged(pc.row)) continue;
+      const int* pos = perm + pc.start;
+      for (int h0 = 0; h0 < H; h0 += kHeads) {
+        float m[kHeads], z[kHeads];
+#pragma unroll
+        for (int q = 0; q < kHeads; ++q) {
+          m[q] = -CUDART_INF_F;
+          z[q] = 0.f;
+        }
+        for (int j = 0; j < pc.len; ++j) {
+          const float* sj = s_s + pos[j];
+#pragma unroll
+          for (int q = 0; q < kHeads; ++q)
+            if (h0 + q < H) m[q] = fmaxf(m[q], sj[(h0 + q) * stage]);
+        }
+        for (int j = 0; j < pc.len; ++j) {
+          const float* sj = s_s + pos[j];
+#pragma unroll
+          for (int q = 0; q < kHeads; ++q)
+            if (h0 + q < H && m[q] > -CUDART_INF_F)
+              z[q] += expf(sj[(h0 + q) * stage] - m[q]);
+        }
+#pragma unroll
+        for (int q = 0; q < kHeads; ++q)
+          if (h0 + q < H) piece_mz[p * H + h0 + q] = make_float2(m[q], z[q]);
+      }
+    }
+    __syncthreads();
+    // each row's pieces of the pass merged in order; after the last pass
+    // the lowest and highest row take their run's statistics, and every
+    // row's become (m, 1 / z)
+    const bool last = s0 + stage >= C;
+    for (int j = threadIdx.x; j < W * H; j += kRowThreads) {
+      const int r = j / H, h = j - r * H;
+      float2 mz = row_mz[j];
+      if (staged(r)) {
+        const int q1 = st.scan[r + 1].y;
+        for (int q = st.scan[r].y; q < q1; ++q)
+          mz = mz_merge(mz, piece_mz[q * H + h]);
+      }
+      if (last) {
+        if (rows.y >= 0 && (r == rows.x || r == rows.y))
+          mz = bnd[(r == rows.x ? 0 : H) + h];
+        const bool ok = isfinite(mz.x) && mz.y > 0.f;
+        mz = make_float2(ok ? mz.x : 0.f, ok ? 1.f / fmaxf(mz.y, 1e-38f) : 0.f);
+      }
+      row_mz[j] = mz;
+    }
+    if (one_pass) {
+      __syncthreads();
+#pragma unroll 4
+      for (int i = threadIdx.x; i < n; i += kRowThreads) {
+        const int r = st.row_s[i];
+        for (int h = 0; h < H; ++h)
+          att[h * TC + e0 + i] = r < W ? weight(s_s[h * stage + i], r, h)
+                                       : 0.f;
+      }
+    }
+    __syncthreads();                     // the next pass reuses the stage
+  }
+  if (one_pass) return;
+  for (int i = threadIdx.x; i < C; i += kRowThreads) {
+    const int64_t e = chunk0 + i;
+    const int r = local_row[e];
+    const int src = r < W ? lane_src(lanes, e) : 0;
+    for (int h0 = 0; h0 < H; h0 += kHeads) {
+      float s[kHeads];
+      if (r < W) lanes.at(e, src, row0 + r, h0, s);
+#pragma unroll
+      for (int q = 0; q < kHeads; ++q)
+        if (h0 + q < H)
+          att[(h0 + q) * TC + e] = r < W ? weight(s[q], r, h0 + q) : 0.f;
+    }
+  }
+}
+
+// Shared memory of softmax_rows_kernel staging `stage` lanes a pass (the
+// stage, H x stage scores, then the float2 arrays), and (mz_off) the
+// offset of the float2 arrays.
+inline size_t softmax_smem(int stage, int W, int H, size_t* mz_off) {
+  *mz_off = blocked::align16(blocked::stage_smem_bytes(stage, W, 1)) +
+            blocked::align16(static_cast<size_t>(H) * stage * sizeof(float));
+  return *mz_off +
+         (static_cast<size_t>(blocked::max_pieces(stage, W)) * H +
+          static_cast<size_t>(W) * H + 2 * H) * sizeof(float2);
+}
+
+// Both kernels of B7: the pre-pass, then the main kernel with the widest
+// pass (a multiple of kPiece lanes, at most kMaxStage) whose shared memory
+// fits a CUDA block.
+template <typename Lanes>
+cudaError_t launch_softmax(const Lanes& lanes, const int32_t* local_row,
+                           const int32_t* chunk_block,
+                           const int32_t* block_start, int num_chunks, int C,
+                           int W, int H, int2* chunk_rows, float2* chunk_mz,
+                           float* att, cudaStream_t s) {
+  constexpr size_t kMaxSmem = 232448;    // a CUDA block's most on sm_90
+  int stage = std::min(C, kMaxStage);
+  size_t mz_off;
+  size_t smem = softmax_smem(stage, W, H, &mz_off);
+  while (smem > kMaxSmem && stage > blocked::kPiece) {
+    stage = std::max(blocked::kPiece, stage / 2 / blocked::kPiece *
+                                          blocked::kPiece);
+    smem = softmax_smem(stage, W, H, &mz_off);
+  }
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const int cap = std::min(C, kMaxStage);  // the pre-pass's staged rows
+  softmax_prepass_kernel<Lanes>
+      <<<num_chunks, kRowThreads, cap * sizeof(int), s>>>(
+          lanes, local_row, chunk_block, C, W, H, cap, chunk_rows, chunk_mz);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kernel = H == 1 ? softmax_rows_kernel<Lanes, 3>
+                       : softmax_rows_kernel<Lanes, 2>;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<num_chunks, kRowThreads, smem, s>>>(
+      lanes, local_row, chunk_block, block_start, chunk_rows, chunk_mz, C, W,
+      H, stage, static_cast<int>(mz_off),
+      static_cast<int64_t>(num_chunks) * C, att);
+  return cudaGetLastError();
+}
 
 // Step 1, one CUDA block per chunk, no row read: the chunk's split pieces
 // (count_split_pieces) into split[t]; B3 (!kFlash): the chunk's max logit
@@ -793,21 +1248,47 @@ extern "C" {
 // (num_blocks + 1,) int32.  Each function launches on `stream`, returns the
 // cudaError_t of its launch (0 on success) and does not synchronise.
 
-// B7: scores and att (H, num_chunks, C) f32; att is 0 on pad lanes.
+// B7's two entries share: chunk_block (num_chunks,) int32; chunk_rows
+// (num_chunks, 2) int32 and chunk_mz (num_chunks, 2, H, 2) f32 scratch;
+// att (H, num_chunks, C) f32, the per-(row, head) softmax, 0 on pad lanes.
+// Entry (a): scores (H, num_chunks, C) f32.
 int tgt_edge_softmax_multihead(const float* scores, const int32_t* local_row,
-                               const int32_t* block_start, int num_blocks,
-                               int num_chunks, int C, int W, int H,
-                               float* att, void* stream) {
-  if (num_blocks <= 0 || num_chunks <= 0 || C <= 0 || W <= 0 || H <= 0)
+                               const int32_t* chunk_block,
+                               const int32_t* block_start, int num_chunks,
+                               int C, int W, int H, int32_t* chunk_rows,
+                               float* chunk_mz, float* att, void* stream) {
+  if (num_chunks <= 0 || C <= 0 || W <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * static_cast<size_t>(W) * H * sizeof(float);
-  cudaError_t err = allow_smem(edge_softmax_mh_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  edge_softmax_mh_kernel<<<num_blocks, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      scores, local_row, block_start,
-      static_cast<int64_t>(num_chunks) * C, C, W, H, att);
-  return static_cast<int>(cudaGetLastError());
+  const ScoreLanes lanes{scores, static_cast<int64_t>(num_chunks) * C, H};
+  return static_cast<int>(launch_softmax(
+      lanes, local_row, chunk_block, block_start, num_chunks, C, W, H,
+      reinterpret_cast<int2*>(chunk_rows),
+      reinterpret_cast<float2*>(chunk_mz), att,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Entry (b): the scores are the GAT logits leaky_relu(alpha_src[src, h] +
+// alpha_dst[min(row, ad_rows - 1), h], negative_slope) of alpha_src (N, H)
+// and alpha_dst (ad_rows, H) f32, computed in the kernels.
+int tgt_gat_edge_softmax(const float* alpha_src, const float* alpha_dst,
+                         int ad_rows, float negative_slope,
+                         const int32_t* edge_src, const int32_t* local_row,
+                         const int32_t* chunk_block,
+                         const int32_t* block_start, int num_chunks, int C,
+                         int W, int H, int32_t* chunk_rows, float* chunk_mz,
+                         float* att, void* stream) {
+  if (num_chunks <= 0 || C <= 0 || W <= 0 || H <= 0 || ad_rows <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec4 = H % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(alpha_src) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(alpha_dst) % 16 == 0;
+  const GatLogitLanes lanes{edge_src, alpha_src, alpha_dst, ad_rows - 1, H,
+                            negative_slope, vec4 ? 1 : 0};
+  return static_cast<int>(launch_softmax(
+      lanes, local_row, chunk_block, block_start, num_chunks, C, W, H,
+      reinterpret_cast<int2*>(chunk_rows),
+      reinterpret_cast<float2*>(chunk_mz), att,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // B8: x (N, F) row-major, f32 (x_is_bf16 == 0) or bf16, F = H*D; weight

@@ -32,9 +32,9 @@
 // rate.  The adds (lanes x F) are far below the f32 rate: bytes bound them,
 // and the rows must be fetched as whole rows, many in flight.
 //
-// The design of B1 and B2, one CUDA block per chunk (blocked::rows_kernel
-// in blocked_common.cuh, which B8 and B10 share, with the Unweighted and
-// StagedWeight<false> policies):
+// The design of B1, B2 and B11, one CUDA block per chunk
+// (blocked::rows_kernel in blocked_common.cuh, which B8 and B10 share,
+// with the Unweighted, StagedWeight<false> and RowScale policies):
 //  * A chunk's lanes come from one contiguous CSR range of its row block
 //    (the builders sort them by source afterwards), so a chunk covers a
 //    contiguous range of destination rows, and only its first and last row
@@ -55,10 +55,10 @@
 //    that piece and stored; every other row is added with vector atomics
 //    (float4/float2, sm_90) onto a row that a small first kernel
 //    (blocked::zero_split_rows_kernel) has set to zero, together with the
-//    rows that no lane reaches.  With C > kMaxStage a row's lanes can fall in several
-//    passes, so the output is zeroed whole (cudaMemsetAsync) and every piece
-//    adds.  There is no shared-memory float atomic: the old tile kernel made
-//    two per lane and column.
+//    rows that no lane reaches.  With C > kMaxStage a row's lanes can fall
+//    in several passes, so the output is zeroed whole (cudaMemsetAsync) and
+//    every piece adds.  There is no shared-memory float atomic: the tile
+//    kernels these replace made two per lane and column.
 //  * Every row's summation order can change from run to run: the scatter
 //    into row runs takes positions by shared-memory atomics on the row
 //    cursors, so the order of a row's lanes within its run follows the
@@ -69,16 +69,18 @@
 //    are one contiguous CSR range of its row block (BlockedCsr), so only a
 //    chunk's first and last row can be shared with another chunk.
 //
-// B11 still runs the first design (spmm_blocked_kernel, the tile kernel
-// B1 and B2 ran before): one CUDA block per (row block, 64-column tile) walks the
-// block's chunks; each lane reads its 64 int8 columns with one 2-byte load
-// per thread and adds them into a W x 64 f32 tile in shared memory with
-// atomics.  Its x is N*F bytes of int8 plus N*4 of scales (3.66 GB at
-// ogbn-products size and F=256, 1.09 ms), half of B1's row bytes.  It keeps
-// that design because kernels are redesigned at most two at a time, so
-// that each move is measured alone; its time on the same layout also shows
-// the old design beside the new one.  Nothing needs W % 128 (the TPU's
-// tests run B11 at W=64, C=256).
+// B11 is the same kernel with the RowScale policy: each lane's weight
+// bf16(row_scale[src]) is gathered and rounded when the chunk is staged,
+// and each int8 row is read whole with 8-, 4-, 2- or 1-byte loads (one
+// 8-byte load a thread at F=256: the warp covers the row's 256 bytes;
+// F=100 takes 4-byte loads, since src*100 is 4-aligned; an odd F single
+// bytes), the width chosen once per launch from F and the alignment of q,
+// and unpacked to f32 in registers.  The product q * bf16(scale) is a plain
+// f32 multiply: exact, so its contraction into the add changes nothing.
+// Its bound is N*F bytes of int8 plus N*4 of scales, the lane metadata and
+// the f32 output (3.66 GB at ogbn-products size and F=256, 1.09 ms): half
+// of B1's row bytes at bf16.  Nothing needs W % 128 (the TPU's tests run
+// B11 at W=64, C=256).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,68 +89,39 @@
 
 namespace {
 
-using blocked::kTileF;
-
-// ---- B11: the tile kernel -------------------------------------------------
-
-constexpr int kThreads = 512;            // 16 warps per CUDA block
-constexpr int kWarps = kThreads / 32;
-constexpr int kMinBlocks = 3;            // 3 x 64 KB tiles per SM at W=256
-constexpr int kUnroll = 8;               // edges loaded before their adds
-
-// Each lane is weighted by its source row's scale rounded to bf16.
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-spmm_blocked_kernel(const int8_t* __restrict__ x,
-                    const int32_t* __restrict__ edge_src,
-                    const int32_t* __restrict__ local_row,
-                    const float* __restrict__ row_scale,
-                    const int32_t* __restrict__ block_start,
-                    int C, int W, int F, int num_tiles,
-                    float* __restrict__ out) {
-  extern __shared__ float acc[];         // W x kTileF f32 tile
-  const int b = blockIdx.x / num_tiles;  // tiles of a block are adjacent
-  const int f0 = (blockIdx.x % num_tiles) * kTileF;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  for (int i = threadIdx.x; i < W * kTileF; i += kThreads) acc[i] = 0.f;
-  __syncthreads();
-
-  const int64_t e_begin = static_cast<int64_t>(block_start[b]) * C;
-  const int64_t e_end = static_cast<int64_t>(block_start[b + 1]) * C;
-  for (int64_t base = e_begin + static_cast<int64_t>(warp) * 32;
-       base < e_end; base += static_cast<int64_t>(kWarps) * 32) {
-    // each lane of the warp loads one edge's metadata
-    const int64_t e = base + lane;
-    int my_row = W, my_src = 0;
-    float my_w = 0.f;
-    if (e < e_end) {
-      my_row = local_row[e];
-      my_src = edge_src[e];
-      if (my_row < W)
-        my_w = blocked::round_to<__nv_bfloat16>(row_scale[my_src]);
-    }
-    blocked::warp_accumulate<kUnroll>(x, F, f0 + 2 * lane, my_row, my_src,
-                                      my_w, W, lane, acc);
+// B11's lanes: weight bf16(row_scale[edge_src]), the scale rounded as the
+// TPU kernel's bf16 one-hot rounds it, gathered when the chunk is staged.
+// Terms w * q are exact in f32 and are not rounded.
+struct RowScale {
+  static constexpr bool kAux = true, kRound = false;
+  static constexpr int kMinBlocks = 4;
+  const float* row_scale;
+  const int32_t* edge_src;
+  __device__ int aux(int64_t e, int, int64_t) const {
+    return __float_as_int(blocked::round_to<__nv_bfloat16>(
+        __ldg(row_scale + __ldg(edge_src + e))));
   }
-  __syncthreads();
-  blocked::store_tile(acc, out, static_cast<int64_t>(b) * W, W, F, f0);
-}
+  template <int kDepth, int kNV>
+  __device__ blocked::LaneWeight weights(const int* aux_s, blocked::Piece pc,
+                                         int lane, int64_t) const {
+    return blocked::lane_weight(aux_s, pc, lane);
+  }
+};
 
-cudaError_t launch_q8(const int8_t* q, const int32_t* edge_src,
-                      const int32_t* local_row, const float* row_scale,
-                      const int32_t* block_start, int num_blocks, int C,
-                      int W, int F, float* out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(W) * kTileF * sizeof(float);
-  cudaError_t err = blocked::allow_smem(spmm_blocked_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int num_tiles = (F + kTileF - 1) / kTileF;
-  const int64_t grid = static_cast<int64_t>(num_blocks) * num_tiles;
-  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  spmm_blocked_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
-                        stream>>>(q, edge_src, local_row, row_scale,
-                                  block_start, C, W, F, num_tiles, out);
-  return cudaGetLastError();
+// B11 with the widest load of 8, 4, 2 or 1 bytes that divides F and the
+// address of q.
+cudaError_t launch_q8(const int8_t* q, const float* row_scale,
+                      const blocked::RowsArgs& a, cudaStream_t s) {
+  const RowScale lanes{row_scale, a.edge_src};
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q);
+  int v = 8;
+  while (v > 1 && (a.F % v || addr % v)) v /= 2;
+  switch (v) {
+    case 8: return blocked::launch_rows<int8_t, 8>(q, a, lanes, s);
+    case 4: return blocked::launch_rows<int8_t, 4>(q, a, lanes, s);
+    case 2: return blocked::launch_rows<int8_t, 2>(q, a, lanes, s);
+    default: return blocked::launch_rows<int8_t, 1>(q, a, lanes, s);
+  }
 }
 
 }  // namespace
@@ -182,16 +155,22 @@ int tgt_spmm_blocked(const void* x, int x_is_bf16, const int32_t* edge_src,
 }
 
 // B11.  q: (N, F) int8 row-major; row_scale: (N,) f32; edge_src, local_row:
-// (T, C) int32; block_start: (B+1,) int32; out: (B*W, F) f32.
+// (T, C) int32; chunk_block: (T,) int32; block_start: (B+1,) int32; out:
+// (B*W, F) f32.
 int tgt_spmm_blocked_q8(const int8_t* q, const float* row_scale,
                         const int32_t* edge_src, const int32_t* local_row,
-                        const int32_t* block_start, int num_blocks, int C,
-                        int W, int F, float* out, void* stream) {
-  if (num_blocks <= 0 || C <= 0 || W <= 0 || F <= 0 || !row_scale)
+                        const int32_t* chunk_block, const int32_t* block_start,
+                        int num_chunks, int num_blocks, int C, int W, int F,
+                        float* out, void* stream) {
+  if (num_chunks < 0 || num_blocks <= 0 || C <= 0 || W <= 0 || F <= 0 ||
+      !row_scale)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_q8(q, edge_src, local_row, row_scale,
-                                    block_start, num_blocks, C, W, F, out,
-                                    static_cast<cudaStream_t>(stream)));
+  const blocked::RowsArgs a{edge_src,   local_row,  chunk_block,
+                            block_start, num_chunks, num_blocks,
+                            C,          W,          F,
+                            out};
+  return static_cast<int>(
+      launch_q8(q, row_scale, a, static_cast<cudaStream_t>(stream)));
 }
 
 const char* tgt_cuda_error_string(int err) {

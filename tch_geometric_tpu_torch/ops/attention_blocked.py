@@ -19,8 +19,9 @@ its kernel wrapper):
 * the multi-head GAT's two other routes, kernels in
   ``csrc/gat_blocked.cu``: :func:`edge_softmax_blocked_multihead` (B7),
   :func:`spmm_blocked_multiweighted` (B8, at H=1 also the attend routes'
-  last step), :func:`gat_attend_blocked` (logits by torch gathers, B7, B8)
-  and :func:`gat_attend_blocked_flash` (B9, a per-row running max);
+  last step), :func:`gat_attend_blocked` (logits, B7, B8; on the card B7
+  computes the logits itself) and :func:`gat_attend_blocked_flash` (B9, a
+  per-row running max);
 * the helpers ``_pad_dst``, :func:`blocked_dst_rows` and
   :func:`gat_edge_logits_blocked`.
 
@@ -838,11 +839,37 @@ def gat_attend_blocked_flash(b: BlockedCsr, h: torch.Tensor,
 
 # ---- kernel wrappers (csrc/gat_blocked.cu) --------------------------------
 
+def _edge_softmax_mh_launch(b: BlockedCsr, fn: str, H: int,
+                            dev: torch.device, *args) -> torch.Tensor:
+    """Launch B7's entry ``fn`` (``tgt_edge_softmax_multihead`` or
+    ``tgt_gat_edge_softmax``, its own arguments ``args`` first) with the
+    layout, the pre-pass's scratch and the (H, T, C) output; counts the
+    launch on ``edge_softmax_blocked_multihead_cuda``."""
+    T, C = b.edge_src.shape
+    _check_layout(b, dev)
+    _check(b.chunk_block, "chunk_block", torch.int32, (T,), dev)
+    chunk_rows = torch.empty((T, 2), dtype=torch.int32, device=dev)
+    chunk_mz = torch.empty((T, 2, H, 2), dtype=torch.float32, device=dev)
+    att = torch.empty((H, T, C), dtype=torch.float32, device=dev)
+    _run("gat_blocked", dev, fn, *args, b.edge_local_row.data_ptr(),
+         b.chunk_block.data_ptr(), b.block_start.data_ptr(), T, C,
+         b.rows_per_block, H, chunk_rows.data_ptr(), chunk_mz.data_ptr(),
+         att.data_ptr())
+    edge_softmax_blocked_multihead_cuda.launches += 1
+    return att
+
+
 def edge_softmax_blocked_multihead_cuda(b: BlockedCsr,
                                         scores: torch.Tensor) -> torch.Tensor:
     """B7: :func:`edge_softmax_blocked_multihead` through the hand-written
-    Hopper kernel (one CUDA block per row block, its W x H (m, z) in shared
-    memory) on a CUDA tensor; the plain version on a CPU tensor."""
+    Hopper kernels on a CUDA tensor; the plain version on a CPU tensor.
+
+    Two kernels make a call: a pre-pass per chunk takes the statistics
+    (max, sum) of the chunk's lowest and highest row, the only rows that
+    can span chunks; the main kernel (B1's row-grouped chunks: one CUDA
+    block per chunk, its lanes sorted by row, a thread per piece of at most
+    32 lanes of one row) reduces each piece's statistics in registers,
+    merges a row's pieces and writes every lane's weight in lane order."""
     if scores.device.type == "cpu":
         return edge_softmax_blocked_multihead(b, scores)
     s = scores.to(torch.float32).contiguous()
@@ -850,16 +877,39 @@ def edge_softmax_blocked_multihead_cuda(b: BlockedCsr,
     T, C = b.edge_src.shape
     H = s.shape[0]
     _check(s, "scores", torch.float32, (H, T, C), dev)
-    _check_layout(b, dev)
-    att = torch.empty_like(s)
-    _run("gat_blocked", dev, "tgt_edge_softmax_multihead", s.data_ptr(),
-         b.edge_local_row.data_ptr(), b.block_start.data_ptr(),
-         b.num_blocks, T, C, b.rows_per_block, H, att.data_ptr())
-    edge_softmax_blocked_multihead_cuda.launches += 1
-    return att
+    return _edge_softmax_mh_launch(b, "tgt_edge_softmax_multihead", H, dev,
+                                   s.data_ptr())
 
 
 edge_softmax_blocked_multihead_cuda.launches = 0
+
+
+def _gat_edge_softmax_blocked_cuda(b: BlockedCsr, alpha_src: torch.Tensor,
+                                   alpha_dst: torch.Tensor, *,
+                                   negative_slope: float = 0.2
+                                   ) -> torch.Tensor:
+    """B7 on the GAT logits of :func:`gat_edge_logits_blocked`: the
+    (H, T, C) weights ``edge_softmax_blocked_multihead(b,
+    gat_edge_logits_blocked(b, alpha_src, alpha_dst).movedim(-1, 0))``
+    (the plain version, taken on a CPU tensor), with the logits computed
+    in B7's kernels from the (N, H) tables on a CUDA tensor (bit for bit
+    the plain version's) and never stored.  Counts its launch on
+    ``edge_softmax_blocked_multihead_cuda``."""
+    if alpha_src.device.type == "cpu":
+        logits = gat_edge_logits_blocked(b, alpha_src, alpha_dst,
+                                         negative_slope=negative_slope)
+        return edge_softmax_blocked_multihead(b, logits.movedim(-1, 0))
+    asrc = alpha_src.to(torch.float32).contiguous()
+    ad = alpha_dst.to(torch.float32).contiguous()
+    dev = asrc.device
+    if asrc.dim() != 2 or ad.dim() != 2 or ad.shape[0] == 0:
+        raise ValueError(f"alpha_src and alpha_dst must be (rows, H) tables, "
+                         f"got {tuple(asrc.shape)} and {tuple(ad.shape)}")
+    H = asrc.shape[1]
+    _check(ad, "alpha_dst", torch.float32, (ad.shape[0], H), dev)
+    return _edge_softmax_mh_launch(
+        b, "tgt_gat_edge_softmax", H, dev, asrc.data_ptr(), ad.data_ptr(),
+        ad.shape[0], float(negative_slope), b.edge_src.data_ptr())
 
 
 def spmm_blocked_multiweighted_cuda(b: BlockedCsr, x: torch.Tensor,
@@ -905,17 +955,17 @@ def gat_attend_blocked_cuda(b: BlockedCsr, h: torch.Tensor,
                             alpha_src: torch.Tensor, alpha_dst: torch.Tensor,
                             *, negative_slope: float = 0.2,
                             compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """:func:`gat_attend_blocked` on a CUDA tensor: the logits by torch
-    gathers (as XLA gathers them in the JAX package), then B7 and B8, each
-    counting its launch; the plain version on a CPU tensor."""
+    """:func:`gat_attend_blocked` on a CUDA tensor: B7 with the logits
+    folded in (computed in its kernels from the (N, H) tables, where the
+    JAX package gathers them with XLA), then B8, each counting its launch;
+    the plain version on a CPU tensor."""
     if h.device.type == "cpu":
         return gat_attend_blocked(b, h, alpha_src, alpha_dst,
                                   negative_slope=negative_slope,
                                   compute_dtype=compute_dtype)
     N, H, D = h.shape
-    logits = gat_edge_logits_blocked(b, alpha_src, alpha_dst,
-                                     negative_slope=negative_slope)
-    att = edge_softmax_blocked_multihead_cuda(b, logits.movedim(-1, 0))
+    att = _gat_edge_softmax_blocked_cuda(b, alpha_src, alpha_dst,
+                                         negative_slope=negative_slope)
     out = spmm_blocked_multiweighted_cuda(b, h.reshape(N, H * D), att,
                                           compute_dtype=compute_dtype)
     return out.reshape(-1, H, D)

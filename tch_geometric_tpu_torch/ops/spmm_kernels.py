@@ -47,10 +47,6 @@ def _launch(b: BlockedCsr, xc: torch.Tensor, weight: Optional[torch.Tensor],
         raise TypeError(f"x must be float32 or bfloat16, got {xc.dtype}")
     if xc.dim() != 2 or not xc.is_contiguous():
         raise ValueError("x must be a contiguous (N, F) tensor")
-    if q8 and xc.shape[1] % 2 == 0 and xc.data_ptr() % 2:
-        # with F even B11 loads two columns at a time (B1 and B2 pick their
-        # load width from the alignment)
-        raise ValueError("q must start at a multiple of two elements")
     T, C = b.edge_src.shape
     B, W, F = b.num_blocks, b.rows_per_block, xc.shape[1]
     dev = xc.device
@@ -73,7 +69,8 @@ def _launch(b: BlockedCsr, xc: torch.Tensor, weight: Optional[torch.Tensor],
             fn = "tgt_spmm_blocked_q8"
             rc = lib.tgt_spmm_blocked_q8(
                 xc.data_ptr(), row_scale.data_ptr(), *layout,
-                b.block_start.data_ptr(), B, C, W, F, out.data_ptr(), stream)
+                b.chunk_block.data_ptr(), b.block_start.data_ptr(), T, B, C,
+                W, F, out.data_ptr(), stream)
         else:
             fn = "tgt_spmm_blocked"
             rc = lib.tgt_spmm_blocked(
@@ -195,9 +192,10 @@ def spmm_blocked_q8_cuda(b: BlockedCsr, q: torch.Tensor,
                          row_scale: torch.Tensor, *,
                          agg: str = "sum") -> torch.Tensor:
     """B11: :func:`spmm_blocked_q8` through the hand-written Hopper kernel
-    (a tile kernel over int8 rows; each lane's weight ``bf16(scale[src])``)
-    on a CUDA tensor; the plain version on a CPU tensor.  Differs from the
-    plain version only in summation order."""
+    (B1's row-grouped chunks: each lane's weight ``bf16(scale[src])``
+    staged with the chunk, each int8 row read whole with vector loads) on a
+    CUDA tensor; the plain version on a CPU tensor.  Differs from the plain
+    version only in summation order."""
     if q.device.type == "cpu":
         return spmm_blocked_q8(b, q, row_scale, agg=agg)
     out = _launch(b, q.contiguous(), None,

@@ -30,7 +30,10 @@ the SpMM gates (B1, B2, the hot split) also a hub row of 1,000 in-edges
 in their multi-pass mode (chunks wider than the kernel's stage);
 the GAT kernels B3, B7, B8 and B9 also run one head of D=47 on the testbed
 (GAT's last layer at ogbn-products width, an odd row width); the ragged
-case's rows are 37 columns wide.
+case's rows are 37 columns wide.  B7 runs both its entries (scores in, and
+the GAT logits computed from the (N, H) tables), and B11 also the hub row,
+the multi-pass layout, the JAX test's W=64, C=256 and rows of 100 columns
+(:func:`run_q8_gates`).
 """
 from __future__ import annotations
 
@@ -50,9 +53,9 @@ import torch
 # 6e-2, so the bfloat16 SpMM gates draw weights that bfloat16 holds exactly
 # and B2 too differs only by summation order (the float32 gates keep U(0, 1)
 # float32 weights, which hold B2's float32 product; :func:`_lane_weights`).
-# B1's and B2's summation order changes from run to run: shared-memory
-# atomics order each row's lanes and global atomics add a row split over
-# several pieces (csrc/spmm_blocked.cu).  B3 rounds at the
+# B1's, B2's and B11's summation order changes from run to run:
+# shared-memory atomics order each row's lanes and global atomics add a row
+# split over several pieces (csrc/spmm_blocked.cu).  B3 rounds at the
 # same points as its plain version (h, each lane's weight and their
 # product in bfloat16, every sum in float32), each weight against the same
 # chunk max, which a pre-pass takes before any row is read, so it differs
@@ -67,7 +70,9 @@ import torch
 # of the term.  B5's products of bfloat16 rows are exact in float32, so
 # in bfloat16 too it differs only by summation order (1.5e-5 on scores up
 # to about 60 on the card); B6 and B7 are float32 throughout (2.4e-7 and
-# 1.8e-7).  B8 rounds each term bf16(x * w) from the same float32 weight as
+# 1.8e-7; B7 sums each row's z per piece of 32 lanes in registers and
+# merges the pieces, and computes the same f32 logits as
+# gat_edge_logits_blocked when it takes the tables).  B8 rounds each term bf16(x * w) from the same float32 weight as
 # its plain version, so the terms match bit for bit and only the sums'
 # order differs (the kernel rounds the float32 product on its own, never
 # fused into its add); B11's int8 rows times a bfloat16 scale are exact in
@@ -79,20 +84,22 @@ import torch
 # off by up to 2**-9 of a term, about 6e-3 at |h| near 3, and fails the
 # 1e-5 limit.  The composed attend and GAT routes and the fused and flash
 # attend routes round at their plain versions' points, but a weight from
-# B6's or B7's atomically summed z, or from B10's or B4's (chunk max)
-# stats, lies an ulp or so from the plain version's and can round its
-# bfloat16 term (bf16(x * w) or bf16(e)) the other way: one bfloat16 ulp
-# of the heaviest term, at most 2**-5 for |x| < 8.  On these gates an
-# NVIDIA H100 80GB HBM3 at 700 W read up to 3.9e-3 (fused: B10 on its
-# row-grouped kernels, the testbed and the short x_dst), 2.0e-3 (composed
-# attend, composed GAT), 1.4e-2 (flash, chunk max), 3.6e-3 (flash, row
-# max), 6.0e-8 (B8, also at H=4 heads of 36 columns, over the hub row and
-# in chunks of 8,192 lanes), 7.2e-7 (B3 and B9 on one CUDA block per chunk
-# for all heads, also over the hub row, in chunks of 8,192 lanes, at H=4
-# heads of 80 and 36 columns and on far logits) and 0 (B11) in bfloat16,
-# and at most 8.8e-6 in float32 (B10 and B4 on the far scores); at
-# ogbn-products
-# size 7.8e-3 (composed GAT, fused), 2.4e-7 (B8) and 9.5e-7 (B9) on outputs
+# B6's atomically summed z, B7's z summed by pieces, or B10's or B4's
+# (chunk max) stats, lies an ulp or so from the plain version's and can
+# round its bfloat16 term (bf16(x * w) or bf16(e)) the other way: one
+# bfloat16 ulp of the heaviest term, at most 2**-5 for |x| < 8.  On these
+# gates an NVIDIA H100 80GB HBM3 at 700 W read up to 3.9e-3 (fused: B10 on
+# its row-grouped kernels, the testbed and the short x_dst), 2.0e-3
+# (composed attend), 3.9e-3 (composed GAT, B7 summing z by pieces in
+# registers: no tighter than with its former shared atomics), 1.4e-2
+# (flash, chunk max), 3.6e-3 (flash, row max), 6.0e-8 (B8, also at H=4
+# heads of 36 columns, over the hub row and in chunks of 8,192 lanes),
+# 7.2e-7 (B3 and B9 on one CUDA block per chunk for all heads, also over
+# the hub row, in chunks of 8,192 lanes, at H=4 heads of 80 and 36
+# columns and on far logits), 1.8e-7 (B7, both entries, also over the hub
+# row and in chunks of 8,192 lanes) and 0 (B11 on rows_kernel, every
+# case) in bfloat16, and at most 8.8e-6 in float32 (B10 and B4 on the far
+# scores); at ogbn-products size 7.8e-3 (composed GAT, fused), 2.4e-7 (B8) and 9.5e-7 (B9) on outputs
 # up to 3.2 (PERF.md, Findings).  Each limit sits well above the card's
 # reading and well below the values compared.
 F32_THRESHOLD = 5e-4
@@ -437,7 +444,10 @@ def run_gat_mode_gates(compute_dtype=torch.float32, device="cuda"
     256-column register slab), of 36 (a bfloat16 vector of 8 would straddle
     two heads), one head of 47 and :func:`far_logits_case` (B3's chunk-max
     underflow).  On the hub row also B9's ``debug_stats`` (``_stats_err``:
-    m exactly, the accumulator and z relative to their largest values)."""
+    m exactly, the accumulator and z relative to their largest values).
+    On the hub row and at C=8192 also B7's two entries (``_b7_errs``: a
+    row over many chunks, and B7's two reads of a chunk of several
+    passes)."""
     from ..ops import attention_blocked as ab
     from ..ops.spmm_blocked import build_blocked
 
@@ -458,6 +468,8 @@ def run_gat_mode_gates(compute_dtype=torch.float32, device="cuda"
             errs[f"{name}/gat_attend_blocked_flash_cuda"] = _maxerr(
                 ab.gat_attend_blocked_flash_cuda(b, hh, asrc, adst, **kw),
                 ab.gat_attend_blocked_flash(b, hh, asrc, adst, **kw))
+            if name in ("hub_row", "testbed[C=8192]"):
+                errs.update(_b7_errs(b, asrc, adst, name))
             if name == "hub_row":
                 errs[f"{name}[debug_stats]/gat_attend_blocked_flash_cuda"] = \
                     _stats_err(
@@ -470,13 +482,30 @@ def run_gat_mode_gates(compute_dtype=torch.float32, device="cuda"
     return errs
 
 
+def _b7_errs(b, asrc, adst, name: str) -> Dict[str, float]:
+    """B7's two entries against their plain versions: entry (a) on the
+    (H, T, C) logits of ``asrc``, ``adst`` with NaN in the pad lanes, entry
+    (b) (``[logits]``) on the tables themselves."""
+    from ..ops import attention_blocked as ab
+    W = b.rows_per_block
+    logits = ab.gat_edge_logits_blocked(b, asrc, adst).movedim(-1, 0)
+    logits = torch.where(b.edge_local_row < W, logits, float("nan"))
+    ref = ab.edge_softmax_blocked_multihead(b, logits)
+    key = "edge_softmax_blocked_multihead_cuda"
+    return {f"{name}/{key}": _maxerr(
+                ab.edge_softmax_blocked_multihead_cuda(b, logits), ref),
+            f"{name}[logits]/{key}": _maxerr(
+                ab._gat_edge_softmax_blocked_cuda(b, asrc, adst), ref)}
+
+
 def run_gat_route_gates(compute_dtype=torch.float32, device="cuda"
                         ) -> Dict[str, float]:
     """``{case/kernel: max_abs_err}`` of the composed and flash GAT routes'
     kernels against their plain versions on ``device``, on the GAT gates'
-    cases: B7 on the (H, T, C) logits with NaN in the pad lanes, B8 on the
-    rows and B7's weights, the composed ``gat_attend_blocked_cuda`` (B7,
-    B8) and B9."""
+    cases: B7 on the (H, T, C) logits with NaN in the pad lanes (entry (a))
+    and on the logit tables (entry (b), ``[logits]``), B8 on the rows and
+    B7's weights, the composed ``gat_attend_blocked_cuda`` (B7's entry
+    (b), B8) and B9."""
     from ..ops import attention_blocked as ab
     from ..ops.spmm_blocked import build_blocked
 
@@ -489,11 +518,10 @@ def run_gat_route_gates(compute_dtype=torch.float32, device="cuda"
             hh, asrc, adst = (torch.from_numpy(a).to(device)
                               for a in arrays[:3])
             N, H, D = hh.shape
+            errs.update(_b7_errs(b, asrc, adst, name))
+            if name == "ragged_rows":   # alpha_dst short of the rows: clamped
+                errs.update(_b7_errs(b, asrc, adst[:-37], name + "[short_dst]"))
             logits = ab.gat_edge_logits_blocked(b, asrc, adst).movedim(-1, 0)
-            logits = torch.where(b.edge_local_row < W, logits, float("nan"))
-            errs[f"{name}/edge_softmax_blocked_multihead_cuda"] = _maxerr(
-                ab.edge_softmax_blocked_multihead_cuda(b, logits),
-                ab.edge_softmax_blocked_multihead(b, logits))
             att = ab.edge_softmax_blocked_multihead(b, logits)
             x = hh.reshape(N, H * D)
             errs[f"{name}/spmm_blocked_multiweighted_cuda"] = _maxerr(
@@ -511,17 +539,27 @@ def run_gat_route_gates(compute_dtype=torch.float32, device="cuda"
 def run_q8_gates(compute_dtype=torch.float32, device="cuda"
                  ) -> Dict[str, float]:
     """``{case[agg]/spmm_blocked_q8_cuda: max_abs_err}`` of B11 against its
-    plain version on ``device``, with sum and mean, on the testbed (F=128)
-    and the three edge cases (the ragged case's odd F=37 takes the scalar
-    loads).  The rows are rounded to ``compute_dtype`` before
-    ``quantize_rows``."""
+    plain version on ``device``, with sum and mean, on the testbed (F=128,
+    8-byte loads), the three edge cases (the ragged case's odd F=37 takes
+    1-byte loads), the hub row (F=34, 2-byte loads, a row over many pieces
+    and chunks), the testbed and the hub row in chunks of 8,192 lanes (the
+    output zeroed whole, every piece added), the testbed at W=64, C=256
+    (the JAX test's layout) and the testbed at F=100 (4-byte loads).  The
+    rows are rounded to ``compute_dtype`` before ``quantize_rows``."""
     from ..ops.spmm_blocked import build_blocked
     from ..ops.spmm_kernels import (quantize_rows, spmm_blocked_q8,
                                     spmm_blocked_q8_cuda)
 
     indptr, src, x_np = build_testbed()
+    hub = hub_row_graph()
+    x100 = np.random.default_rng(100).normal(
+        size=(len(indptr) - 1, 100)).astype(np.float32)
     cases = [("testbed", indptr, src, x_np, 256, None)]
-    cases += list(edge_case_graphs())
+    cases += list(edge_case_graphs()) + [hub]
+    cases += [("testbed[C=8192]", indptr, src, x_np, 256, 8192),
+              ("hub_row[C=8192]",) + hub[1:5] + (8192,),
+              ("testbed[W=64,C=256]", indptr, src, x_np, 64, 256),
+              ("testbed_f100", indptr, src, x100, 256, None)]
     errs: Dict[str, float] = {}
     for name, ip, s, x_np, W, C in cases:
         b = build_blocked(ip, s, rows_per_block=W, chunk_edges=C,

@@ -10,7 +10,10 @@ GAT gates' testbed (cut to 512 nodes and 4096 edges, W=128), the three
 layout edge cases of ``kernel_gates.edge_case_graphs()`` (W=128 and 256) and
 the hub row of ``kernel_gates.hub_row_graph()`` (1,000 lanes over several
 chunks, W = C = 128) at H=4, D=32, and the testbed at one head of 47
-columns (GAT's last layer).  The head-packed GAT's plain version (B3,
+columns (GAT's last layer); B7 also on the GAT logits of the (N, H)
+tables (its logits-in entry's plain composition), once with another
+negative slope and a short ``alpha_dst``.  The head-packed GAT's plain
+version (B3,
 ``gat_attend_blocked_packed``) likewise on the same cases, and B3 and B9 on
 ``kernel_gates.far_logits_case()``, where B3's chunk-max shift underflows.
 
@@ -94,6 +97,62 @@ def test_edge_softmax_multihead_matches_pallas(case):
     for hd in range(H):
         sums = np.bincount(rows, weights=out[hd][~pads])
         np.testing.assert_allclose(sums[has], 1.0, rtol=1e-5)
+
+
+def _logits_softmax_both(b_t, b_j, a_s, a_d, slope):
+    """(port, JAX) of B7's logits-in entry as its plain version composes it:
+    ``gat_edge_logits_blocked`` on the (N, H) tables, then the multi-head
+    edge softmax (the JAX kernel in interpret mode)."""
+    logits = tab.gat_edge_logits_blocked(b_t, torch.from_numpy(a_s),
+                                         torch.from_numpy(a_d),
+                                         negative_slope=slope)
+    out = tab.edge_softmax_blocked_multihead(b_t, logits.movedim(-1, 0))
+    jl = jab.gat_edge_logits_blocked(b_j, jnp.asarray(a_s), jnp.asarray(a_d),
+                                     negative_slope=slope)
+    ref = jab.edge_softmax_blocked_multihead(b_j, jnp.moveaxis(jl, -1, 0),
+                                             interpret=True)
+    return out.numpy(), np.asarray(ref)
+
+
+def test_gat_logits_softmax_matches_jax(case):
+    """B7 on the GAT logits (the composed route's first step): the port's
+    plain composition against the JAX package's, float32."""
+    _, a_s, a_d = case["arrays"]
+    out, ref = _logits_softmax_both(case["b_t"], case["b_j"], a_s, a_d, 0.2)
+    assert out.shape == ref.shape == (a_s.shape[1],) + tuple(
+        case["b_t"].edge_src.shape)
+    np.testing.assert_allclose(out, ref, rtol=F32_TOL, atol=F32_TOL)
+    assert (out[:, ~case["b_t"].edge_valid.numpy()] == 0).all()
+
+
+def test_gat_logits_softmax_slope_and_short_dst_match_jax():
+    """The same with a negative slope of 0.05 and an alpha_dst 37 rows
+    short of the graph's rows, so that the last rows' logits take its last
+    row (both packages clamp the row)."""
+    indptr, src, W, C, (_, a_s, a_d) = CASES["ragged_rows"]
+    b_t = tsb.build_blocked(indptr, src, rows_per_block=W, chunk_edges=C,
+                            device="cpu")
+    b_j = jsb.build_blocked(indptr, src.astype(np.int32), rows_per_block=W,
+                            chunk_edges=C)
+    out, ref = _logits_softmax_both(b_t, b_j, a_s, a_d[:-37], 0.05)
+    np.testing.assert_allclose(out, ref, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_gat_logits_softmax_wrapper_runs_plain_on_cpu():
+    """B7's logits-in wrapper on CPU tensors: its plain composition's
+    result, bit for bit, and no launch counted."""
+    indptr, src, W, C, (_, a_s, a_d) = CASES["ragged_rows"]
+    b = tsb.build_blocked(indptr, src, rows_per_block=W, chunk_edges=C,
+                          device="cpu")
+    a_s, a_d = torch.from_numpy(a_s), torch.from_numpy(a_d)
+    before = tab.edge_softmax_blocked_multihead_cuda.launches
+    out = tab._gat_edge_softmax_blocked_cuda(b, a_s, a_d,
+                                             negative_slope=0.1)
+    ref = tab.edge_softmax_blocked_multihead(
+        b, tab.gat_edge_logits_blocked(b, a_s, a_d,
+                                       negative_slope=0.1).movedim(-1, 0))
+    assert tab.edge_softmax_blocked_multihead_cuda.launches == before
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -305,7 +364,9 @@ def test_cuda_wrappers_run_plain_on_cpu(wrapper):
     (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
 def test_gat_route_gates_harness_on_cpu(dtype, threshold):
     errs = kernel_gates.run_gat_route_gates(dtype, device="cpu")
-    assert len(errs) == 5 * 4
+    # B7's two entries, B8, the composed route and B9 on five cases, and
+    # B7's two entries with a short alpha_dst
+    assert len(errs) == 5 * 5 + 2
     kernels = {k.rsplit("/", 1)[1] for k in errs}
     assert kernels == {"edge_softmax_blocked_multihead_cuda",
                        "spmm_blocked_multiweighted_cuda",
@@ -320,13 +381,15 @@ def test_gat_route_gates_harness_on_cpu(dtype, threshold):
     (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
 def test_gat_mode_gates_harness_on_cpu(dtype, threshold):
     """B3's and B9's gates of the new design's paths run on the CPU (plain
-    against plain): six cases, B3 in both modes and B9, and B9's debug
-    statistics on the hub row."""
+    against plain): six cases, B3 in both modes and B9, B9's debug
+    statistics on the hub row, and B7's two entries on the hub row and at
+    C=8192."""
     errs = kernel_gates.run_gat_mode_gates(dtype, device="cpu")
-    assert len(errs) == 6 * 3 + 1
+    assert len(errs) == 6 * 3 + 1 + 2 * 2
     kernels = {k.rsplit("/", 1)[1] for k in errs}
     assert kernels == {"gat_attend_blocked_packed_cuda",
-                       "gat_attend_blocked_flash_cuda"}
+                       "gat_attend_blocked_flash_cuda",
+                       "edge_softmax_blocked_multihead_cuda"}
     ok, worst = kernel_gates.gate(errs, threshold)
     assert ok, worst
 

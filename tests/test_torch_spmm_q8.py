@@ -7,7 +7,9 @@ wrapper on CPU tensors) against ``spmm_blocked_pallas_q8`` run with
 ``q * bf16(scale[src])`` on both sides, exact in float32, so only the
 summation order differs and float32's 2e-4 holds.  Against the float32
 SpMM of the unquantised rows the limit is the JAX test's quantisation
-limit, 2e-2 of the largest value.
+limit, 2e-2 of the largest value.  The cases: the testbed at the JAX
+test's W=64, C=256, the three layout edge cases and the hub row of 1,000
+lanes over several chunks.
 """
 import importlib
 
@@ -31,7 +33,8 @@ def _testbed():
     return ("testbed", ip, src, x, 64, 256)    # the JAX test's W and C
 
 
-CASES = {c[0]: c for c in [_testbed()] + list(kernel_gates.edge_case_graphs())}
+CASES = {c[0]: c for c in [_testbed()] + list(kernel_gates.edge_case_graphs())
+         + [kernel_gates.hub_row_graph()]}
 
 
 @pytest.fixture(scope="module", params=list(CASES))
@@ -106,7 +109,7 @@ def test_q8_cuda_wrapper_runs_plain_on_cpu():
     (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
 def test_q8_gates_harness_on_cpu(dtype, threshold):
     errs = kernel_gates.run_q8_gates(dtype, device="cpu")
-    assert len(errs) == 4 * 2
+    assert len(errs) == 9 * 2
     assert all(k.endswith("/spmm_blocked_q8_cuda") for k in errs)
     ok, worst = kernel_gates.gate(errs, threshold)
     assert ok, worst
