@@ -25,14 +25,18 @@ prints no result line):
    at W=64, C=256 and F=100; B5 and B4 (both stat modes) also on the hub row, the
    multi-pass layout, rows of 320 columns, a distinct x_dst with fewer rows
    than the layout and a "far scores" case in which one chunk's scores sit
-   150 above the rest of its row block; B10 on the same five cases, and B8
+   150 above the rest of its row block; B6, through its wrapper and with
+   every row block on its looped path, on the hub row, the multi-pass
+   layout and the far scores; B10 on the same five cases, and B8
    on the hub row, the multi-pass layout and rows of 320 columns with one
    head and with four, of 36 columns (80 at 320), softmax weights; B3
    (both modes) and B9 on the hub row, the multi-pass layout, four heads
    of 80 and of 36 columns, one head of 47 and a "far logits" case in
    which three rows' logits sit 150 above the rest of their row block,
    B9's debug statistics on the hub row, and B7's two entries on the hub
-   row and the multi-pass layout), in float32 (5e-4, TF32 off) and
+   row and the multi-pass layout, and at one head, where they run B6's
+   kernel, on both its paths on the hub row and the testbed), in float32
+   (5e-4, TF32 off) and
    bfloat16 (per-kernel limits of ``utils/kernel_gates.py``);
 3. the GraphSAGE serving path at ogbn-products size (synthetic graph with
    the dataset's node/edge counts, 100 features, 47 classes; model
@@ -912,25 +916,33 @@ def gat_kernel_numbers(p, launches, device):
     H, D = h.shape[1:]
     plain_ms = cuda_ms(lambda: gat_attend_blocked_packed(
         b, h, None, a_d, alpha_src_vec=vec, compute_dtype=torch.float32), 2)
-    # bytes bound, counted as B1's: the kernel's inputs read once — h in the
-    # compute dtype, the lane metadata (edge_src, local_row; pad lanes
-    # included) and block_start, alpha_dst and the projection vector — and
-    # the (B*W, H*D) float32 output written once
-    out_bytes = b.num_blocks * b.rows_per_block * H * D * 4
-    in_bytes = (n * H * D * 4 + T * C * 8 + b.block_start.numel() * 4
-                + n * H * 4 + H * D * 4)
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    # operations on this run's data: per valid lane and head the logit
-    # (add, leaky_relu, subtract, exp, the z add) and a multiply-add per
-    # column; the projection's multiply-add per node and column
-    t_ops = (valid * H * (5 + 2 * D) + 2 * n * H * D) / F32_FLOP_PER_S * 1e3
+    def bound(H, D, eb):
+        # bytes bound, counted as B1's: the kernel's inputs read once — h
+        # in the compute dtype (eb bytes), the lane metadata (edge_src,
+        # local_row; pad lanes included) and block_start, alpha_dst and the
+        # projection vector — and the (B*W, H*D) float32 output written
+        # once; operations on this run's data: per valid lane and head the
+        # logit (add, leaky_relu, subtract, exp, the z add) and a
+        # multiply-add per column, the projection's per node and column
+        out_bytes = b.num_blocks * b.rows_per_block * H * D * 4
+        in_bytes = (n * H * D * eb + T * C * 8 + b.block_start.numel() * 4
+                    + n * H * 4 + H * D * 4)
+        return ((in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+                (valid * H * (5 + 2 * D) + 2 * n * H * D) / F32_FLOP_PER_S
+                * 1e3)
+
+    bounds = {k: max(bound(int(k.split("_")[0][1:]), int(k.split("_")[1][1:]),
+                           4 if k.endswith("float32") else 2))
+              for k in ms}
+    t_bytes, t_ops = bound(H, D, 4)
     main_ms = ms[f"H{H}_D{D}_float32"]
     err32 = max(v for k, v in errs.items() if k[3] == "float32")
     err16 = max(v for k, v in errs.items() if k[3] == "bfloat16")
     log(f"kernel {key} (B3): T={T} C={C} H={H} D={D} lanes valid {valid}: "
         f"{main_ms:.3f} ms in float32 (bound {max(t_bytes, t_ops):.3f} ms "
         f"by {'bytes' if t_bytes >= t_ops else 'operations'}), plain "
-        f"{plain_ms:.3f} ms; all timings (vec mode) {ms}; launches on the "
+        f"{plain_ms:.3f} ms; all timings (vec mode) {ms}, their bounds "
+        f"{ {k: round(v, 3) for k, v in bounds.items()} }; launches on the "
         f"GAT path {launches[key]}; worst wrapper err f32 {err32:.2e} bf16 "
         f"{err16:.2e}; split-row slots {slots}")
     return dict(
@@ -941,7 +953,7 @@ def gat_kernel_numbers(p, launches, device):
         plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, max_abs_err_bf16=err16, ms_by_shape=ms,
-        split_slots=slots,
+        bound_ms_by_shape=bounds, split_slots=slots,
         shape=dict(T=T, C=C, W=b.rows_per_block, H=H, D=D, N=n,
                    valid_lanes=valid, dtype="float32", mode="vec"),
         library_call=None)
@@ -1049,7 +1061,9 @@ def attend_kernel_numbers(p, xs, launches, device):
     B4 in both stat modes).  Then each is timed at F=256 in bfloat16 beside
     its bound, its plain version and, for B5 and B6, one PyTorch library
     call computing the same function (B5 also in float32, the dtype the
-    library call takes).  Returns the kernels' JSON rows."""
+    library call takes; B6 also with every row block on its looped path,
+    and the count of row blocks too large for its one-read path).  Returns
+    the kernels' JSON rows."""
     from tch_geometric_tpu_torch.ops import attention_blocked as ab
     from tch_geometric_tpu_torch.utils.kernel_gates import (
         BF16_THRESHOLDS, F32_THRESHOLD, SDDMM_REL_THRESHOLD)
@@ -1117,6 +1131,14 @@ def attend_kernel_numbers(p, xs, launches, device):
         ms_b5_f32 = cuda_ms(lambda: ab.sddmm_blocked_cuda(
             b, xf, xf, compute_dtype=torch.float32), 10)
         del xf
+        # B6 with every row block on its looped path (the first design's
+        # three sweeps), and the row blocks too large for its one-read path
+        ms_b6_looped = cuda_ms(lambda: ab._edge_softmax_launch(
+            b, "tgt_edge_softmax_blocked", device, s16.data_ptr(),
+            looped=True), 10)
+        fast_lanes = ab.edge_softmax_fast_lanes()
+        block_lanes = b.block_start.diff().long() * C
+        oversized = int((block_lanes > fast_lanes).sum())
 
     # bytes bounds, counted as B1's: the function's inputs read once (x, the
     # one (N, F) bf16 input every timed call passes as both x_dst and x_src;
@@ -1170,7 +1192,13 @@ def attend_kernel_numbers(p, xs, launches, device):
                        split_slots=slots,
                        split_scratch_bytes=slots * (F + 3) * 4)
         if key == "sddmm_blocked_cuda":
-            row.update(ms_f32=ms_b5_f32)
+            # float32 rows: x read as 4 bytes an element
+            row.update(ms_f32=ms_b5_f32, bound_ms_f32=max(
+                (by + n * F * 2) / HBM_BYTES_PER_S * 1e3, t_ops))
+        if key == "edge_softmax_blocked_cuda":
+            row.update(ms_looped=ms_b6_looped, fast_lanes=fast_lanes,
+                       oversized_blocks=oversized,
+                       max_block_lanes=int(block_lanes.max()))
         rows.append(row)
         log(f"kernel {key} ({label}): T={T} C={C} F={F} lanes valid {valid}: "
             f"{ms[key]:.3f} ms (bound {max(t_bytes, t_ops):.3f} ms), plain "
@@ -1182,8 +1210,13 @@ def attend_kernel_numbers(p, xs, launches, device):
                f"{plain_ms[key + '[scalar]']:.3f} ms; split-row slots "
                f"{row['split_slots']} ({row['split_scratch_bytes'] / 1e9:.3f}"
                f" GB)" if key == "attend_blocked_flash_cuda" else "")
-            + (f"; float32 rows {ms_b5_f32:.3f} ms"
-               if key == "sddmm_blocked_cuda" else ""))
+            + (f"; float32 rows {ms_b5_f32:.3f} ms (bound "
+               f"{row['bound_ms_f32']:.3f} ms)"
+               if key == "sddmm_blocked_cuda" else "")
+            + (f"; every row block looped {ms_b6_looped:.3f} ms; row blocks "
+               f"over the one-read path's {fast_lanes} lanes: {oversized} of "
+               f"{B} (largest {int(block_lanes.max())} lanes)"
+               if key == "edge_softmax_blocked_cuda" else ""))
     return rows
 
 
@@ -1326,19 +1359,22 @@ def q8_kernel_numbers(p, res, launches):
                 del xc
             plain_ms[F] = cuda_ms(lambda: spmm_blocked_q8(b, q, s, agg="sum"),
                                   2)
+    def bound(F):
+        # bytes bound: q and its scales, the lane metadata and block_start
+        # read once, the (B*W, F) float32 output written once; operations:
+        # a multiply-add per valid lane and column
+        by = n * F + n * 4 + T * C * 8 + (B + 1) * 4 + B * W * F * 4
+        return (by / HBM_BYTES_PER_S * 1e3,
+                valid * F * 2 / F32_FLOP_PER_S * 1e3)
+
+    bounds = {f: max(bound(f)) for f in ms}
     F = 256
-    # bytes bound: q and its scales, the lane metadata and block_start read
-    # once, the (B*W, F) float32 output written once; operations: a
-    # multiply-add per valid lane and column
-    by = n * F + n * 4 + T * C * 8 + (B + 1) * 4 + B * W * F * 4
-    t_bytes = by / HBM_BYTES_PER_S * 1e3
-    t_ops = valid * F * 2 / F32_FLOP_PER_S * 1e3
+    t_bytes, t_ops = bound(F)
     log(f"kernel {key} (B11): T={T} C={C} lanes valid {valid}: "
         + ", ".join(f"F={f} {ms[f]:.3f} ms (B1 bf16 {b1_ms[f, 'bfloat16']:.3f}"
                     f", f32 {b1_ms[f, 'float32']:.3f}; plain "
-                    f"{plain_ms[f]:.3f})" for f in ms)
-        + f"; bound at F={F} {max(t_bytes, t_ops):.3f} ms; launches on the "
-        f"int8 path {launches[key]}")
+                    f"{plain_ms[f]:.3f}; bound {bounds[f]:.3f})" for f in ms)
+        + f"; launches on the int8 path {launches[key]}")
     return dict(
         name=f"{key} (B11)", route="cuda",
         source="tch_geometric_tpu_torch/csrc/spmm_blocked.cu",
@@ -1348,7 +1384,7 @@ def q8_kernel_numbers(p, res, launches):
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, library_call=None,
         rel_err_vs_b1_f32=max(rel.values()),
-        ms_by_width={f: v for f, v in ms.items()},
+        ms_by_width={f: v for f, v in ms.items()}, bound_ms_by_width=bounds,
         plain_ms_by_width={f: v for f, v in plain_ms.items()},
         b1_ms_by_width={f"{f}_{d}": v for (f, d), v in b1_ms.items()},
         shape=dict(T=T, C=C, W=W, F=F, N=n, valid_lanes=valid, dtype="int8"))

@@ -17,28 +17,30 @@ git-ignored directory:
 On chip_smoke's ogbn-products graph and layout (``host_prep``, W=256) and its
 attend inputs (the 100 features and a seeded 256-column embedding), each case
 is timed by chip_smoke's ``cuda_ms`` (CUDA events over 10 calls after a
-warm-up; the passes over 3): B5 at F=256 in bfloat16 and float32 and at
-F=100 in bfloat16, beside ``torch.sparse.sampled_addmm`` on float32 rows; B4
-with row and chunk-max stats at F=256 in bfloat16 and float32 and at F=100
-in bfloat16; B6 at F=256 in bfloat16; B10 at F=256 in bfloat16 and float32
-and at F=100 in bfloat16; the three attend routes (composed, fused, flash
-with row stats) at F=256 in bfloat16; B8 at the GAT's layer 1 (H=4, D=64)
-in float32 and bfloat16, at its layer 3 (H=1, D=47) in float32 and with
-one head at F=256 in bfloat16; B7 on scores and on the logit tables at
-H=4 and H=1 (``b7_cases``), with the kernels of one call of each entry at
-H=4 under ``torch.profiler``; B3 (vec mode) at H=4, D=64 in float32 and
-bfloat16 and at H=1, D=47 in float32, and B9 at H=4, D=64 in float32 and
-bfloat16, with the kernels of one B3 call and one B9 call (float32, H=4)
-under ``torch.profiler``, the host clock of that call (its synchronisation
-on the slot count included) and its split-row slot count.  Then B1,
-B2, B11 and the SAGE forwards of ``scripts/time_spmm_blocked.py`` and the
-full-graph GAT pass through each of its three routes (B3; B7 + B8; B9), so
-that one process covers every kernel.
+warm-up; the passes over 3): B5 at F=256 in bfloat16 and float32 and at F=100
+in bfloat16, beside ``torch.sparse.sampled_addmm`` on float32 rows; B4 with
+row and chunk-max stats at F=256 in bfloat16 and float32 and at F=100 in
+bfloat16; B6 on the scaled scores at F=256 of bfloat16 and float32 rows, and
+with every row block on its looped path where the tree has it; B10 at F=256
+in bfloat16 and float32 and at F=100 in bfloat16; the three attend routes
+(composed, fused, flash with row stats) at F=256 in bfloat16; B8 at the GAT's
+layer 1 (H=4, D=64) in float32 and bfloat16, at its layer 3 (H=1, D=47) in
+float32 and with one head at F=256 in bfloat16; B7 on scores and on the logit
+tables at H=4 and H=1 (``b7_cases``), with
+the kernels of one call of each entry at H=4 and H=1 under
+``torch.profiler``; B3 (vec mode) at H=4, D=64 in float32 and bfloat16 and at
+H=1, D=47 in float32, and B9 at H=4, D=64 in float32 and bfloat16, with the
+kernels of one B3 call and one B9 call (float32, H=4) under
+``torch.profiler``, the host clock of that call (its synchronisation on the
+slot count included) and its split-row slot count. Then B1, B2, B11 and the
+SAGE forwards of ``scripts/time_spmm_blocked.py`` and the full-graph GAT pass
+through each of its three routes (B3; B7 + B8; B9), so that one process
+covers every kernel.
 Each output's float64 sum is printed beside its time, so the turns can be
-compared, and the device time of each kernel of one B4 call (row stats)
-and one B5 call at F=256 bfloat16 under ``torch.profiler``.  Prints one JSON
-object (also written to ``--out`` when given) and the card's name and power
-limit.
+compared, and the device time of each kernel of one B4 call (row stats), one
+B5 call, one B6 call and one B10 call (also in float32) at F=256 bfloat16
+under ``torch.profiler``. Prints one JSON object (also written to ``--out``
+when given) and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -64,6 +66,8 @@ def attend_cases(p, xs, device):
     x100 = xs[100].to(torch.bfloat16)
     s16 = chip_smoke._nan_pads(
         b, ab.sddmm_blocked_cuda(b, x256, x256) / 256 ** 0.5)
+    s32 = chip_smoke._nan_pads(b, ab.sddmm_blocked_cuda(
+        b, x256f, x256f, compute_dtype=torch.float32) / 256 ** 0.5)
 
     def b5(x):
         return lambda: ab.sddmm_blocked_cuda(b, x, x, compute_dtype=x.dtype)
@@ -83,11 +87,18 @@ def attend_cases(p, xs, device):
         "B4_row_F100_bf16": b4(x100, True),
         "B4_chunkmax_F100_bf16": b4(x100, False),
         "B6_F256": lambda: ab.edge_softmax_blocked_cuda(b, s16),
+        "B6_F256_f32": lambda: ab.edge_softmax_blocked_cuda(b, s32),
         "B10_F256_bf16": lambda: ab.attend_blocked_fused_cuda(b, x256, x256),
         "B10_F256_f32": lambda: ab.attend_blocked_fused_cuda(
             b, x256f, x256f, compute_dtype=torch.float32),
         "B10_F100_bf16": lambda: ab.attend_blocked_fused_cuda(b, x100, x100),
     }
+    if hasattr(ab, "_edge_softmax_launch"):
+        # B6 with every row block on its looped path (the first design's
+        # three sweeps), in trees that have it
+        cases["B6_F256_looped"] = lambda: ab._edge_softmax_launch(
+            b, "tgt_edge_softmax_blocked", device, s16.data_ptr(),
+            looped=True)
     out = {k: (fn, 10) for k, fn in cases.items()}
     routes = chip_smoke.attend_routes()
     for name in ("composed", "fused", "flash_row"):
@@ -148,7 +159,9 @@ def b7_cases(p, device):
     logits with NaN in the pad lanes (the scores-in entry) and on the
     tables themselves (the logits-in entry; a tree without it times what
     its composed route ran instead: the torch gathers of the logits, then
-    the scores-in entry)."""
+    the scores-in entry).  At H=1 a parent's turn times B7's own kernels
+    and a tree whose wrappers take B6's kernel at one head times that, so
+    the A/B compares the two."""
     from tch_geometric_tpu_torch.ops import attention_blocked as ab
 
     b = p["blocked"]
@@ -288,9 +301,12 @@ def main(argv=None) -> int:
     xs = chip_smoke.attend_inputs(p, device)
     cases = attend_cases(p, xs, device)
     time_cases(cases, res)
-    # the kernels of one B4 call (count, main, merge) and of one B5 call
+    # the kernels of one B4 call (count, main, merge), of one B5 call, of
+    # one B6 call and of one B10 call (B5's kernel, the row stats,
+    # rows_kernel)
     res["profile"] = {k: kernel_split(cases[k][0])
-                      for k in ("B4_row_F256_bf16", "B5_F256_bf16")}
+                      for k in ("B4_row_F256_bf16", "B5_F256_bf16", "B6_F256",
+                                "B10_F256_bf16", "B10_F256_f32")}
     print("profile", json.dumps(res["profile"]), flush=True)
     slots = getattr(sys.modules["tch_geometric_tpu_torch.ops.attention_blocked"]
                     .attend_blocked_flash_cuda, "last_slots", None)
@@ -303,10 +319,12 @@ def main(argv=None) -> int:
     # logits and kernel)
     b7 = b7_cases(p, device)
     time_cases(b7, res)
-    for k in ("B7_scores_H4", "B7_logits_H4"):
+    for k in ("B7_scores_H4", "B7_logits_H4", "B7_scores_H1",
+              "B7_logits_H1"):
         res["profile"][k] = kernel_split(b7[k][0])
     print("profile", json.dumps({k: res["profile"][k] for k in
-                                 ("B7_scores_H4", "B7_logits_H4")}),
+                                 ("B7_scores_H4", "B7_logits_H4",
+                                  "B7_scores_H1", "B7_logits_H1")}),
           flush=True)
     del b7
     torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the row-grouped kernels (B1-B3, B5, B7-B11) built from several copies of the kernel sources, in one process.
+"""Time the blocked kernels (B1-B3, B5-B11) built from several copies of the kernel sources, in one process.
 
 A variant is a copy of ``tch_geometric_tpu_torch/csrc`` with one change (a
 launch bound, another way to read the weights).  Each is built from its own
@@ -13,7 +13,9 @@ card: from the root of a checkout,
 
 ``base`` is the package's own ``csrc``.  On chip_smoke's ogbn-products
 graph and layout (``host_prep``, W=256), prepared once: B5 at F=256 in
-bfloat16, B10 at F=256 in bfloat16 and float32 and at F=100 in bfloat16, B8
+bfloat16, B6 on its scaled scores (and with every row block on its looped
+path), B10 at F=256 in bfloat16 and float32 and at F=100 in bfloat16 (each
+call also split by kernel under ``torch.profiler``: the row stats), B8
 at the shapes of ``time_attend_blocked.b8_cases``, B7 at those of
 ``time_attend_blocked.b7_cases``, B3 and B9 at those of
 ``time_attend_blocked.gat_kernel_cases``, and B1, B2, B11 and the SAGE
@@ -36,7 +38,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 from time_attend_blocked import (b7_cases, b8_cases,  # noqa: E402
-                                 gat_kernel_cases)
+                                 gat_kernel_cases, kernel_split)
 from time_spmm_blocked import spmm_cases  # noqa: E402
 
 
@@ -48,8 +50,14 @@ def cases(p, device):
     xs = chip_smoke.attend_inputs(p, device)
     bf, f32 = torch.bfloat16, torch.float32
     x256, x256f, x100 = xs[256].to(bf), xs[256].float(), xs[100].to(bf)
+    s16 = chip_smoke._nan_pads(
+        b, ab.sddmm_blocked_cuda(b, x256, x256) / 256 ** 0.5)
     out = {
         "B5_F256_bf16": lambda: ab.sddmm_blocked_cuda(b, x256, x256),
+        "B6_F256": lambda: ab.edge_softmax_blocked_cuda(b, s16),
+        "B6_F256_looped": lambda: ab._edge_softmax_launch(
+            b, "tgt_edge_softmax_blocked", device, s16.data_ptr(),
+            looped=True),
         "B10_F256_bf16": lambda: ab.attend_blocked_fused_cuda(b, x256, x256),
         "B10_F256_f32": lambda: ab.attend_blocked_fused_cuda(
             b, x256f, x256f, compute_dtype=f32),
@@ -94,7 +102,7 @@ def main(argv=None) -> int:
     if args.only:
         keep = tuple(args.only.split(","))
         fns = {k: v for k, v in fns.items() if k.startswith(keep)}
-    res = {"card": card, "turns": turns, "ms": {}, "sum": {}}
+    res = {"card": card, "turns": turns, "ms": {}, "sum": {}, "split": {}}
     for turn in turns:
         _build.CSRC = dirs[turn]
         _build._loaded.clear()
@@ -104,9 +112,16 @@ def main(argv=None) -> int:
                 res["sum"].setdefault(k, []).append(float(fn().double().sum()))
                 res["ms"].setdefault(k, []).append(
                     chip_smoke.cuda_ms(fn, calls))
+                if k.startswith("B10"):
+                    # B10's three steps (B5's kernel, the row stats,
+                    # rows_kernel) by the profiler
+                    res["split"].setdefault(k, []).append(kernel_split(fn))
     for k, v in res["ms"].items():
         print(k, " ".join(f"{t}={ms:.3f}" for t, ms in zip(turns, v)),
               flush=True)
+    for k, v in res["split"].items():
+        for turn, split in zip(turns, v):
+            print(k, turn, json.dumps(split), flush=True)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(res, indent=1))

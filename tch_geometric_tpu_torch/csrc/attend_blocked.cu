@@ -101,9 +101,8 @@
 //
 // B10: three steps in one call, on B5's and B1's row-grouped chunks.  (a)
 // B5's kernel scores the scaled x_dst into the (T, C) scratch s (0.26 GB at
-// products size, as the TPU kernel keeps it).  (b) One CUDA block per row
-// block takes each row's (m, z) from s in B6's two sweeps (max, then the
-// exp-sum; edge_softmax_kernel<true> writes the stats, not the weights).
+// products size, as the TPU kernel keeps it).  (b) B6's kernel with kStats
+// takes each row's (m, z) from s, reading it once (below).
 // (c) B1's row-grouped weighted sum (blocked::rows_kernel, described in
 // spmm_blocked.cu) with the SoftmaxLanes policy: at staging each live lane's
 // weight softmax_weight(s, m, z) is computed once from its score and its
@@ -114,14 +113,42 @@
 // old pass A re-read the destination row for each lane, and pass B added
 // each lane's 64-column pieces into a shared tile with two atomics per
 // column.  Folding (b) into (a) (each piece's max and sum by warp
-// reductions, split pieces combined as B4 does) would save (b)'s two reads
-// of s and local_row; it is not done until a measurement shows it faster.
+// reductions, split pieces combined as B4 does) would save (b)'s read of s
+// and local_row; it is not done until a measurement shows it faster.
 //
-// B6 keeps the first design: one CUDA block owns a row block and walks its
-// chunks in a loop, with the W rows' (m, z) in shared memory, taken in two
-// sweeps (max, then the exp-sum) instead of the online recurrence: the same
-// function up to float32 rounding.  Rows in the compute dtype, every sum in
-// float32.
+// B6, B10's row stats (b) and B7 at one head: one kernel, one CUDA block per
+// row block (rows never span row blocks, so no merge between CUDA blocks).
+// Its bound is bytes: scores and local_row read once, the weights written
+// once (0.77 GB at products size, 0.23 ms).  The first design made three
+// sweeps over a row block's lanes (the max, the exp-sum, the weights), each
+// re-reading scores and local_row: 1.79 GB in all, 0.55 ms.  Here a row
+// block of at most kFastLanes lanes (every block of the products layout:
+// at most three chunks of 3,328) is read once.  Each thread owns kVecs
+// 16-byte vectors of lanes: it issues cp.async copies of their local rows
+// into shared memory and loads of their scores into registers, all before
+// it uses any; the W rows' maxima are taken by one shared atomicMax a lane
+// on order-preserving int keys of the scores, each score is replaced by
+// e = exp(s - m[r]) and summed into z[r] by shared atomicAdd, and the
+// weights e / max(z, 1e-38) (0 where m is not finite or z not positive)
+// are written as float4.  The arguments of expf and the division are the
+// first design's, so a weight differs from it only through z's summation
+// order.  kStats (B10) writes the W rows' (m, z) instead.  Rows in shared
+// memory leave 40 registers a thread, so three CUDA blocks share an SM and
+// one's loads overlap another's atomics.  A larger row block takes the
+// looped path, the first design's three sweeps, chosen per CUDA block by a
+// block-uniform branch; so does every block when C is not a multiple of 4
+// or an array is not 16-byte aligned, and every block when the caller asks
+// (looped_only: the gates hold both paths on every case).  Where a lane's
+// score comes from is a policy: ScoreIn reads the (T, C) scores; LogitIn
+// computes B7's GAT logit of one head from the (N,) tables, bit for bit
+// gat_edge_logits_blocked's, so that B7's one-head calls take this kernel
+// too.  Every sum is float32.  Tried on an NVIDIA H100 80GB HBM3 at 700 W
+// (scripts/time_csrc_variants.py, PERF.md): rows and scores both in
+// registers (64 registers, two CUDA blocks an SM) 0.456 ms at products
+// size, rows staged at four CUDA blocks an SM (spills) 0.40, a persistent
+// CUDA block per SM with the next row block's rows and scores copied by
+// cp.async during this one's work 0.54-0.70, 1 / z per row 0.377 against
+// the division's 0.375; this design 0.375.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -134,66 +161,231 @@
 namespace {
 
 using blocked::allow_smem;
-using blocked::atomic_max_float;
 using blocked::kFull;
+using blocked::leaky_relu;
 using blocked::round_to;
 using blocked::softmax_weight;
+using blocked::weight_of;
 
-constexpr int kThreads = 512;            // 16 warps per CUDA block (B6,
-                                         // B10's row stats)
+constexpr int kThreads = 512;            // 16 warps per CUDA block
+constexpr int kVecs = 5;                 // 4-lane vectors a thread holds
+constexpr int kFastLanes = kThreads * 4 * kVecs;   // 10,240 lanes
+constexpr int kMinBlocks = 3;            // CUDA blocks an SM (40 registers)
 
-// z[r] += exp(s[e] - m[r]) over the valid lanes of [e_begin, e_end).
-__device__ __forceinline__ void row_expsum(const float* s,
-                                           const int32_t* local_row,
-                                           int64_t e_begin, int64_t e_end,
-                                           int W, const float* m, float* z) {
-  for (int64_t e = e_begin + threadIdx.x; e < e_end; e += kThreads) {
-    const int r = local_row[e];
-    if (r < W) atomicAdd(z + r, expf(s[e] - m[r]));
+// ---- B6, B10's row stats and B7 at one head -------------------------------
+
+// Lane scores, policy (a): the (T, C) f32 scores.  load4 issues a lane
+// vector's loads before its rows are known; scores4 makes its scores.
+struct ScoreIn {
+  using Raw = float4;
+  const float* scores;
+  const void* vec_base() const { return scores; }
+  __device__ float at(int64_t e, int, int64_t) const {
+    return __ldg(scores + e);
   }
+  __device__ float4 load4(int64_t e) const {
+    return __ldg(reinterpret_cast<const float4*>(scores + e));
+  }
+  __device__ float4 scores4(float4 raw, int4, int64_t, int) const {
+    return raw;
+  }
+};
+
+// Policy (b), B7's second entry at one head: the GAT logit
+// leaky_relu(alpha_src[src] + alpha_dst[min(row, ad_last)], slope), the add
+// first (gat_edge_logits_blocked's f32 logits, bit for bit); pad lanes
+// read no table.
+struct LogitIn {
+  using Raw = int4;
+  const int32_t* edge_src;
+  const float* alpha_src;
+  const float* alpha_dst;
+  int64_t ad_last;
+  float slope;
+  const void* vec_base() const { return edge_src; }
+  __device__ float logit(int src, int r, int64_t row0) const {
+    const int64_t row = row0 + r < ad_last ? row0 + r : ad_last;
+    return leaky_relu(__ldg(alpha_src + src) + __ldg(alpha_dst + row), slope);
+  }
+  __device__ float at(int64_t e, int r, int64_t row0) const {
+    return logit(__ldg(edge_src + e), r, row0);
+  }
+  __device__ int4 load4(int64_t e) const {
+    return __ldg(reinterpret_cast<const int4*>(edge_src + e));
+  }
+  __device__ float4 scores4(int4 src, int4 r, int64_t row0, int W) const {
+    return make_float4(r.x < W ? logit(src.x, r.x, row0) : 0.f,
+                       r.y < W ? logit(src.y, r.y, row0) : 0.f,
+                       r.z < W ? logit(src.z, r.z, row0) : 0.f,
+                       r.w < W ? logit(src.w, r.w, row0) : 0.f);
+  }
+};
+
+__device__ __forceinline__ int lane_of(const int4& v, int j) {
+  return (&v.x)[j];
+}
+__device__ __forceinline__ float& lane_of(float4& v, int j) {
+  return (&v.x)[j];
 }
 
-// ---- B6, and B10's row stats: one CUDA block per row block ---------------
-// The per-row softmax of the scores in two sweeps (max, then the exp-sum),
-// then each lane's weight into att; with kStats (B10) the W rows' (m, z)
-// into m_out and z_out instead.
-template <bool kStats>
-__global__ void __launch_bounds__(kThreads)
-edge_softmax_kernel(const float* __restrict__ scores,
-                    const int32_t* __restrict__ local_row,
+// An order-preserving int key of a float (signed compare), and back: one
+// shared atomicMax a lane takes a row's max (atomic_max_float takes two
+// half-masked ones where a warp's scores have both signs).
+__device__ __forceinline__ int float_key(float v) {
+  const int b = __float_as_int(v);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+__device__ __forceinline__ float key_float(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// A 16-byte asynchronous copy from device to shared memory (cp.async);
+// cp_async_wait waits for this thread's copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// The per-row softmax of a row block's lanes into att (pad lanes 0); with
+// kStats its W rows' (m, z) into m_out, z_out instead.  A block of at most
+// fast_lanes lanes reads each lane once: its local rows by cp.async into
+// shared memory, its scores into registers; the others loop.
+template <bool kStats, typename In>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+edge_softmax_kernel(In in, const int32_t* __restrict__ local_row,
                     const int32_t* __restrict__ block_start, int C, int W,
-                    float* __restrict__ att, float* __restrict__ m_out,
-                    float* __restrict__ z_out) {
-  extern __shared__ float stats[];
-  float* m = stats;                      // W row maxima
-  float* z = stats + W;                  // W row sums
+                    int fast_lanes, float* __restrict__ att,
+                    float* __restrict__ m_out, float* __restrict__ z_out) {
+  extern __shared__ int4 smem[];
+  int4* rows_s = smem;                   // kFastLanes local rows
+  int* mk = reinterpret_cast<int*>(smem + kFastLanes / 4);  // W max keys
+  float* z = reinterpret_cast<float*>(mk + W);              // W row sums
   const int b = blockIdx.x;
-  for (int r = threadIdx.x; r < W; r += kThreads) {
-    m[r] = -CUDART_INF_F;
-    z[r] = 0.f;
-  }
-  __syncthreads();
+  const int64_t row0 = static_cast<int64_t>(b) * W;
   const int64_t e_begin = static_cast<int64_t>(block_start[b]) * C;
   const int64_t e_end = static_cast<int64_t>(block_start[b + 1]) * C;
-  // pad lanes (local_row == W) are skipped, whatever their score holds
-  for (int64_t e = e_begin + threadIdx.x; e < e_end; e += kThreads) {
-    const int r = local_row[e];
-    if (r < W) atomic_max_float(m + r, scores[e]);
+  const bool fast = e_end - e_begin <= fast_lanes;   // block-uniform
+  auto lane0 = [&](int k) {              // the first lane of vector k
+    return e_begin + (k * kThreads + static_cast<int>(threadIdx.x)) * 4;
+  };
+  auto rows = [&](int k) {               // vector k's rows (pads past b)
+    return lane0(k) < e_end ? rows_s[k * kThreads + threadIdx.x]
+                            : make_int4(W, W, W, W);
+  };
+  auto row_max = [&](int i) { return key_float(mk[i]); };
+  float4 s[kVecs];
+  if (fast) {
+    // every load issued before any is used
+    typename In::Raw raw[kVecs];
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k)
+      if (lane0(k) < e_end)
+        cp_async16(rows_s + k * kThreads + threadIdx.x, local_row + lane0(k));
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k)
+      if (lane0(k) < e_end) raw[k] = in.load4(lane0(k));
+    cp_async_wait();                     // this thread's own rows
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k)
+      s[k] = lane0(k) < e_end ? in.scores4(raw[k], rows(k), row0, W)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = threadIdx.x; i < W; i += kThreads) {
+    mk[i] = float_key(-CUDART_INF_F);
+    z[i] = 0.f;
   }
   __syncthreads();
-  row_expsum(scores, local_row, e_begin, e_end, W, m, z);
-  __syncthreads();
-  if constexpr (kStats) {
-    for (int r = threadIdx.x; r < W; r += kThreads) {
-      m_out[static_cast<int64_t>(b) * W + r] = m[r];
-      z_out[static_cast<int64_t>(b) * W + r] = z[r];
+  // pad lanes (local_row == W) are skipped, whatever their score holds
+  if (fast) {
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      const int4 rk = rows(k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (lane_of(rk, j) < W)
+          atomicMax(mk + lane_of(rk, j), float_key(lane_of(s[k], j)));
     }
   } else {
     for (int64_t e = e_begin + threadIdx.x; e < e_end; e += kThreads) {
-      const int r = local_row[e];
-      att[e] = r < W ? softmax_weight(scores[e], m[r], z[r]) : 0.f;
+      const int i = local_row[e];
+      if (i < W) atomicMax(mk + i, float_key(in.at(e, i, row0)));
     }
   }
+  __syncthreads();
+  if (fast) {
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      const int4 rk = rows(k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = lane_of(rk, j);
+        if (i < W) {
+          float& v = lane_of(s[k], j);
+          v = expf(v - row_max(i));      // e, in place of the score
+          atomicAdd(z + i, v);
+        }
+      }
+    }
+  } else {
+    for (int64_t e = e_begin + threadIdx.x; e < e_end; e += kThreads) {
+      const int i = local_row[e];
+      if (i < W) atomicAdd(z + i, expf(in.at(e, i, row0) - row_max(i)));
+    }
+  }
+  __syncthreads();
+  if constexpr (kStats) {
+    for (int i = threadIdx.x; i < W; i += kThreads) {
+      m_out[row0 + i] = row_max(i);
+      z_out[row0 + i] = z[i];
+    }
+  } else if (fast) {
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      if (lane0(k) >= e_end) continue;
+      const int4 rk = rows(k);
+      float4 w;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = lane_of(rk, j);
+        lane_of(w, j) =
+            i < W ? weight_of(lane_of(s[k], j), row_max(i), z[i]) : 0.f;
+      }
+      *reinterpret_cast<float4*>(att + lane0(k)) = w;
+    }
+  } else {
+    for (int64_t e = e_begin + threadIdx.x; e < e_end; e += kThreads) {
+      const int i = local_row[e];
+      att[e] =
+          i < W ? softmax_weight(in.at(e, i, row0), row_max(i), z[i]) : 0.f;
+    }
+  }
+}
+
+// One launch of edge_softmax_kernel.  The one-read path needs 16-byte
+// vectors of every lane array (C a multiple of 4, each array aligned);
+// otherwise, or with looped_only, every block loops.
+template <bool kStats, typename In>
+cudaError_t launch_softmax(const In& in, const int32_t* local_row,
+                           const int32_t* block_start, int num_blocks, int C,
+                           int W, bool looped_only, float* att, float* m,
+                           float* z, cudaStream_t stream) {
+  const bool vec = blocked::vec_elems(local_row, C, 4) == 4 &&
+                   blocked::vec_elems(in.vec_base(), C, 4) == 4 &&
+                   (kStats || blocked::vec_elems(att, C, 4) == 4);
+  const int fast_lanes = looped_only || !vec ? 0 : kFastLanes;
+  const size_t smem = kFastLanes * sizeof(int32_t) +
+                      2 * static_cast<size_t>(W) * sizeof(float);
+  auto kernel = edge_softmax_kernel<kStats, In>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<num_blocks, kThreads, smem, stream>>>(
+      in, local_row, block_start, C, W, fast_lanes, att, m, z);
+  return cudaGetLastError();
 }
 
 // B10's Lanes policy of blocked::rows_kernel: each lane's weight
@@ -672,12 +864,9 @@ cudaError_t launch_fused(const void* xd, int64_t nd, const void* xs,
                                      a.local_row, a.chunk_block, a.num_chunks,
                                      a.C, a.W, a.F, s, stream);
   if (err != cudaSuccess) return err;
-  const size_t smem = 2 * static_cast<size_t>(a.W) * sizeof(float);
-  err = allow_smem(edge_softmax_kernel<true>, smem);
-  if (err != cudaSuccess) return err;
-  edge_softmax_kernel<true><<<a.num_blocks, kThreads, smem, stream>>>(
-      s, a.local_row, a.block_start, a.C, a.W, nullptr, m, z);
-  err = cudaGetLastError();
+  err = launch_softmax<true>(ScoreIn{s}, a.local_row, a.block_start,
+                             a.num_blocks, a.C, a.W, false, nullptr, m, z,
+                             stream);
   if (err != cudaSuccess) return err;
   return blocked::launch_rows_vec(xs, bf16, a.F, a, SoftmaxLanes{s, m, z},
                                   stream);
@@ -708,20 +897,46 @@ int tgt_sddmm_blocked(const void* x_dst, int64_t dst_rows, const void* x_src,
 }
 
 // B6: att (T, C) f32, the per-row softmax of scores (T, C) f32, 0 on pad
-// lanes.
+// lanes.  looped_only is a test hook that production callers pass as 0:
+// != 0 sends every row block down the looped path, so that the gates
+// (utils/kernel_gates.py) hold that path on every case; at 0 only the
+// blocks above tgt_edge_softmax_fast_lanes() lanes loop.  Both paths
+// compute the same function, up to the order of each row's sum.
 int tgt_edge_softmax_blocked(const float* scores, const int32_t* local_row,
                              const int32_t* block_start, int num_blocks,
-                             int C, int W, float* att, void* stream) {
+                             int C, int W, int looped_only, float* att,
+                             void* stream) {
   if (num_blocks <= 0 || C <= 0 || W <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * static_cast<size_t>(W) * sizeof(float);
-  cudaError_t err = allow_smem(edge_softmax_kernel<false>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  edge_softmax_kernel<false><<<num_blocks, kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      scores, local_row, block_start, C, W, att, nullptr, nullptr);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_softmax<false>(
+      ScoreIn{scores}, local_row, block_start, num_blocks, C, W,
+      looped_only != 0, att, nullptr, nullptr,
+      static_cast<cudaStream_t>(stream)));
 }
+
+// B7's second entry at one head on B6's kernel: as tgt_edge_softmax_blocked
+// with the scores the GAT logits leaky_relu(alpha_src[src] +
+// alpha_dst[min(row, ad_rows - 1)], negative_slope) of alpha_src (N,) and
+// alpha_dst (ad_rows,) f32, computed in the kernel; edge_src (T, C) int32.
+// looped_only: the same test hook.
+int tgt_edge_softmax_logits(const float* alpha_src, const float* alpha_dst,
+                            int ad_rows, float negative_slope,
+                            const int32_t* edge_src,
+                            const int32_t* local_row,
+                            const int32_t* block_start, int num_blocks, int C,
+                            int W, int looped_only, float* att,
+                            void* stream) {
+  if (num_blocks <= 0 || C <= 0 || W <= 0 || ad_rows <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const LogitIn in{edge_src, alpha_src, alpha_dst, ad_rows - 1,
+                   negative_slope};
+  return static_cast<int>(launch_softmax<false>(
+      in, local_row, block_start, num_blocks, C, W, looped_only != 0, att,
+      nullptr, nullptr, static_cast<cudaStream_t>(stream)));
+}
+
+// The most lanes a row block may have for B6's one-read path.
+int tgt_edge_softmax_fast_lanes() { return kFastLanes; }
 
 // B10: s (T, C) f32 and m, z (B*W,) f32 scratch; out (B*W, F) f32.  x_dst
 // carries the scale already.

@@ -51,10 +51,18 @@ __device__ __forceinline__ void atomic_max_float(float* addr, float v) {
     atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
 }
 
-// A lane's softmax weight from its row's final stats (0 where the row max
-// is not finite or the sum is not positive).
+// A lane's softmax weight from e = exp(s - m) and its row's final stats
+// (0 where the row max is not finite or the sum is not positive), and from
+// its score s.
+__device__ __forceinline__ float weight_of(float e, float m, float z) {
+  return isfinite(m) && z > 0.f ? e / fmaxf(z, 1e-38f) : 0.f;
+}
 __device__ __forceinline__ float softmax_weight(float s, float m, float z) {
-  return isfinite(m) && z > 0.f ? expf(s - m) / fmaxf(z, 1e-38f) : 0.f;
+  return weight_of(expf(s - m), m, z);
+}
+
+__device__ __forceinline__ float leaky_relu(float s, float slope) {
+  return s > 0.f ? s : slope * s;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -164,6 +164,7 @@ using blocked::kFull;
 using blocked::kMaxStage;
 using blocked::kRowThreads;
 using blocked::kRowWarps;
+using blocked::leaky_relu;
 using blocked::Piece;
 using blocked::put;
 using blocked::round_to;
@@ -178,10 +179,6 @@ constexpr int kMaxD = 128;               // B3, B9: columns per head
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float leaky_relu(float s, float slope) {
-  return s > 0.f ? s : slope * s;
 }
 
 // ---- B8: per-head weighted SpMM on row-grouped chunks -------------------
@@ -556,10 +553,10 @@ __device__ float2 split_row_stats(int r, int t, int tb0, int tb1,
 // (one pass) or from a second read of the chunk (a chunk of several
 // passes, whose first read skips the lowest and highest row).  mz_off: the
 // byte offset of the float2 arrays in shared memory, after the scores.
-// kMinBlocks: two CUDA blocks an SM at H > 1 (106 KB of shared memory at
-// H=4), three at one head.
-template <typename Lanes, int kMinBlocks>
-__global__ void __launch_bounds__(kRowThreads, kMinBlocks)
+// Two CUDA blocks an SM (106 KB of shared memory at H=4); one head takes
+// B6's kernel instead (the wrappers in ops/attention_blocked.py).
+template <typename Lanes>
+__global__ void __launch_bounds__(kRowThreads, 2)
 softmax_rows_kernel(Lanes lanes, const int32_t* __restrict__ local_row,
                     const int32_t* __restrict__ chunk_block,
                     const int32_t* __restrict__ block_start,
@@ -775,8 +772,7 @@ cudaError_t launch_softmax(const Lanes& lanes, const int32_t* local_row,
           lanes, local_row, chunk_block, C, W, H, cap, chunk_rows, chunk_mz);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto kernel = H == 1 ? softmax_rows_kernel<Lanes, 3>
-                       : softmax_rows_kernel<Lanes, 2>;
+  auto kernel = softmax_rows_kernel<Lanes>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<num_chunks, kRowThreads, smem, s>>>(

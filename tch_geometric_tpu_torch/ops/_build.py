@@ -55,8 +55,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "attend_blocked": {
         "tgt_sddmm_blocked": (_i, [_vp, _i64, _vp, _i, _vp, _vp, _vp,
                                    _i, _i, _i, _i, _vp, _vp]),
-        "tgt_edge_softmax_blocked": (_i, [_vp, _vp, _vp, _i, _i, _i, _vp,
-                                          _vp]),
+        "tgt_edge_softmax_blocked": (_i, [_vp, _vp, _vp, _i, _i, _i, _i,
+                                          _vp, _vp]),
+        "tgt_edge_softmax_logits": (_i, [_vp, _vp, _i, ctypes.c_float, _vp,
+                                         _vp, _vp, _i, _i, _i, _i, _vp,
+                                         _vp]),
+        "tgt_edge_softmax_fast_lanes": (_i, []),
         "tgt_attend_fused": (_i, [_vp, _i64, _vp, _i, _vp, _vp, _vp, _vp,
                                   _i, _i, _i, _i, _i, _vp, _vp, _vp, _vp,
                                   _vp]),

@@ -609,22 +609,43 @@ def sddmm_blocked_cuda(b: BlockedCsr, x_dst: torch.Tensor,
 sddmm_blocked_cuda.launches = 0
 
 
+def _edge_softmax_launch(b: BlockedCsr, fn: str, dev: torch.device, *args,
+                         looped: bool = False) -> torch.Tensor:
+    """Launch B6's kernel through entry ``fn`` (``tgt_edge_softmax_blocked``
+    or ``tgt_edge_softmax_logits``, its own arguments ``args`` first) with
+    the layout and a (T, C) float32 output, which it returns.  ``looped``:
+    every row block takes the looped path (the gates hold both paths);
+    else the row blocks of at most :func:`edge_softmax_fast_lanes` lanes
+    read each lane once.  Counts nothing."""
+    T, C = b.edge_src.shape
+    _check_layout(b, dev)
+    att = torch.empty((T, C), dtype=torch.float32, device=dev)
+    _run("attend_blocked", dev, fn, *args, b.edge_local_row.data_ptr(),
+         b.block_start.data_ptr(), b.num_blocks, C, b.rows_per_block,
+         int(looped), att.data_ptr())
+    return att
+
+
+def edge_softmax_fast_lanes() -> int:
+    """The most lanes a row block may have for B6's one-read path (the
+    kernel's registers hold them); larger blocks loop.  Builds the kernel's
+    library if needed."""
+    return int(_build.load("attend_blocked").tgt_edge_softmax_fast_lanes())
+
+
 def edge_softmax_blocked_cuda(b: BlockedCsr,
                               scores: torch.Tensor) -> torch.Tensor:
     """B6: :func:`edge_softmax_blocked` through the hand-written Hopper
     kernel on a CUDA tensor (one CUDA block per row block, its W rows'
-    (m, z) in shared memory); the plain version on a CPU tensor."""
+    (m, z) in shared memory, each lane's row and score read once, into
+    shared memory and registers; larger row blocks loop); the plain
+    version on a CPU tensor."""
     if scores.device.type == "cpu":
         return edge_softmax_blocked(b, scores)
     s = scores.to(torch.float32).contiguous()
-    dev = s.device
-    T, C = b.edge_src.shape
-    _check(s, "scores", torch.float32, (T, C), dev)
-    _check_layout(b, dev)
-    att = torch.empty_like(s)
-    _run("attend_blocked", dev, "tgt_edge_softmax_blocked", s.data_ptr(),
-         b.edge_local_row.data_ptr(), b.block_start.data_ptr(),
-         b.num_blocks, C, b.rows_per_block, att.data_ptr())
+    _check(s, "scores", torch.float32, tuple(b.edge_src.shape), s.device)
+    att = _edge_softmax_launch(b, "tgt_edge_softmax_blocked", s.device,
+                               s.data_ptr())
     edge_softmax_blocked_cuda.launches += 1
     return att
 
@@ -869,7 +890,9 @@ def edge_softmax_blocked_multihead_cuda(b: BlockedCsr,
     can span chunks; the main kernel (B1's row-grouped chunks: one CUDA
     block per chunk, its lanes sorted by row, a thread per piece of at most
     32 lanes of one row) reduces each piece's statistics in registers,
-    merges a row's pieces and writes every lane's weight in lane order."""
+    merges a row's pieces and writes every lane's weight in lane order.
+    One head takes B6's kernel instead (:func:`edge_softmax_blocked_cuda`),
+    counted here."""
     if scores.device.type == "cpu":
         return edge_softmax_blocked_multihead(b, scores)
     s = scores.to(torch.float32).contiguous()
@@ -877,6 +900,12 @@ def edge_softmax_blocked_multihead_cuda(b: BlockedCsr,
     T, C = b.edge_src.shape
     H = s.shape[0]
     _check(s, "scores", torch.float32, (H, T, C), dev)
+    if H == 1:
+        # one head: B6's kernel, faster there than these two (PERF.md)
+        att = _edge_softmax_launch(b, "tgt_edge_softmax_blocked", dev,
+                                   s.data_ptr())
+        edge_softmax_blocked_multihead_cuda.launches += 1
+        return att[None]
     return _edge_softmax_mh_launch(b, "tgt_edge_softmax_multihead", H, dev,
                                    s.data_ptr())
 
@@ -893,7 +922,8 @@ def _gat_edge_softmax_blocked_cuda(b: BlockedCsr, alpha_src: torch.Tensor,
     gat_edge_logits_blocked(b, alpha_src, alpha_dst).movedim(-1, 0))``
     (the plain version, taken on a CPU tensor), with the logits computed
     in B7's kernels from the (N, H) tables on a CUDA tensor (bit for bit
-    the plain version's) and never stored.  Counts its launch on
+    the plain version's) and never stored; one head takes B6's kernel with
+    the same logits.  Counts its launch on
     ``edge_softmax_blocked_multihead_cuda``."""
     if alpha_src.device.type == "cpu":
         logits = gat_edge_logits_blocked(b, alpha_src, alpha_dst,
@@ -907,6 +937,14 @@ def _gat_edge_softmax_blocked_cuda(b: BlockedCsr, alpha_src: torch.Tensor,
                          f"got {tuple(asrc.shape)} and {tuple(ad.shape)}")
     H = asrc.shape[1]
     _check(ad, "alpha_dst", torch.float32, (ad.shape[0], H), dev)
+    if H == 1:
+        # one head: B6's kernel computing the same logits (PERF.md)
+        att = _edge_softmax_launch(
+            b, "tgt_edge_softmax_logits", dev, asrc.data_ptr(),
+            ad.data_ptr(), ad.shape[0], float(negative_slope),
+            b.edge_src.data_ptr())
+        edge_softmax_blocked_multihead_cuda.launches += 1
+        return att[None]
     return _edge_softmax_mh_launch(
         b, "tgt_gat_edge_softmax", H, dev, asrc.data_ptr(), ad.data_ptr(),
         ad.shape[0], float(negative_slope), b.edge_src.data_ptr())

@@ -12,9 +12,10 @@ single-head attention kernels B5 (``sddmm_blocked_cuda``), B6
 (``edge_softmax_blocked_cuda``), B10 (``attend_blocked_fused_cuda``), B4
 (``attend_blocked_flash_cuda``, both stat modes) and the composed
 ``attend_blocked_cuda`` (B5, B6, B8) — :func:`run_attend_gates` — and B11
-(``spmm_blocked_q8_cuda``, sum and mean) — :func:`run_q8_gates` — and B5
-and B4 again on the cases that reach their row-grouped kernels' other
-paths — :func:`run_attend_mode_gates` — B10 and B8 likewise —
+(``spmm_blocked_q8_cuda``, sum and mean) — :func:`run_q8_gates` — and B5,
+B4 and B6 again on the cases that reach their kernels' other paths (B6
+also with every row block on its looped path) —
+:func:`run_attend_mode_gates` — B10 and B8 likewise —
 :func:`run_weighted_mode_gates` — and B3 and B9 likewise —
 :func:`run_gat_mode_gates`.  Each
 kernel runs on the given device and is compared with its plain version
@@ -31,7 +32,8 @@ in their multi-pass mode (chunks wider than the kernel's stage);
 the GAT kernels B3, B7, B8 and B9 also run one head of D=47 on the testbed
 (GAT's last layer at ogbn-products width, an odd row width); the ragged
 case's rows are 37 columns wide.  B7 runs both its entries (scores in, and
-the GAT logits computed from the (N, H) tables), and B11 also the hub row,
+the GAT logits computed from the (N, H) tables; at one head both run B6's
+kernel, also on its looped path), and B11 also the hub row,
 the multi-pass layout, the JAX test's W=64, C=256 and rows of 100 columns
 (:func:`run_q8_gates`).
 """
@@ -69,9 +71,11 @@ import torch
 # arithmetic, but any term's bfloat16 rounding can fall the other way, 2**-9
 # of the term.  B5's products of bfloat16 rows are exact in float32, so
 # in bfloat16 too it differs only by summation order (1.5e-5 on scores up
-# to about 60 on the card); B6 and B7 are float32 throughout (2.4e-7 and
-# 1.8e-7; B7 sums each row's z per piece of 32 lanes in registers and
-# merges the pieces, and computes the same f32 logits as
+# to about 60 on the card); B6 and B7 are float32 throughout (3.6e-7 for
+# B6 on both its paths, also over the hub row, in chunks of 8,192 lanes
+# and on the far scores, and for B7 at one head, which runs B6's kernel;
+# 1.8e-7 for B7 at H=4, which sums each row's z per piece of 32 lanes in
+# registers and merges the pieces; both compute the same f32 logits as
 # gat_edge_logits_blocked when it takes the tables).  B8 rounds each term bf16(x * w) from the same float32 weight as
 # its plain version, so the terms match bit for bit and only the sums'
 # order differs (the kernel rounds the float32 product on its own, never
@@ -447,7 +451,8 @@ def run_gat_mode_gates(compute_dtype=torch.float32, device="cuda"
     m exactly, the accumulator and z relative to their largest values).
     On the hub row and at C=8192 also B7's two entries (``_b7_errs``: a
     row over many chunks, and B7's two reads of a chunk of several
-    passes)."""
+    passes), and on the hub row at one head (B6's kernel, both its paths;
+    :func:`run_gat_route_gates` holds it on the testbed at one head)."""
     from ..ops import attention_blocked as ab
     from ..ops.spmm_blocked import build_blocked
 
@@ -470,6 +475,9 @@ def run_gat_mode_gates(compute_dtype=torch.float32, device="cuda"
                 ab.gat_attend_blocked_flash(b, hh, asrc, adst, **kw))
             if name in ("hub_row", "testbed[C=8192]"):
                 errs.update(_b7_errs(b, asrc, adst, name))
+            if name == "hub_row":      # one head: B6's kernel
+                errs.update(_b7_errs(b, asrc[:, :1], adst[:, :1],
+                                     name + "[H=1]"))
             if name == "hub_row":
                 errs[f"{name}[debug_stats]/gat_attend_blocked_flash_cuda"] = \
                     _stats_err(
@@ -485,17 +493,52 @@ def run_gat_mode_gates(compute_dtype=torch.float32, device="cuda"
 def _b7_errs(b, asrc, adst, name: str) -> Dict[str, float]:
     """B7's two entries against their plain versions: entry (a) on the
     (H, T, C) logits of ``asrc``, ``adst`` with NaN in the pad lanes, entry
-    (b) (``[logits]``) on the tables themselves."""
+    (b) (``[logits]``) on the tables themselves.  One head runs B6's
+    kernel, so there both entries also run with every row block on its
+    looped path (``[looped]``, ``[logits,looped]``)."""
     from ..ops import attention_blocked as ab
     W = b.rows_per_block
     logits = ab.gat_edge_logits_blocked(b, asrc, adst).movedim(-1, 0)
     logits = torch.where(b.edge_local_row < W, logits, float("nan"))
     ref = ab.edge_softmax_blocked_multihead(b, logits)
     key = "edge_softmax_blocked_multihead_cuda"
-    return {f"{name}/{key}": _maxerr(
+    errs = {f"{name}/{key}": _maxerr(
                 ab.edge_softmax_blocked_multihead_cuda(b, logits), ref),
             f"{name}[logits]/{key}": _maxerr(
                 ab._gat_edge_softmax_blocked_cuda(b, asrc, adst), ref)}
+    if logits.shape[0] == 1:
+        s = logits[0].contiguous()
+        a_s, a_d = asrc.float().contiguous(), adst.float().contiguous()
+        errs[f"{name}[looped]/{key}"] = _maxerr(_b6_looped(
+            b, "tgt_edge_softmax_blocked", s, s.data_ptr())[None], ref)
+        errs[f"{name}[logits,looped]/{key}"] = _maxerr(_b6_looped(
+            b, "tgt_edge_softmax_logits", s, a_s.data_ptr(), a_d.data_ptr(),
+            a_d.shape[0], 0.2, b.edge_src.data_ptr())[None], ref)
+    return errs
+
+
+def _b6_looped(b, fn: str, scores: torch.Tensor, *args) -> torch.Tensor:
+    """B6's kernel through entry ``fn`` (its own arguments ``args``) with
+    every row block on its looped path; on a CPU device the plain softmax
+    of ``scores``, the same function."""
+    from ..ops import attention_blocked as ab
+    if scores.device.type == "cpu":
+        return ab.edge_softmax_blocked(b, scores)
+    return ab._edge_softmax_launch(b, fn, scores.device, *args, looped=True)
+
+
+def _b6_errs(b, scores: torch.Tensor, name: str) -> Dict[str, float]:
+    """B6 against its plain version on ``scores`` (T, C), through its
+    wrapper (row blocks of at most ``edge_softmax_fast_lanes`` lanes read
+    once) and with every row block on its looped path (``[looped]``)."""
+    from ..ops import attention_blocked as ab
+    s = scores.contiguous()
+    ref = ab.edge_softmax_blocked(b, s)
+    key = "edge_softmax_blocked_cuda"
+    return {f"{name}/{key}": _maxerr(ab.edge_softmax_blocked_cuda(b, s), ref),
+            f"{name}[looped]/{key}": _maxerr(
+                _b6_looped(b, "tgt_edge_softmax_blocked", s, s.data_ptr()),
+                ref)}
 
 
 def run_gat_route_gates(compute_dtype=torch.float32, device="cuda"
@@ -503,9 +546,11 @@ def run_gat_route_gates(compute_dtype=torch.float32, device="cuda"
     """``{case/kernel: max_abs_err}`` of the composed and flash GAT routes'
     kernels against their plain versions on ``device``, on the GAT gates'
     cases: B7 on the (H, T, C) logits with NaN in the pad lanes (entry (a))
-    and on the logit tables (entry (b), ``[logits]``), B8 on the rows and
-    B7's weights, the composed ``gat_attend_blocked_cuda`` (B7's entry
-    (b), B8) and B9."""
+    and on the logit tables (entry (b), ``[logits]``), also with an
+    ``alpha_dst`` 37 rows short on the ragged case (``[short_dst]``, and at
+    one head ``[short_dst,H=1]``: each lane's row clamped to its last), B8
+    on the rows and B7's weights, the composed ``gat_attend_blocked_cuda``
+    (B7's entry (b), B8) and B9."""
     from ..ops import attention_blocked as ab
     from ..ops.spmm_blocked import build_blocked
 
@@ -521,6 +566,9 @@ def run_gat_route_gates(compute_dtype=torch.float32, device="cuda"
             errs.update(_b7_errs(b, asrc, adst, name))
             if name == "ragged_rows":   # alpha_dst short of the rows: clamped
                 errs.update(_b7_errs(b, asrc, adst[:-37], name + "[short_dst]"))
+                # and at one head, where B6's kernel clamps (LogitIn)
+                errs.update(_b7_errs(b, asrc[:, :1], adst[:-37, :1],
+                                     name + "[short_dst,H=1]"))
             logits = ab.gat_edge_logits_blocked(b, asrc, adst).movedim(-1, 0)
             att = ab.edge_softmax_blocked_multihead(b, logits)
             x = hh.reshape(N, H * D)
@@ -643,7 +691,7 @@ def run_attend_gates(compute_dtype=torch.float32, device="cuda"
 
 def run_attend_mode_gates(compute_dtype=torch.float32, device="cuda"
                           ) -> Dict[str, float]:
-    """``{case/kernel: max_abs_err}`` of B5 and B4 (both stat modes)
+    """``{case/kernel: max_abs_err}`` of B5, B4 (both stat modes) and B6
     against their plain versions on ``device``, on the cases that reach the
     row-grouped kernels' other paths: the hub row of 1,000 lanes (split
     over pieces and chunks), the testbed in chunks of 8,192 lanes (more
@@ -651,7 +699,10 @@ def run_attend_mode_gates(compute_dtype=torch.float32, device="cuda"
     testbed at 320 columns (wider than one 256-column register slab: B4's
     two-sweep path), the testbed with a distinct ``x_dst`` of 300 rows fewer
     than B*W (rows past it read as zeros), and :func:`far_scores_case`
-    (chunk-max underflow).  B5 scores the scaled ``x_dst`` that B4 sees."""
+    (chunk-max underflow).  B5 scores the scaled ``x_dst`` that B4 sees.
+    B6 takes those scores with NaN in the pad lanes on the hub row, at
+    C=8192 and on the far scores, through its wrapper and with every row
+    block on its looped path (``_b6_errs``)."""
     from ..ops import attention_blocked as ab
     from ..ops.spmm_blocked import build_blocked
 
@@ -679,6 +730,10 @@ def run_attend_mode_gates(compute_dtype=torch.float32, device="cuda"
             errs[f"{name}/sddmm_blocked_cuda"] = _maxerr(
                 ab.sddmm_blocked_cuda(b, xd_scaled, xs, **kw),
                 ab.sddmm_blocked(b, xd_scaled, xs, **kw))
+            if name in ("hub_row", "testbed[C=8192]", "far_scores"):
+                scores = ab.sddmm_blocked(b, xd_scaled, xs, **kw)
+                errs.update(_b6_errs(b, torch.where(
+                    b.edge_local_row < W, scores, float("nan")), name))
             for rs in (True, False):
                 errs[f"{name}[row_stats={rs}]/attend_blocked_flash_cuda"] = \
                     _maxerr(ab.attend_blocked_flash_cuda(b, xd, xs,

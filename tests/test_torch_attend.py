@@ -127,6 +127,49 @@ def test_edge_softmax_blocked_matches_pallas(case):
     np.testing.assert_allclose(sums[has], 1.0, rtol=1e-5)
 
 
+def _b6_case(name):
+    """(b_t, b_j, scores with NaN in the pad lanes) of the hub row or the
+    far scores: scores of N(0, 3) on the hub row, the scaled far scores
+    (near 150 on rows 16-18, near 0 elsewhere) on the other."""
+    if name == "hub_row":
+        _, indptr, src, _, W, C = kernel_gates.hub_row_graph()
+    else:
+        _, indptr, src, x_dst, x_src, W, C, _ = kernel_gates.far_scores_case()
+    b_t = tsb.build_blocked(indptr, src, rows_per_block=W, chunk_edges=C,
+                            device="cpu")
+    b_j = jsb.build_blocked(indptr, src.astype(np.int32), rows_per_block=W,
+                            chunk_edges=C)
+    if name == "hub_row":
+        rng = np.random.default_rng(70)
+        scores = (rng.normal(size=tuple(b_t.edge_src.shape)) * 3).astype(
+            np.float32)
+    else:
+        xd = torch.from_numpy(x_dst) / x_dst.shape[1] ** 0.5
+        scores = tab.sddmm_blocked(b_t, xd, torch.from_numpy(x_src),
+                                   compute_dtype=torch.float32).numpy()
+    scores[~b_t.edge_valid.numpy()] = np.nan
+    return b_t, b_j, scores
+
+
+@pytest.mark.parametrize("name", ["hub_row", "far_scores"])
+def test_edge_softmax_hub_and_far_match_pallas(name):
+    """B6's plain version against the JAX kernels in interpret mode on the
+    hub row (a row of 1,000 lanes over several chunks of 128) and on the
+    far scores (three rows near 150 in a block of 40 chunks): every row
+    keeps its softmax, pads read 0, and each row's weights sum to 1."""
+    b_t, b_j, scores = _b6_case(name)
+    ref = np.asarray(jab.edge_softmax_blocked(b_j, jnp.asarray(scores),
+                                              interpret=True))
+    out = tab.edge_softmax_blocked(b_t, torch.from_numpy(scores)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=F32_TOL, atol=F32_TOL)
+    pads = ~b_t.edge_valid.numpy()
+    assert (out[pads] == 0).all()
+    rows = tab.blocked_dst_rows(b_t).numpy()[~pads]
+    sums = np.bincount(rows, weights=out[~pads])
+    has = np.bincount(rows) > 0
+    np.testing.assert_allclose(sums[has], 1.0, rtol=1e-5)
+
+
 ATTEND = {
     "attend_blocked": {},
     "attend_blocked_fused": {},
@@ -315,13 +358,21 @@ def test_flash_far_scores_matches_jax(row_stats, dtype):
     (torch.float32, kernel_gates.F32_THRESHOLD),
     (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
 def test_attend_mode_gates_harness_on_cpu(dtype, threshold):
+    """B5 and B4 (both stat modes) on five cases, and B6 on three of them
+    through its wrapper and on its looped path."""
     errs = kernel_gates.run_attend_mode_gates(dtype, device="cpu")
-    assert len(errs) == 5 * 3
-    cases = {k.rsplit("/", 1)[0].split("[row_stats")[0] for k in errs}
+    assert len(errs) == 5 * 3 + 3 * 2
+    cases = {k.rsplit("/", 1)[0].split("[row_stats")[0].replace("[looped]", "")
+             for k in errs}
     assert cases == {"hub_row", "testbed[C=8192]", "testbed_f320",
                      "testbed_short_dst", "far_scores"}
     kernels = {k.rsplit("/", 1)[1] for k in errs}
-    assert kernels == {"sddmm_blocked_cuda", "attend_blocked_flash_cuda"}
+    assert kernels == {"sddmm_blocked_cuda", "attend_blocked_flash_cuda",
+                       "edge_softmax_blocked_cuda"}
+    b6 = {k.rsplit("/", 1)[0] for k in errs
+          if k.endswith("/edge_softmax_blocked_cuda")}
+    assert b6 == {f"{c}{p}" for c in ("hub_row", "testbed[C=8192]",
+                                      "far_scores") for p in ("", "[looped]")}
     ok, worst = kernel_gates.gate(errs, threshold)
     assert ok, worst
 

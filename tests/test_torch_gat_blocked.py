@@ -155,6 +155,31 @@ def test_gat_logits_softmax_wrapper_runs_plain_on_cpu():
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("entry", ["scores", "logits"])
+def test_one_head_wrappers_run_plain_on_cpu(entry):
+    """At one head B7's two wrappers launch B6's kernel on the card; on CPU
+    tensors they return their plain versions' results, bit for bit, and no
+    launch counter moves (B7's nor B6's)."""
+    indptr, src, W, C, (_, a_s, a_d) = CASES["testbed_h1_d47"]
+    b = tsb.build_blocked(indptr, src, rows_per_block=W, chunk_edges=C,
+                          device="cpu")
+    a_s, a_d = torch.from_numpy(a_s), torch.from_numpy(a_d)
+    logits = tab.gat_edge_logits_blocked(b, a_s, a_d).movedim(-1, 0)
+    assert logits.shape[0] == 1
+    counters = (tab.edge_softmax_blocked_multihead_cuda,
+                tab.edge_softmax_blocked_cuda)
+    before = [c.launches for c in counters]
+    if entry == "scores":
+        out = tab.edge_softmax_blocked_multihead_cuda(b, logits)
+    else:
+        out = tab._gat_edge_softmax_blocked_cuda(b, a_s, a_d)
+    assert [c.launches for c in counters] == before
+    ref = tab.edge_softmax_blocked_multihead(b, logits)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    torch.testing.assert_close(out[0], tab.edge_softmax_blocked(b, logits[0]),
+                               rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_spmm_multiweighted_matches_pallas(case, dtype):
     jdt, tdt, tol = DTYPES[dtype]
@@ -364,9 +389,18 @@ def test_cuda_wrappers_run_plain_on_cpu(wrapper):
     (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
 def test_gat_route_gates_harness_on_cpu(dtype, threshold):
     errs = kernel_gates.run_gat_route_gates(dtype, device="cpu")
-    # B7's two entries, B8, the composed route and B9 on five cases, and
-    # B7's two entries with a short alpha_dst
-    assert len(errs) == 5 * 5 + 2
+    # B7's two entries, B8, the composed route and B9 on five cases, B7's
+    # two entries with a short alpha_dst, and at one head (B6's kernel)
+    # both entries on its looped path, on the testbed and with a short
+    # alpha_dst
+    assert len(errs) == 5 * 5 + 2 + 2 + 4
+    key = "edge_softmax_blocked_multihead_cuda"
+    assert {f"testbed_h1_d47[looped]/{key}",
+            f"testbed_h1_d47[logits,looped]/{key}",
+            f"ragged_rows[short_dst,H=1]/{key}",
+            f"ragged_rows[short_dst,H=1][logits]/{key}",
+            f"ragged_rows[short_dst,H=1][looped]/{key}",
+            f"ragged_rows[short_dst,H=1][logits,looped]/{key}"} < set(errs)
     kernels = {k.rsplit("/", 1)[1] for k in errs}
     assert kernels == {"edge_softmax_blocked_multihead_cuda",
                        "spmm_blocked_multiweighted_cuda",
@@ -382,10 +416,14 @@ def test_gat_route_gates_harness_on_cpu(dtype, threshold):
 def test_gat_mode_gates_harness_on_cpu(dtype, threshold):
     """B3's and B9's gates of the new design's paths run on the CPU (plain
     against plain): six cases, B3 in both modes and B9, B9's debug
-    statistics on the hub row, and B7's two entries on the hub row and at
-    C=8192."""
+    statistics on the hub row, B7's two entries on the hub row and at
+    C=8192, and at one head (B6's kernel, also on its looped path) on the
+    hub row."""
     errs = kernel_gates.run_gat_mode_gates(dtype, device="cpu")
-    assert len(errs) == 6 * 3 + 1 + 2 * 2
+    assert len(errs) == 6 * 3 + 1 + 2 * 2 + 4
+    one_head = {k.rsplit("/", 1)[0] for k in errs if "hub_row[H=1]" in k}
+    assert one_head == {"hub_row[H=1]", "hub_row[H=1][logits]",
+                        "hub_row[H=1][looped]", "hub_row[H=1][logits,looped]"}
     kernels = {k.rsplit("/", 1)[1] for k in errs}
     assert kernels == {"gat_attend_blocked_packed_cuda",
                        "gat_attend_blocked_flash_cuda",
