@@ -95,6 +95,29 @@ prints no result line):
    against B1 on the unquantised rows in float32 (2e-2 of the largest
    value, the quantisation limit), and B11 is timed beside B1 at both
    widths.
+7. sampled training at the serving width on the same graph, features and
+   labels (47 classes), TF32 off: (a) ``GraphSAGE(100, 256, 47, 3 layers,
+   dropout 0.5)`` through ``make_gnn_trainer(..., [15, 10, 5],
+   learning_rate=1e-3)``, one warm-up step, then 10 steps of 1024 random
+   seeds, each timed on the host's clock up to a synchronise, with peak
+   device memory; then 20 steps on one fixed batch, whose loss by
+   ``eval_step`` (dropout off, one key) must fall; (b) the same with
+   ``GAT(100, 256, 47, 3 layers, 4 heads, dropout 0.5)``; (c)
+   ``make_multibatch_sage_trainer`` at M=8 on bfloat16 features with a
+   bfloat16 SAGE (``scripts/bench_sampled_training.py``'s configuration),
+   ms per minibatch; (d) card against CPU: on the 5% node subgraph, 3
+   steps of (a)'s trainer from the same parameters, key and seeds on each;
+   the samples and dropout masks are bit-equal, so the losses must agree
+   within 1e-3 relative (the largest parameter difference is printed).  No
+   kernel of B1-B11 lies on this path; the launch counts are zeroed before
+   (a)-(c) and printed after.
+8. ``torch.profiler`` (``utils.metrics.profile``, a Chrome trace each under
+   ``build/profile/``) over 3 SAGE train steps, 3 sampled SAGE requests and
+   one SAGE ``blocked_forward``: for each, the device time of the kernels
+   launched under each of the trainer's spans (``sample``, ``gather``,
+   ``forward`` with the loss and the backward, ``update``), the top 10
+   device operations by their own time with counts, and the device idle
+   share of the window (1 - union of the device intervals / wall time).
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -105,6 +128,8 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -284,8 +309,9 @@ def check_serving(res, n):
 
 
 def subgraph(data, device, frac=0.05):
-    """A random ``frac`` node subgraph: its CSC arrays, features, graph and
-    blocked layout on ``device``, and the numpy generator that drew it."""
+    """A random ``frac`` node subgraph: its node ids, CSC arrays, features,
+    graph and blocked layout on ``device``, and the numpy generator that
+    drew it."""
     from tch_geometric_tpu_torch.data.graph import make_graph
     from tch_geometric_tpu_torch.data.storage import to_csc
     from tch_geometric_tpu_torch.ops.spmm_blocked import build_blocked
@@ -298,7 +324,7 @@ def subgraph(data, device, frac=0.05):
     ei = ei[:, (ei >= 0).all(axis=0)]
     ns = len(keep)
     cp, ri, _ = to_csc(ei, ns)
-    return dict(cp=cp, ri=ri, ns=ns, edges=int(ei.shape[1]), r=r,
+    return dict(cp=cp, ri=ri, ns=ns, edges=int(ei.shape[1]), r=r, keep=keep,
                 xs=torch.from_numpy(data.x[keep]).to(device),
                 g=make_graph(cp, ri, num_src=ns, num_dst=ns, device=device),
                 b=build_blocked(cp, ri, rows_per_block=W, device=device))
@@ -1390,6 +1416,310 @@ def q8_kernel_numbers(p, res, launches):
         shape=dict(T=T, C=C, W=W, F=F, N=n, valid_lanes=valid, dtype="int8"))
 
 
+TRAIN_LR = 1e-3
+TRAIN_DROPOUT = 0.5
+TRAIN_STEPS = 10
+FIT_STEPS = 20
+MULTIBATCH_M = 8
+MULTIBATCH_CALLS = 3
+CARD_VS_CPU_STEPS = 3
+TRAIN_REL_THRESHOLD = 1e-3
+SPANS = ("sample", "gather", "forward", "update")
+PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "profile")
+
+
+def train_model(kind, f, device):
+    """Phase 7's models at the serving width (hidden 256, 3 layers, 47
+    classes, dropout 0.5), weights from ``torch.Generator().manual_seed(0)``:
+    ``kind`` "sage" or "gat" (4 heads)."""
+    from tch_geometric_tpu_torch.models import GAT, GraphSAGE
+    kw = dict(dropout=TRAIN_DROPOUT, device=device,
+              generator=torch.Generator().manual_seed(0))
+    if kind == "gat":
+        return GAT(f, 256, 47, 3, heads=GAT_HEADS, **kw)
+    return GraphSAGE(f, 256, 47, 3, **kw)
+
+
+def train(p, device, timer):
+    """Phase 7 (a), (b): for SAGE and GAT (dropout 0.5, Adam at 1e-3), one
+    warm-up step and ``TRAIN_STEPS`` timed steps of 1024 random seeds, each
+    ending in a synchronise; peak device memory over them; then
+    ``FIT_STEPS`` steps on one fixed batch, whose deterministic loss
+    (``eval_step``, one key) must fall.  Returns the per-model results and
+    the trainers with their states (phase 8 profiles SAGE's)."""
+    from tch_geometric_tpu_torch.parallel import make_gnn_trainer
+    from tch_geometric_tpu_torch.sampling import rng
+    graph, x_table = p["graph"], p["x_table"]
+    n = x_table.shape[0]
+    labels = torch.from_numpy(p["data"].y).to(device)
+    gen = torch.Generator().manual_seed(12)
+    key = rng.key(11)
+    out, trainers = {}, {}
+    for name in ("sage", "gat"):
+        model = train_model(name, x_table.shape[1], device)
+        trainer = make_gnn_trainer(model, FANOUTS, learning_rate=TRAIN_LR)
+        state = trainer.init_fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for _ in range(1 + TRAIN_STEPS):
+            seeds = torch.randint(0, n, (SEEDS_PER_REQUEST,),
+                                  generator=gen).to(device)
+            (state, loss, acc), t = timer(lambda: trainer.train_step(
+                state, key, graph, x_table, seeds, labels[seeds]))
+            ms.append(t)
+            losses.append(float(loss))
+            check(np.isfinite(losses[-1]), f"{name} train loss finite")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        seeds = torch.randint(0, n, (SEEDS_PER_REQUEST,),
+                              generator=gen).to(device)
+        fit_key = rng.key(13)
+        before = float(trainer.eval_step(state, fit_key, graph, x_table,
+                                         seeds, labels[seeds])[0])
+        for _ in range(FIT_STEPS):
+            state, _, _ = trainer.train_step(state, key, graph, x_table,
+                                             seeds, labels[seeds])
+        after = float(trainer.eval_step(state, fit_key, graph, x_table,
+                                        seeds, labels[seeds])[0])
+        steady = float(np.mean(ms[1:]))
+        log(f"train {name}: step ms (first, warm-up) {ms[0]:.1f}, then "
+            + ", ".join(f"{m:.1f}" for m in ms[1:])
+            + f"; mean {steady:.2f} ms a step of {SEEDS_PER_REQUEST} seeds; "
+            f"peak device memory {peak:.2f} GiB; losses "
+            + ", ".join(f"{v:.3f}" for v in losses)
+            + f"; {FIT_STEPS} steps on one batch: eval loss {before:.4f} -> "
+            f"{after:.4f}")
+        check(after < before, f"{name}: {FIT_STEPS} steps on one batch lower "
+              f"its loss ({before:.4f} -> {after:.4f})")
+        out[name] = dict(step_ms=ms[1:], first_step_ms=ms[0],
+                         step_ms_mean=steady, peak_device_gib=peak,
+                         losses=losses, fit_loss_before=before,
+                         fit_loss_after=after)
+        trainers[name] = (trainer, state)
+    return out, trainers
+
+
+def train_multibatch(p, device, timer):
+    """Phase 7 (c): ``make_multibatch_sage_trainer`` at M=8 on bfloat16
+    features and a bfloat16 SAGE (``scripts/bench_sampled_training.py``'s
+    configuration: no dropout, Adam at 1e-3), one warm-up call, then
+    ``MULTIBATCH_CALLS`` timed calls of 8 x 1024 seeds."""
+    from tch_geometric_tpu_torch.models import GraphSAGE
+    from tch_geometric_tpu_torch.parallel import make_multibatch_sage_trainer
+    from tch_geometric_tpu_torch.sampling import rng
+    graph = p["graph"]
+    x16 = p["x_table"].to(torch.bfloat16)
+    n = x16.shape[0]
+    labels = torch.from_numpy(p["data"].y).to(device)
+    model = GraphSAGE(x16.shape[1], 256, 47, 3, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0),
+                      device=device)
+    trainer = make_multibatch_sage_trainer(model, FANOUTS,
+                                           learning_rate=TRAIN_LR)
+    state = trainer.init_fn()
+    gen = torch.Generator().manual_seed(14)
+    key = rng.key(15)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(1 + MULTIBATCH_CALLS):
+        seeds = torch.randint(0, n, (MULTIBATCH_M, SEEDS_PER_REQUEST),
+                              generator=gen).to(device)
+        (state, ls, _), t = timer(lambda: trainer.train_step(
+            state, key, graph, x16, seeds, labels[seeds]))
+        check(ls.shape == (MULTIBATCH_M,) and ls.dtype == torch.bfloat16,
+              f"multibatch losses {tuple(ls.shape)} {ls.dtype}")
+        check(bool(torch.isfinite(ls).all()), "multibatch losses finite")
+        ms.append(t)
+        losses += ls.float().tolist()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per = [t / MULTIBATCH_M for t in ms[1:]]
+    log(f"train multibatch M={MULTIBATCH_M} bf16: call ms (first, warm-up) "
+        f"{ms[0]:.1f}, then " + ", ".join(f"{t:.1f}" for t in ms[1:])
+        + f"; {float(np.mean(per)):.2f} ms a minibatch of "
+        f"{SEEDS_PER_REQUEST} seeds; peak device memory {peak:.2f} GiB; "
+        f"losses {losses[0]:.3f} .. {losses[-1]:.3f}")
+    return dict(call_ms=ms[1:], first_call_ms=ms[0],
+                ms_per_minibatch=float(np.mean(per)), peak_device_gib=peak,
+                losses=losses)
+
+
+def check_train_card_vs_cpu(data, sub, device):
+    """Phase 7 (d): on the 5% node subgraph, ``CARD_VS_CPU_STEPS`` steps of
+    phase 7 (a)'s SAGE trainer from the same parameters, key and seeds on
+    the card and on the CPU.  The samples and dropout masks are bit-equal
+    (threefry on either device), so the losses agree within
+    ``TRAIN_REL_THRESHOLD`` relative; the largest parameter difference is
+    printed."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.parallel import make_sage_trainer
+    from tch_geometric_tpu_torch.sampling import rng
+    ns = sub["ns"]
+    card = train_model("sage", data.x.shape[1], device)
+    cpu = copy.deepcopy(card).cpu()
+    g_cpu = make_graph(sub["cp"], sub["ri"], num_src=ns, num_dst=ns,
+                       device="cpu")
+    ys = torch.from_numpy(data.y[sub["keep"]])
+    seeds = torch.from_numpy(np.random.default_rng(16).integers(
+        0, ns, (CARD_VS_CPU_STEPS, SEEDS_PER_REQUEST)))
+    key = rng.key(17)
+    res = {}
+    for side, model, g, xs, dev in (("card", card, sub["g"], sub["xs"], device),
+                                    ("cpu", cpu, g_cpu, sub["xs"].cpu(),
+                                     torch.device("cpu"))):
+        trainer = make_sage_trainer(model, FANOUTS, learning_rate=TRAIN_LR)
+        state = trainer.init_fn()
+        y, losses = ys.to(dev), []
+        t = time.perf_counter()
+        for s in seeds:
+            s = s.to(dev)
+            state, loss, _ = trainer.train_step(state, key, g, xs, s, y[s])
+            losses.append(float(loss))
+        res[side] = (losses, time.perf_counter() - t)
+    (lc, tc), (lh, th) = res["card"], res["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    pdiff = max(maxerr(a, b.to(device)) for a, b in
+                zip(card.state_dict().values(), cpu.state_dict().values()))
+    log(f"check: train card vs CPU on the {ns}-node subgraph, "
+        f"{CARD_VS_CPU_STEPS} steps of {SEEDS_PER_REQUEST} seeds (dropout "
+        f"{TRAIN_DROPOUT}): losses card {lc}, CPU {lh}; largest relative "
+        f"difference {rel:.3e} (limit {TRAIN_REL_THRESHOLD}); parameters max "
+        f"|diff| {pdiff:.3e}; card {tc:.2f} s, CPU {th:.2f} s")
+    check(rel <= TRAIN_REL_THRESHOLD, f"train losses card vs CPU: {rel:.3e}")
+    return dict(losses_card=lc, losses_cpu=lh, max_rel_loss_diff=rel,
+                max_param_diff=pdiff, card_s=tc, cpu_s=th)
+
+
+def profile_split(prof, window: str):
+    """Device time of the profiled ``window`` span: each kernel (and copy)
+    is assigned to the innermost ``SPANS`` span whose host interval holds
+    its launch (any thread: autograd runs the backward on its own), else
+    to "other"; the top 10 device operations by their own time, with
+    counts; and the device idle share, 1 - (union of the device intervals
+    in the window) / (the window's wall time)."""
+    from torch.autograd import DeviceType
+    evs = prof.events()
+    cpu = [e for e in evs if e.device_type == DeviceType.CPU]
+    win = [e for e in cpu if e.name == window]
+    check(len(win) == 1, f"profile: one {window} span, found {len(win)}")
+    w0, w1 = win[0].time_range.start, win[0].time_range.end
+    annotations = {e.name for e in cpu
+                   if getattr(e, "is_user_annotation", False)}
+    annotations.update(SPANS + (window,))
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and e.name not in annotations]
+    check(len(dev) > 0, "profile: the profiler recorded device activity")
+    launch = {e.id: e.time_range.start for e in cpu
+              if e.name.startswith("cu")}
+    spans = sorted(((e.time_range.start, e.time_range.end, e.name)
+                    for e in cpu if e.name in SPANS), key=lambda s: s[0])
+    by_span = {s: 0.0 for s in SPANS + ("other", "unattributed")}
+    ops = {}
+    for e in dev:
+        d = e.time_range.end - e.time_range.start
+        t = launch.get(e.id)
+        if t is None:
+            where = "unattributed"
+        else:
+            inner = [s for s in spans if s[0] <= t <= s[1]]
+            where = (min(inner, key=lambda s: s[1] - s[0])[2] if inner
+                     else "other")
+        by_span[where] += d
+        tot, cnt = ops.get(e.name, (0.0, 0))
+        ops[e.name] = (tot + d, cnt + 1)
+    iv = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1))
+                for e in dev)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, t in iv:
+        if t <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, t
+        else:
+            cur_e = max(cur_e, t)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    wall = w1 - w0
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]
+    return dict(window_ms=wall / 1e3, device_busy_ms=busy / 1e3,
+                idle_share=1.0 - busy / wall,
+                device_ms_by_span={k: v / 1e3 for k, v in by_span.items()},
+                device_ms_total=sum(by_span.values()) / 1e3,
+                top10=[dict(name=k, ms=v[0] / 1e3, count=v[1])
+                       for k, v in top])
+
+
+def short_op(name: str) -> str:
+    """A kernel's name without its template noise: the kernel and, for
+    PyTorch's elementwise kernels, the functor it applies."""
+    base = name.replace("void ", "").split("(")[0].split("<")[0]
+    inner = re.findall(r"([A-Za-z_]\w*(?:Functor|_kernel_cuda)\w*(?:<\w+>)?)",
+                       name)
+    return f"{base}[{inner[-1]}]" if inner else base[:90]
+
+
+def profile_phase(p, trainers, device):
+    """Phase 8: ``torch.profiler`` (through ``utils.metrics.profile``) over
+    3 SAGE train steps (phase 7's trainer and state), 3 sampled SAGE
+    requests and one SAGE ``blocked_forward``, each its own profile with
+    its Chrome trace under ``build/profile/``.  Each window ends in a
+    synchronise."""
+    from tch_geometric_tpu_torch.parallel import make_gnn_trainer
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.utils.metrics import profile, trace_span
+    graph, x_table, model = p["graph"], p["x_table"], p["model"]
+    n = x_table.shape[0]
+    labels = torch.from_numpy(p["data"].y).to(device)
+    gen = torch.Generator().manual_seed(18)
+    trainer, state = trainers["sage"]
+    serve_trainer = make_gnn_trainer(model, FANOUTS)
+
+    def train_steps():
+        nonlocal state
+        for i in range(3):
+            seeds = torch.randint(0, n, (SEEDS_PER_REQUEST,),
+                                  generator=gen).to(device)
+            state, _, _ = trainer.train_step(state, rng.key(19), graph,
+                                             x_table, seeds, labels[seeds])
+
+    @torch.no_grad()
+    def requests():
+        for i in range(3):
+            seeds = torch.randint(0, n, (SEEDS_PER_REQUEST,), generator=gen)
+            sample, x = serve_trainer.sample_and_gather(
+                rng.fold(rng.key(20), i), graph, x_table, seeds)
+            with trace_span("forward"):
+                model.tree_forward(sample, x)
+
+    @torch.no_grad()
+    def blocked():
+        with trace_span("forward"):
+            model.blocked_forward(x_table, p["blocked"])
+
+    out = {}
+    for name, fn in (("sage_train_3_steps", train_steps),
+                     ("sage_requests_3", requests),
+                     ("sage_blocked_forward", blocked)):
+        torch.cuda.synchronize()
+        with profile(os.path.join(PROFILE_DIR, name)) as prof:
+            with trace_span("window"):
+                fn()
+                torch.cuda.synchronize()
+        r = out[name] = profile_split(prof, "window")
+        log(f"profile {name}: window {r['window_ms']:.2f} ms, device busy "
+            f"{r['device_busy_ms']:.2f} ms, idle share {r['idle_share']:.3f}; "
+            "device ms by span: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in r["device_ms_by_span"].items())
+            + "; top 10 device ops by own time: " + "; ".join(
+                f"{short_op(o['name'])} x{o['count']} {o['ms']:.3f} ms"
+                for o in r["top10"]))
+    return out
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1565,6 +1895,19 @@ def main(argv=None) -> int:
     kernels.append(q8_kernel_numbers(p, qres, q8_launches))
     del qres
     check(len(kernels) == 11, f"{len(kernels)} kernel rows, expected 11")
+    torch.cuda.empty_cache()
+
+    for fn in wrappers:
+        fn.launches = 0
+    train_res, trainers = train(p, device, timer)
+    train_res["multibatch"] = train_multibatch(p, device, timer)
+    train_launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"train path launches (no kernel of B1-B11 lies on it): "
+        f"{train_launches}")
+    torch.cuda.empty_cache()
+    train_res["card_vs_cpu"] = check_train_card_vs_cpu(p["data"], sg, device)
+    prof = profile_phase(p, trainers, device)
+    del trainers
 
     summary = dict(
         card=card, scale=args.scale, nodes=n, edges=p["graph"].num_edges,
@@ -1588,6 +1931,7 @@ def main(argv=None) -> int:
         attend_routes_vs_composed_f32=attend_route_errs,
         attend_vs_segment_f32=attend_sub,
         attend_peak_device_gib=attend_peak_gb,
+        train=train_res, profile=prof,
         total_s=time.perf_counter() - t_all, **sub)
     log("serving: " + json.dumps(summary))
     if args.scale == 1.0:

@@ -5,13 +5,16 @@ edges are stably sorted by ``(col * num_rows + row)`` (CSC) or
 ``(row * num_cols + col)`` (CSR), the pointer array is a prefix build over
 the sorted leading indices (``ind2ptr``), and ``perm`` maps sorted-edge
 position -> original COO edge id.  Conversion happens once at ingest, on the
-host; ``make_graph`` moves the result to a device.
+host; ``make_graph`` moves the result to a device, and
+``csc_graph_from_coo`` / ``csr_graph_from_coo`` do both.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+
+from .graph import SparseGraph, make_graph
 
 
 def ind2ptr(ind: np.ndarray, m: int) -> np.ndarray:
@@ -75,3 +78,19 @@ def to_csr(row_col, size) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     row, col, perm = _coo_sort(row_col[0], row_col[1], num_rows, num_cols,
                                csc=False)
     return ind2ptr(row, num_rows), col, perm
+
+
+def csc_graph_from_coo(row_col, size, *, device="cuda") -> SparseGraph:
+    """COO -> CSC graph (in-neighbor adjacency) with perm on ``device``."""
+    num_rows, num_cols = _norm_size(size)
+    col_ptrs, row_indices, perm = to_csc(row_col, (num_rows, num_cols))
+    return make_graph(col_ptrs, row_indices, perm, num_src=num_rows,
+                      num_dst=num_cols, device=device)
+
+
+def csr_graph_from_coo(row_col, size, *, device="cuda") -> SparseGraph:
+    """COO -> CSR graph (out-neighbor adjacency) with perm on ``device``."""
+    num_rows, num_cols = _norm_size(size)
+    row_ptrs, col_indices, perm = to_csr(row_col, (num_rows, num_cols))
+    return make_graph(row_ptrs, col_indices, perm, num_src=num_rows,
+                      num_dst=num_cols, device=device)

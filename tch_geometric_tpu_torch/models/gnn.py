@@ -13,7 +13,8 @@ U(+-1/sqrt(fan_in)) for weights and bias; GAT's ``a_src``/``a_dst`` follow
 flax's ``lecun_normal``; GIN's ``eps`` starts at 0.  Every draw comes from
 an explicit CPU ``torch.Generator`` and is then copied to ``device``.
 ``dtype=None`` computes in float32; a dtype casts each linear's input and
-parameters to it.
+parameters to it.  Dropout between layers (``deterministic=False``) is
+:func:`~.dropout.keyed_dropout` under the ``dropout_key`` the caller passes.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from ..ops.attention_blocked import gat_attend_blocked_packed_cuda
 from ..ops.segment import csr_row_ids, segment_softmax, segment_sum
 from ..ops.spmm import spmm
 from ..sampling.neighbor import NeighborSample
+from .dropout import keyed_dropout
 
 # flax's truncated normal: N(0, 1) cut at +-2, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -284,34 +286,37 @@ class _Stack(nn.Module):
         for conv in self.convs:
             conv.reset_parameters(generator)
 
-    def _act(self, h: torch.Tensor, i: int, deterministic: bool):
+    def _act(self, h: torch.Tensor, i: int, deterministic: bool,
+             dropout_key: Optional[torch.Tensor] = None):
         if i < self.num_layers - 1:
             h = self.act(h)
-            if self.dropout > 0.0 and not deterministic:
-                raise NotImplementedError(
-                    "keyed dropout is not ported yet; call with "
-                    "deterministic=True")
+            h = keyed_dropout(h, dropout_key, self.dropout, i,
+                              deterministic=deterministic)
         return h
 
     def forward(self, x: torch.Tensor, graph: SparseGraph, *,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-graph forward: x (N, F), CSC in-neighbor adjacency."""
         h = x
         for i, conv in enumerate(self.convs):
-            h = self._act(conv(h, graph), i, deterministic)
+            h = self._act(conv(h, graph), i, deterministic, dropout_key)
         return h
 
     def tree_forward(self, sample: NeighborSample, x: torch.Tensor, *,
-                     deterministic: bool = True) -> torch.Tensor:
+                     deterministic: bool = True,
+                     dropout_key: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
         """Sampled-tree forward: x (N_total, F) per-slot features; returns
-        the seed logits (num_seeds, out)."""
+        the seed logits (num_seeds, out).  With dropout on and
+        ``deterministic=False``, ``dropout_key`` keys the masks."""
         if sample.num_hops < self.num_layers:
             raise ValueError("need at least as many sampled hops as layers")
         kw = self._tree_kwargs(sample)
         h = x
         for j, conv in enumerate(self.convs):
             h = conv(h, sample=sample, keep_depths=sample.num_hops - j, **kw)
-            h = self._act(h, j, deterministic)
+            h = self._act(h, j, deterministic, dropout_key)
         return h[: sample.node_base[1]]
 
     def _tree_kwargs(self, sample: NeighborSample) -> dict:

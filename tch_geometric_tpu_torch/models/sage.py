@@ -13,6 +13,10 @@ Counterpart of ``tch_geometric_tpu/models/sage.py``.  Three forwards:
 
 Parameters follow ``torch.nn.Linear``'s default init, U(+-1/sqrt(fan_in))
 for weights and bias, drawn from an explicit ``torch.Generator``.
+``dtype=None`` computes in float32; a dtype casts each linear's input and
+parameters to it, as flax's ``nn.Dense(dtype=...)`` does (the parameters
+stay float32).  Dropout between layers (``deterministic=False``) is
+:func:`~.dropout.keyed_dropout` under the ``dropout_key`` the caller passes.
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from torch import nn
 from ..data.graph import SparseGraph
 from ..ops.spmm import spmm
 from ..sampling.neighbor import NeighborSample
+from .dropout import keyed_dropout
+from .gnn import _linear
 
 
 class SAGEConv(nn.Module):
@@ -32,8 +38,9 @@ class SAGEConv(nn.Module):
     bias."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, device=None):
+                 bias: bool = True, dtype=None, device=None):
         super().__init__()
+        self.dtype = dtype
         self.lin_self = nn.Linear(in_features, out_features, bias=bias,
                                   device=device)
         self.lin_neigh = nn.Linear(in_features, out_features, bias=False,
@@ -51,7 +58,8 @@ class SAGEConv(nn.Module):
 
     def forward(self, x_self: torch.Tensor, x_agg: torch.Tensor
                 ) -> torch.Tensor:
-        return self.lin_self(x_self) + self.lin_neigh(x_agg)
+        return (_linear(self.lin_self, x_self, self.dtype)
+                + _linear(self.lin_neigh, x_agg, self.dtype))
 
 
 def tree_neighbor_mean(h: torch.Tensor, valid: torch.Tensor,
@@ -77,7 +85,7 @@ class GraphSAGE(nn.Module):
     the meta device first so no global RNG state is read."""
 
     def __init__(self, in_features: int, hidden: int, out: int,
-                 num_layers: int, dropout: float = 0.0, *,
+                 num_layers: int, dropout: float = 0.0, *, dtype=None,
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
@@ -85,28 +93,28 @@ class GraphSAGE(nn.Module):
         self.dropout = dropout
         dims = [in_features] + [hidden] * (num_layers - 1) + [out]
         self.convs = nn.ModuleList(
-            SAGEConv(dims[i], dims[i + 1], device="meta")
+            SAGEConv(dims[i], dims[i + 1], dtype=dtype, device="meta")
             for i in range(num_layers))
         self.to_empty(device=device)
         for conv in self.convs:
             conv.reset_parameters(generator)
 
-    def _act(self, h: torch.Tensor, i: int, deterministic: bool):
+    def _act(self, h: torch.Tensor, i: int, deterministic: bool,
+             dropout_key: Optional[torch.Tensor] = None):
         if i < self.num_layers - 1:
             h = torch.relu(h)
-            if self.dropout > 0.0 and not deterministic:
-                raise NotImplementedError(
-                    "keyed dropout is not ported yet; call with "
-                    "deterministic=True")
+            h = keyed_dropout(h, dropout_key, self.dropout, i,
+                              deterministic=deterministic)
         return h
 
     def forward(self, x: torch.Tensor, graph: SparseGraph, *,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-graph forward: x (N, F), CSC in-neighbor adjacency."""
         h = x
         for i, conv in enumerate(self.convs):
             h = conv(h, spmm(graph, h, agg="mean"))
-            h = self._act(h, i, deterministic)
+            h = self._act(h, i, deterministic, dropout_key)
         return h
 
     def blocked_forward(self, x: torch.Tensor, blocked,
@@ -141,10 +149,14 @@ class GraphSAGE(nn.Module):
         return h
 
     def tree_forward(self, sample: NeighborSample, x: torch.Tensor, *,
-                     deterministic: bool = True) -> torch.Tensor:
+                     deterministic: bool = True,
+                     dropout_key: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
         """Sampled-batch forward: x (N_total, F) per-slot features; returns
         the seed logits (num_seeds, out).  Layer j updates the slots at
-        depths 0..num_hops-1-j from the depth one deeper."""
+        depths 0..num_hops-1-j from the depth one deeper.  With dropout on
+        and ``deterministic=False``, ``dropout_key`` keys the masks (the
+        trainers pass ``rng.fold(step_key, rng.DROPOUT_STREAM)``)."""
         if sample.num_hops < self.num_layers:
             raise ValueError("need at least as many sampled hops as layers")
         h = x
@@ -155,5 +167,6 @@ class GraphSAGE(nn.Module):
                               for d in range(keep_depths)], dim=0)
             n_keep = sample.node_base[keep_depths]
             h = conv(h[:n_keep], aggs)
-            h = self._act(h, j, deterministic)
+            h = self._act(h, j, deterministic, dropout_key)
         return h[: sample.node_base[1]]
+

@@ -1,1 +1,3 @@
-from .train import GnnTrainer, make_gnn_trainer
+from .train import (AdamState, GnnTrainer, MultibatchTrainer, TrainState,
+                    make_gnn_trainer, make_multibatch_sage_trainer,
+                    make_sage_trainer)

@@ -12,7 +12,8 @@ engines.  The whole multi-hop expansion has static shapes:
 
 The padded slot layout is identical to the JAX package's, and hop ``l``
 draws with ``fold(key, l)`` through the same engines, so a sample compares
-array for array.  Weighted sampling and the temporal filters are not ported
+array for array; ``split_sample_batches`` cuts an M-batch tree into M
+per-batch trees.  Weighted sampling and the temporal filters are not ported
 yet: :func:`sample_neighbors` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
@@ -171,6 +172,53 @@ def sample_neighbors(graph: CscGraph, inputs, fanouts: Sequence[int], *,
     return _sample_neighbors_impl(key, graph, inputs, zeros,
                                   tuple(int(k) for k in fanouts),
                                   with_replacement)
+
+
+def split_sample_batches(sample: NeighborSample, M: int,
+                         x: Optional[torch.Tensor] = None):
+    """Split a ``B0 = M*B``-seed tree into M per-batch trees: reshapes and
+    per-layer rebasing, no gather.
+
+    Layer ``l`` is contiguous and ordered by seed, and hop ``l``'s edges by
+    parent slot, so batch ``m``'s share of each layer or edge block is its
+    ``m``-th stripe, and ``rows``/``cols`` shift by a per-layer constant.
+    Returns a ``NeighborSample`` whose tensors have a leading ``(M, ...)``
+    axis and the B-seed ``node_base``/``edge_base``; with ``x`` (N_total,
+    F), also ``x`` split as (M, n_m, F).
+    """
+    nb, eb = sample.node_base, sample.edge_base
+    fanouts = sample.fanouts
+    B0 = nb[1]
+    if B0 % M:
+        raise ValueError(f"{B0} seeds do not split into {M} batches")
+    nb_m, eb_m = _layer_layout(B0 // M, fanouts)
+
+    def split(a, base, extra=()):
+        return torch.cat([a[base[i]: base[i + 1]].reshape(
+            (M, (base[i + 1] - base[i]) // M) + extra)
+            for i in range(len(base) - 1)], dim=1)
+
+    m_ix = torch.arange(M, device=sample.rows.device)[:, None]
+    rows_p, cols_p = [], []
+    for ell, k in enumerate(fanouts):
+        ps = (nb[ell + 1] - nb[ell]) // M       # parents per batch
+        blk = slice(eb[ell], eb[ell + 1])
+        r = sample.rows[blk].reshape(M, ps * k)
+        rows_p.append(r - nb[ell + 1] - m_ix * (ps * k) + nb_m[ell + 1])
+        c = sample.cols[blk].reshape(M, ps * k)
+        cols_p.append(c - nb[ell] - m_ix * ps + nb_m[ell])
+    out = NeighborSample(
+        nodes=split(sample.nodes, nb),
+        node_valid=split(sample.node_valid, nb),
+        node_state=split(sample.node_state, nb),
+        rows=torch.cat(rows_p, dim=1),
+        cols=torch.cat(cols_p, dim=1),
+        eptr=split(sample.eptr, eb),
+        edge_valid=split(sample.edge_valid, eb),
+        node_base=nb_m, edge_base=eb_m, fanouts=fanouts)
+    if x is None:
+        return out
+    return out, split(x, nb, tuple(x.shape[1:]))
 
 
 def compact_sample(sample: NeighborSample):

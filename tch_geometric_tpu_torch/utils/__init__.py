@@ -8,6 +8,9 @@ from .config import (
     WeightedEdgeSampler,
     validate_mixeddata,
 )
-from .params import gnn_params_from_flax, sage_params_from_flax
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from .metrics import MetricsLogger, profile, trace_span
+from .params import (adam_state_from_optax, gnn_params_from_flax,
+                     sage_params_from_flax, train_state_from_flax)
 from .types import (NAN_TIMESTAMP, EdgeType, NodeType, RelType, TypeIndex,
                     rel_key, split_rel_key, to_edge_types)

@@ -2,11 +2,13 @@
 
 Takes the flax parameter tree as nested mappings of array-likes (numpy
 arrays, or anything ``numpy.asarray`` accepts), so this module needs no
-JAX import.
+JAX import.  ``adam_state_from_optax`` and ``train_state_from_flax`` carry
+an ``optax.adam`` state and a JAX ``TrainState`` across, so a JAX run
+stopped at step K continues in the port.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -68,3 +70,42 @@ def gnn_params_from_flax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
                 out[f"{pre}.a_dst"] = _f32(conv["a_dst"])
             i += 1
     return out
+
+
+ParamsFromFlax = Callable[[Mapping], Dict[str, torch.Tensor]]
+
+
+def adam_state_from_optax(opt_state, params_from_flax: ParamsFromFlax =
+                          sage_params_from_flax, device="cuda"):
+    """``optax.adam``'s state -> the port's ``AdamState`` on ``device``.
+
+    ``opt_state`` is optax's ``ScaleByAdamState`` (``count``, ``mu``,
+    ``nu``) or the chain that holds it (``optax.adam``'s state tuple);
+    ``params_from_flax`` maps the moments' flax trees to the port's keys as
+    it maps the parameters (``sage_params_from_flax`` or
+    ``gnn_params_from_flax``)."""
+    from ..parallel.train import AdamState
+    if not hasattr(opt_state, "mu"):
+        opt_state = next(s for s in opt_state if hasattr(s, "mu"))
+
+    def moments(tree):
+        return {k: v.to(device) for k, v in params_from_flax(tree).items()}
+    return AdamState(int(np.asarray(opt_state.count)),
+                     moments(opt_state.mu), moments(opt_state.nu))
+
+
+def train_state_from_flax(model, flax_state,
+                          params_from_flax: ParamsFromFlax =
+                          sage_params_from_flax):
+    """A JAX ``TrainState`` (``params``, ``opt_state``, ``step``) -> the
+    port's ``TrainState`` of ``model``: the parameters are loaded into the
+    model, whose own parameters the state then holds, and the Adam moments
+    are put on the model's device."""
+    from ..parallel.train import TrainState
+    model.load_state_dict(params_from_flax(flax_state.params))
+    params = dict(model.named_parameters())
+    device = next(iter(params.values())).device
+    return TrainState(params,
+                      adam_state_from_optax(flax_state.opt_state,
+                                            params_from_flax, device),
+                      int(np.asarray(flax_state.step)))

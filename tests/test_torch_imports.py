@@ -30,13 +30,18 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
-MODULES = ["tch_geometric_tpu_torch.models.gnn",
+MODULES = ["tch_geometric_tpu_torch.data.dataset",
+           "tch_geometric_tpu_torch.models.dropout",
+           "tch_geometric_tpu_torch.models.gnn",
            "tch_geometric_tpu_torch.ops._build",
            "tch_geometric_tpu_torch.ops.attention_blocked",
            "tch_geometric_tpu_torch.ops.segment",
            "tch_geometric_tpu_torch.ops.spmm",
            "tch_geometric_tpu_torch.ops.spmm_kernels",
+           "tch_geometric_tpu_torch.parallel.train",
+           "tch_geometric_tpu_torch.utils.checkpoint",
            "tch_geometric_tpu_torch.utils.kernel_gates",
+           "tch_geometric_tpu_torch.utils.metrics",
            "tch_geometric_tpu_torch.utils.params"]
 
 
@@ -56,8 +61,9 @@ def test_import_loads_no_jax():
 
 @pytest.mark.parametrize("module", MODULES)
 def test_module_import_loads_no_jax(module):
-    """Each module of the GAT/GCN/GIN and attention slices, imported alone
-    in a fresh interpreter, loads no JAX and nothing of the JAX package."""
+    """Each module of the GAT/GCN/GIN, attention and training slices,
+    imported alone in a fresh interpreter, loads no JAX and nothing of the
+    JAX package."""
     code = ("import sys, importlib\n"
             f"bad = lambda: {{m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}}}\n"
@@ -80,15 +86,26 @@ EXPORTS = {
         "quantize_rows", "spmm_blocked_q8", "spmm_blocked_q8_cuda"],
     "tch_geometric_tpu_torch.utils.kernel_gates": [
         "run_gat_route_gates", "run_q8_gates"],
+    "tch_geometric_tpu_torch.parallel": [
+        "make_gnn_trainer", "make_sage_trainer",
+        "make_multibatch_sage_trainer"],
+    "tch_geometric_tpu_torch.utils": [
+        "save_checkpoint", "restore_checkpoint", "latest_step",
+        "MetricsLogger", "trace_span", "profile", "adam_state_from_optax",
+        "train_state_from_flax"],
+    "tch_geometric_tpu_torch.data": [
+        "csc_graph_from_coo", "csr_graph_from_coo"],
+    "tch_geometric_tpu_torch.sampling": ["split_sample_batches"],
+    "tch_geometric_tpu_torch.models": ["keyed_dropout"],
 }
 
 
 @pytest.mark.parametrize("module,name", [(m, n) for m, names in
                                          EXPORTS.items() for n in names])
 def test_ported_names_exported(module, name):
-    """The multi-head GAT routes (B7, B8, B9) and the int8 SpMM (B11) are
-    public names of the port; each ``_cuda`` wrapper carries a launch
-    count."""
+    """The multi-head GAT routes (B7, B8, B9), the int8 SpMM (B11) and the
+    training slice's entry points are public names of the port; each
+    ``_cuda`` wrapper carries a launch count."""
     import importlib
     obj = getattr(importlib.import_module(module), name)
     assert callable(obj)
