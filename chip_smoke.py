@@ -118,6 +118,34 @@ prints no result line):
    ``forward`` with the loss and the backward, ``update``), the top 10
    device operations by their own time with counts, and the device idle
    share of the window (1 - union of the device intervals / wall time).
+9. weighted, temporal and heterogeneous neighbor sampling (no kernel of
+   B1-B11 lies on it; the launch counts are zeroed before (a)-(b) and
+   printed after): (a) on the products graph with phase 3's SAGE, 8
+   requests of 1024 seeds (``sample_neighbors``, gather, ``tree_forward``,
+   fanouts [15, 10, 5]) under ``WeightedEdgeSampler`` (weights |N(0,1)| +
+   0.1 from a seed) without and with replacement, and under
+   ``TemporalEdgeFilter`` in STATIC, RELATIVE and DYNAMIC modes (edge
+   timestamps and seed states in [0, 1000) from a seed, window (0, 400),
+   forward): ms per request, the valid share per hop, peak device memory;
+   every valid edge is real and lies in its parent's window, every
+   temporal edge passes the window against its parent's state, in DYNAMIC
+   mode a child's state is its edge's timestamp, the logits are finite;
+   (b) ``sample_hetero_neighbors`` on a graph of ogbn-mag's shape (4 node
+   types, 7 relations, 36.8M edges, endpoints uniform from a seed), 1024
+   paper seeds, [15, 10] per relation, uniform, weighted (without and with
+   replacement) and temporal DYNAMIC, where the field_of_study relation
+   has no ELL table and runs the window engines; and uniform at
+   ``scripts/bench_samplers.py``'s hetero configuration (3 types x 6
+   relations of 300k edges, [5, 5], 256 seeds a type; the fused hop): ms
+   per request, valid slots per type, (a)'s edge checks per relation; (c)
+   card against CPU, same seeds, states and key: every configuration of
+   (a) and uniform on the 5% node subgraph, on its ELL table and on the
+   window engines (16-lane chunks), every configuration of (b) on (b)'s
+   graph cut to 5% of each type's nodes, each relation on its full-size
+   engine; uniform exactly equal, the
+   seeds' hop-0 validity (the filter masks) exactly equal, Gumbel-ranked
+   samples differing in at most 1e-4 of the valid slots (the count is
+   printed); and ``rng.gumbel`` on 1M draws within rtol 4e-7.
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -1720,6 +1748,440 @@ def profile_phase(p, trainers, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: weighted, temporal and heterogeneous neighbor sampling
+# ---------------------------------------------------------------------------
+
+SAMPLER_CONFIGS = ("weighted", "weighted_replace", "temporal_static",
+                   "temporal_relative", "temporal_dynamic")
+TEMPORAL_WINDOW = (0, 400)
+TIME_RANGE = 1000               # edge timestamps and seed states in [0, 1000)
+GUMBEL_RATE_LIMIT = 1e-4        # card vs CPU: differing valid slots / valid
+GUMBEL_RTOL = 4e-7              # tests/test_torch_rng.py's limit
+GUMBEL_ATOL = 1e-6
+CUT_WINDOW = 16                 # (c)'s window engines: several chunks
+# ogbn-mag as OGB publishes it: node counts, and the four relations with
+# their edge counts; each relation but cites also runs reversed
+MAG_NODES = {"paper": 736_389, "author": 1_134_649, "institution": 8_740,
+             "field_of_study": 59_965}
+MAG_RELATIONS = ((("author", "writes", "paper"), 7_145_660),
+                 (("paper", "cites", "paper"), 5_416_271),
+                 (("paper", "has_topic", "field_of_study"), 7_505_078),
+                 (("author", "affiliated_with", "institution"), 1_043_998))
+MAG_FANOUTS = [15, 10]
+HETERO_CONFIGS = ("uniform", "weighted", "weighted_replace",
+                  "temporal_dynamic")
+# scripts/bench_samplers.py's hetero configuration
+BENCH_TYPES, BENCH_NODES, BENCH_EDGES = ("v0", "v1", "v2"), 50_000, 300_000
+BENCH_PAIRS = (("v0", "v1"), ("v1", "v0"), ("v1", "v2"), ("v2", "v1"),
+               ("v0", "v2"), ("v2", "v0"))
+BENCH_FANOUTS, BENCH_SEEDS = [5, 5], 256
+
+
+def sampler_kwargs(cfg, weights, timestamps, states):
+    """``sample_neighbors`` / ``sample_hetero_neighbors`` keyword arguments
+    of configuration ``cfg``: "uniform" (without replacement), "weighted"
+    (``weights``, with or without replacement) or "temporal_<mode>"
+    (uniform draws among the edges whose ``timestamps`` pass the forward
+    window ``TEMPORAL_WINDOW`` against the parents' ``states``)."""
+    from tch_geometric_tpu_torch.utils import config as c
+    if cfg == "uniform":
+        return dict(sampler=c.UniformEdgeSampler(False))
+    if cfg.startswith("weighted"):
+        return dict(sampler=c.WeightedEdgeSampler(
+            weights, with_replacement=cfg == "weighted_replace"))
+    mode = {"temporal_static": c.TEMPORAL_SAMPLE_STATIC,
+            "temporal_relative": c.TEMPORAL_SAMPLE_RELATIVE,
+            "temporal_dynamic": c.TEMPORAL_SAMPLE_DYNAMIC}[cfg]
+    return dict(filter=(c.TemporalEdgeFilter(TEMPORAL_WINDOW, timestamps,
+                                             True, mode), states))
+
+
+def edge_values(num_edges, seed, device):
+    """Per-edge weights ``|N(0, 1)| + 0.1`` (float32, as
+    ``scripts/bench_samplers.py`` makes them) and int64 timestamps in
+    ``[0, TIME_RANGE)``, from ``seed``."""
+    r = np.random.default_rng(seed)
+    w = np.abs(r.normal(size=num_edges)).astype(np.float32) + 0.1
+    ts = r.integers(0, TIME_RANGE, num_edges)
+    return torch.from_numpy(w).to(device), torch.from_numpy(ts).to(device)
+
+
+def check_edges(what, cfg, indptr, indices, src_nodes, dst_nodes, src_state,
+                dst_state, rows, cols, eptr, edge_valid, timestamps):
+    """Every valid edge of one relation is real (``indices[eptr]`` is its
+    child, ``eptr`` in its parent's window); a temporal edge passes the
+    window against its parent's state; in DYNAMIC mode the child's state
+    is the edge's timestamp.  Returns the number of valid edges."""
+    e = eptr[edge_valid]
+    child, parent = src_nodes[rows[edge_valid]], dst_nodes[cols[edge_valid]]
+    check(torch.equal(indices[e], child), f"{what}: every valid edge is real")
+    check(bool(((e >= indptr[parent]) & (e < indptr[parent + 1])).all()),
+          f"{what}: every edge lies in its parent's window")
+    if cfg.startswith("temporal"):
+        t = timestamps[e]
+        d = t if cfg == "temporal_static" else t - dst_state[cols[edge_valid]]
+        lo, hi = TEMPORAL_WINDOW
+        check(bool(((d >= lo) & (d <= hi)).all()),
+              f"{what}: every edge passes the temporal window")
+        if cfg == "temporal_dynamic":
+            check(torch.equal(src_state[rows[edge_valid]], t),
+                  f"{what}: a child's state is its edge's timestamp")
+    return int(e.shape[0])
+
+
+def hop_valid_shares(sample):
+    nb = sample.node_base
+    return [float(sample.node_valid[nb[i + 1]:nb[i + 2]].float().mean())
+            for i in range(len(nb) - 2)]
+
+
+def sampling_requests(p, device, timer):
+    """Phase 9 (a): for each configuration of ``SAMPLER_CONFIGS`` on the
+    products graph, ``REQUESTS`` requests of 1024 seeds (the first a
+    warm-up): ``sample_neighbors``, feature gather, ``tree_forward``; ms per
+    request, the valid share per hop, peak device memory; each request's
+    edges checked and its logits finite."""
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.sampling.neighbor import sample_neighbors
+    model, graph, x_table = p["model"], p["graph"], p["x_table"]
+    n = x_table.shape[0]
+    weights, ts = edge_values(graph.num_edges, 21, device)
+    out = {}
+    with torch.no_grad():
+        for cfg in SAMPLER_CONFIGS:
+            gen = torch.Generator().manual_seed(22)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, shares = [], []
+            for r in range(REQUESTS):
+                seeds = torch.randint(0, n, (SEEDS_PER_REQUEST,),
+                                      generator=gen).to(device)
+                states = torch.randint(0, TIME_RANGE, (SEEDS_PER_REQUEST,),
+                                       generator=gen).to(device)
+                kw = sampler_kwargs(cfg, weights, ts, states)
+                key = rng.fold(rng.key(23), r)
+
+                def request():
+                    s = sample_neighbors(graph, seeds, FANOUTS, key=key, **kw)
+                    x = x_table[s.nodes.clamp(0, n - 1)]
+                    return s, model.tree_forward(s, x)
+                (s, logits), t = timer(request)
+                ms.append(t)
+                check(logits.shape == (SEEDS_PER_REQUEST, 47)
+                      and bool(torch.isfinite(logits).all()),
+                      f"{cfg} request logits finite, (1024, 47)")
+                check_edges(f"{cfg} request {r}", cfg, graph.indptr,
+                            graph.indices, s.nodes, s.nodes, s.node_state,
+                            s.node_state, s.rows, s.cols, s.eptr,
+                            s.edge_valid, ts)
+                shares.append(hop_valid_shares(s))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            share = np.mean(shares, axis=0).tolist()
+            mean = float(np.mean(ms[1:]))
+            log(f"sampling {cfg}: request ms (first, warm-up) {ms[0]:.1f}, "
+                "then " + ", ".join(f"{m:.1f}" for m in ms[1:])
+                + f"; mean {mean:.2f} ms; valid share per hop "
+                + ", ".join(f"{v:.4f}" for v in share)
+                + f"; peak device memory {peak:.2f} GiB; edges checked")
+            out[cfg] = dict(request_ms=ms[1:], first_request_ms=ms[0],
+                            request_ms_mean=mean, valid_share_per_hop=share,
+                            peak_device_gib=peak)
+    return out
+
+
+def mag_graph(scale, seed=30):
+    """A graph of ogbn-mag's shape: ``MAG_NODES`` and ``MAG_RELATIONS``
+    (with the reverses of writes, has_topic and affiliated_with) at
+    ``scale``, endpoints uniform from ``seed``.  Returns the node counts,
+    edge types and per-relation host CSC ``(col_ptrs, row_indices)``."""
+    from tch_geometric_tpu_torch.data.storage import to_csc
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    r = np.random.default_rng(seed)
+    counts = {t: max(int(c * scale), 16) for t, c in MAG_NODES.items()}
+    coo = {}
+    for (s, rel, d), e in MAG_RELATIONS:
+        e = max(int(e * scale), 64)
+        ei = np.stack([r.integers(0, counts[s], e),
+                       r.integers(0, counts[d], e)])
+        coo[(s, rel, d)] = ei
+        if rel != "cites":
+            coo[(d, f"rev_{rel}", s)] = ei[::-1]
+    csc = {rel_key(e): to_csc(ei, (counts[e[0]], counts[e[2]]))[:2]
+           for e, ei in coo.items()}
+    return counts, sorted(coo), csc
+
+
+def hetero_graphs(counts, edge_types, csc, device, no_ell=()):
+    """Device graphs of host CSC arrays; relations in ``no_ell`` get no
+    ELL table."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    return {rel_key(e): make_graph(*csc[rel_key(e)], num_src=counts[e[0]],
+                                   num_dst=counts[e[2]], device=device,
+                                   ell_table=False if rel_key(e) in no_ell
+                                   else None)
+            for e in edge_types}
+
+
+def hetero_edge_values(graphs, seed, device):
+    vals = {r: edge_values(g.num_edges, seed + i, device)
+            for i, (r, g) in enumerate(sorted(graphs.items()))}
+    return ({r: v[0] for r, v in vals.items()},
+            {r: v[1] for r, v in vals.items()})
+
+
+def check_hetero_sample(what, cfg, s, graphs, edge_types, timestamps):
+    """(a)'s edge checks on every relation of a hetero sample; returns the
+    valid edges per relation."""
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    out = {}
+    for src, rel, dst in edge_types:
+        r, g = rel_key((src, rel, dst)), graphs[rel_key((src, rel, dst))]
+        out[r] = check_edges(
+            f"{what} {r}", cfg, g.indptr, g.indices, s.nodes[src],
+            s.nodes[dst], s.node_state[src], s.node_state[dst], s.rows[r],
+            s.cols[r], s.eptr[r], s.edge_valid[r],
+            None if timestamps is None else timestamps[r])
+    return out
+
+
+def hetero_requests(mag, scale, device, timer):
+    """Phase 9 (b): the ogbn-mag-shaped graph ``mag`` (``mag_graph``'s
+    host arrays), 1024 paper seeds, 2 hops of
+    ``MAG_FANOUTS`` per relation, under each of ``HETERO_CONFIGS``; then
+    uniform sampling at ``scripts/bench_samplers.py``'s hetero
+    configuration.  ``REQUESTS`` requests each (the first a warm-up): ms per
+    request, valid slots per type, (a)'s edge checks per relation."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.data.storage import to_csc
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.sampling.hetero_neighbor import \
+        sample_hetero_neighbors
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    t0 = time.perf_counter()
+    counts, edge_types, csc = mag
+    graphs = hetero_graphs(counts, edge_types, csc, device)
+    weights, ts = hetero_edge_values(graphs, 31, device)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    log(f"hetero mag graph: device tables and edge values {prep_s:.1f}s; "
+        + ", ".join(f"{t} {c}" for t, c in counts.items()) + "; "
+        + "; ".join(f"{r} E={g.num_edges} max_degree={g.max_degree} "
+                    f"ELL={g.ell is not None}" for r, g in graphs.items()))
+    nn = {r: MAG_FANOUTS for r in graphs}
+    out = {"mag_prep_s": prep_s}
+
+    def run(name, cfg, graphs, edge_types, nn, make_inputs, num_hops,
+            weights=None, ts=None):
+        gen = torch.Generator().manual_seed(32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, valid = [], {}
+        for r in range(REQUESTS):
+            inputs, states = make_inputs(gen)
+            kw = sampler_kwargs(cfg, weights, ts, states)
+            key = rng.fold(rng.key(33), r)
+            s, t = timer(lambda: sample_hetero_neighbors(
+                graphs, edge_types, inputs, nn, num_hops, key=key, **kw))
+            ms.append(t)
+            check_hetero_sample(f"{name} {cfg} request {r}", cfg, s, graphs,
+                                edge_types,
+                                ts if cfg.startswith("temporal") else None)
+            for k, v in s.node_valid.items():
+                valid.setdefault(k, []).append(int(v.sum()))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        mean = float(np.mean(ms[1:]))
+        valid = {k: float(np.mean(v)) for k, v in valid.items()}
+        log(f"hetero {name} {cfg}: request ms (first, warm-up) {ms[0]:.1f}, "
+            "then " + ", ".join(f"{m:.1f}" for m in ms[1:])
+            + f"; mean {mean:.2f} ms; valid slots per type (mean) "
+            + ", ".join(f"{k} {v:.0f}" for k, v in valid.items())
+            + f"; peak device memory {peak:.2f} GiB; edges checked")
+        return dict(request_ms=ms[1:], first_request_ms=ms[0],
+                    request_ms_mean=mean, valid_slots=valid,
+                    peak_device_gib=peak)
+
+    def mag_inputs(gen):
+        seeds = torch.randint(0, counts["paper"], (SEEDS_PER_REQUEST,),
+                              generator=gen).to(device)
+        states = torch.randint(0, TIME_RANGE, (SEEDS_PER_REQUEST,),
+                               generator=gen).to(device)
+        return {"paper": seeds}, {"paper": states}
+
+    with torch.no_grad():
+        for cfg in HETERO_CONFIGS:
+            out[f"mag_{cfg}"] = run("mag", cfg, graphs, edge_types, nn,
+                                    mag_inputs, len(MAG_FANOUTS), weights, ts)
+        del graphs, weights, ts
+        torch.cuda.empty_cache()
+
+        r = np.random.default_rng(34)
+        nt = max(int(BENCH_NODES * scale), 64)
+        er = max(int(BENCH_EDGES * scale), 256)
+        b_types = [(a, f"r{i}", b) for i, (a, b) in enumerate(BENCH_PAIRS)]
+        b_graphs = {}
+        for e in b_types:
+            ei = np.stack([r.integers(0, nt, er), r.integers(0, nt, er)])
+            cp, ri, _ = to_csc(ei, nt)
+            b_graphs[rel_key(e)] = make_graph(cp, ri, num_src=nt, num_dst=nt,
+                                              device=device)
+        b_seeds = {t: torch.from_numpy(r.integers(0, nt, BENCH_SEEDS)).to(
+            device) for t in BENCH_TYPES}
+        out["bench_uniform"] = run(
+            "bench_samplers", "uniform", b_graphs, b_types,
+            {k: BENCH_FANOUTS for k in b_graphs},
+            lambda gen: (b_seeds, {}), len(BENCH_FANOUTS))
+    return out
+
+
+def tree_diff(a, b):
+    """Valid node slots where two homogeneous samples differ (validity,
+    node id, state, or the eptr of the edge that made the slot), and the
+    card's valid slots."""
+    va, vb = a.node_valid.cpu(), b.node_valid
+    ea = torch.cat([torch.zeros(a.node_base[1], dtype=torch.long),
+                    a.eptr.cpu()])
+    eb = torch.cat([torch.zeros(b.node_base[1], dtype=torch.long), b.eptr])
+    both = va & vb
+    diff = (va != vb) | (both & ((a.nodes.cpu() != b.nodes)
+                                 | (a.node_state.cpu() != b.node_state)
+                                 | (ea != eb)))
+    return int(diff.sum()), int(va.sum())
+
+
+def hetero_diff(a, b):
+    d, v = 0, 0
+    for t in a.nodes:
+        va, vb = a.node_valid[t].cpu(), b.node_valid[t]
+        both = va & vb
+        d += int(((va != vb) | (both & ((a.nodes[t].cpu() != b.nodes[t])
+                  | (a.node_state[t].cpu() != b.node_state[t])))).sum())
+        v += int(va.sum())
+    for r in a.eptr:
+        va, vb = a.edge_valid[r].cpu(), b.edge_valid[r]
+        d += int(((va != vb) | (va & vb & (a.eptr[r].cpu() != b.eptr[r])))
+                 .sum())
+    return d, v
+
+
+def check_card_vs_cpu_outputs(what, cfg, diff, valid, exact):
+    """The uniform configuration must agree exactly; a Gumbel-ranked one
+    may differ where two candidates' keys lie within an ulp of ``log``
+    (torch's log on the card and on the CPU), at most
+    ``GUMBEL_RATE_LIMIT`` of the valid slots."""
+    rate = diff / max(valid, 1)
+    log(f"check: {what} {cfg} card vs CPU: {diff} of {valid} valid slots "
+        f"differ ({rate:.2e}; limit {'0' if exact else GUMBEL_RATE_LIMIT})")
+    if exact:
+        check(diff == 0, f"{what} {cfg}: card and CPU samples agree")
+    else:
+        check(rate <= GUMBEL_RATE_LIMIT,
+              f"{what} {cfg}: card and CPU samples differ at {rate:.2e}")
+    return dict(differing_slots=diff, valid_slots=valid, rate=rate)
+
+
+def check_sampling_card_vs_cpu(sg, mag, device):
+    """Phase 9 (c): the same seeds, states and key on the card and on the
+    CPU, for "uniform" and every configuration of (a) on the 5% node
+    subgraph, on its ELL table and, with ``window=CUT_WINDOW``, on the
+    window engines; for every configuration of (b) on (b)'s graph cut to
+    5% of each type's nodes, each relation on the engine it has at full
+    size (``window=CUT_WINDOW``); the seeds' hop-0 validity (the filter
+    masks) exactly equal; and ``rng.gumbel`` on 1M draws."""
+    from tch_geometric_tpu_torch.data.graph import ell_width_for, make_graph
+    from tch_geometric_tpu_torch.data.storage import to_csc
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.sampling.hetero_neighbor import \
+        sample_hetero_neighbors
+    from tch_geometric_tpu_torch.sampling.neighbor import sample_neighbors
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    cpu = torch.device("cpu")
+    out = {}
+    ns = sg["ns"]
+    w, ts = edge_values(len(sg["ri"]), 24, cpu)
+    r = np.random.default_rng(25)
+    seeds = torch.from_numpy(r.integers(0, ns, SEEDS_PER_REQUEST))
+    states = torch.from_numpy(r.integers(0, TIME_RANGE, SEEDS_PER_REQUEST))
+    k0 = SEEDS_PER_REQUEST * FANOUTS[0]
+    for engine, ell, window, cfgs in (
+            ("ELL", None, 256, ("uniform",) + SAMPLER_CONFIGS),
+            ("window", False, CUT_WINDOW, SAMPLER_CONFIGS)):
+        g = {dev: make_graph(sg["cp"], sg["ri"], num_src=ns, num_dst=ns,
+                             ell_table=ell, device=dev)
+             for dev in (device, cpu)}
+        check((g[cpu].ell is None) == (ell is False),
+              f"the subgraph's {engine} engine")
+        for cfg in cfgs:
+            s = {dev: sample_neighbors(
+                g[dev], seeds.to(dev), FANOUTS, key=rng.key(26),
+                window=window, **sampler_kwargs(cfg, w.to(dev), ts.to(dev),
+                                                states.to(dev)))
+                for dev in (device, cpu)}
+            check(torch.equal(s[device].edge_valid[:k0].cpu(),
+                              s[cpu].edge_valid[:k0]),
+                  f"{cfg}: the seeds' hop-0 validity agrees card vs CPU")
+            out[f"homogeneous_{engine}_{cfg}"] = check_card_vs_cpu_outputs(
+                f"{ns}-node subgraph, {engine}", cfg,
+                *tree_diff(s[device], s[cpu]), exact=cfg == "uniform")
+
+    counts, edge_types, csc = mag
+    r = np.random.default_rng(27)
+    keep = {t: np.sort(r.choice(c, max(int(c * 0.05), 16), replace=False))
+            for t, c in counts.items()}
+    new_id = {}
+    for t, k in keep.items():
+        new_id[t] = np.full(counts[t], -1, np.int64)
+        new_id[t][k] = np.arange(len(k))
+    sub_csc = {}
+    for e in edge_types:
+        cp, ri = csc[rel_key(e)]
+        dst = np.repeat(np.arange(len(cp) - 1), np.diff(cp))
+        ei = np.stack([new_id[e[0]][ri], new_id[e[2]][dst]])
+        ei = ei[:, (ei >= 0).all(axis=0)]
+        sub_csc[rel_key(e)] = to_csc(ei, (len(keep[e[0]]),
+                                          len(keep[e[2]])))[:2]
+    sub_counts = {t: len(k) for t, k in keep.items()}
+    no_ell = {rk for rk, (cp, _) in csc.items()
+              if ell_width_for(int(np.diff(cp).max())) is None}
+    graphs = {dev: hetero_graphs(sub_counts, edge_types, sub_csc, dev,
+                                 no_ell)
+              for dev in (device, cpu)}
+    hw, hts = hetero_edge_values(graphs[cpu], 28, cpu)
+    seeds = torch.from_numpy(r.integers(0, sub_counts["paper"],
+                                        SEEDS_PER_REQUEST))
+    states = torch.from_numpy(r.integers(0, TIME_RANGE, SEEDS_PER_REQUEST))
+    nn = {k: MAG_FANOUTS for k in graphs[cpu]}
+    for cfg in HETERO_CONFIGS:
+        s = {dev: sample_hetero_neighbors(
+            graphs[dev], edge_types, {"paper": seeds.to(dev)}, nn,
+            len(MAG_FANOUTS), key=rng.key(29), window=CUT_WINDOW,
+            **sampler_kwargs(
+                cfg, {k: v.to(dev) for k, v in hw.items()},
+                {k: v.to(dev) for k, v in hts.items()},
+                {"paper": states.to(dev)}))
+            for dev in (device, cpu)}
+        base = s[cpu].layout().rel_edge_base
+        check(all(torch.equal(s[device].edge_valid[rk][:base[rk][1]].cpu(),
+                              ev[:base[rk][1]])
+                  for rk, ev in s[cpu].edge_valid.items()),
+              f"{cfg}: the seeds' hop-0 validity agrees card vs CPU")
+        out[f"hetero_{cfg}"] = check_card_vs_cpu_outputs(
+            "5% mag cut", cfg, *hetero_diff(s[device], s[cpu]),
+            exact=cfg == "uniform")
+
+    k = rng.key(35)
+    a = rng.gumbel(k, (1 << 20,), device=device).cpu()
+    b = rng.gumbel(k, (1 << 20,), device="cpu")
+    err = float(((a - b).abs() - GUMBEL_RTOL * b.abs()).max())
+    log(f"check: rng.gumbel 1M draws card vs CPU: max |diff| "
+        f"{maxerr(a, b):.3e}, {int((a != b).sum())} draws differ "
+        f"(rtol {GUMBEL_RTOL}, atol {GUMBEL_ATOL})")
+    check(err <= GUMBEL_ATOL, "rng.gumbel card vs CPU within rtol")
+    out["gumbel_card_vs_cpu_max_diff"] = maxerr(a, b)
+    return out
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1908,6 +2370,23 @@ def main(argv=None) -> int:
     train_res["card_vs_cpu"] = check_train_card_vs_cpu(p["data"], sg, device)
     prof = profile_phase(p, trainers, device)
     del trainers
+    torch.cuda.empty_cache()
+
+    for fn in wrappers:
+        fn.launches = 0
+    sampling_res = sampling_requests(p, device, timer)
+    t = time.perf_counter()
+    mag = mag_graph(args.scale)
+    sampling_res["mag_host_s"] = time.perf_counter() - t
+    log(f"hetero mag graph: host COO and CSC "
+        f"{sampling_res['mag_host_s']:.1f}s")
+    sampling_res["hetero"] = hetero_requests(mag, args.scale, device, timer)
+    sampling_launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"sampling path launches (no kernel of B1-B11 lies on it): "
+        f"{sampling_launches}")
+    torch.cuda.empty_cache()
+    sampling_res["card_vs_cpu"] = check_sampling_card_vs_cpu(sg, mag, device)
+    del mag
 
     summary = dict(
         card=card, scale=args.scale, nodes=n, edges=p["graph"].num_edges,
@@ -1931,7 +2410,7 @@ def main(argv=None) -> int:
         attend_routes_vs_composed_f32=attend_route_errs,
         attend_vs_segment_f32=attend_sub,
         attend_peak_device_gib=attend_peak_gb,
-        train=train_res, profile=prof,
+        train=train_res, profile=prof, sampling=sampling_res,
         total_s=time.perf_counter() - t_all, **sub)
     log("serving: " + json.dumps(summary))
     if args.scale == 1.0:

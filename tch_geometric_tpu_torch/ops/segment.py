@@ -1,12 +1,13 @@
-"""Segment reductions over CSR edge structures.
+"""Segment reductions over CSR edge structures, and CSC edge transforms.
 
-Counterpart of ``tch_geometric_tpu/ops/segment.py`` (its numpy CSC edge
-transforms are not ported yet): the plain gather + segment-reduce
-formulation behind the full-graph ``__call__`` of GraphSAGE, GCN, GIN and
-GAT.
+Counterpart of ``tch_geometric_tpu/ops/segment.py``: the plain gather +
+segment-reduce formulation behind the full-graph ``__call__`` of
+GraphSAGE, GCN, GIN and GAT, and the host (numpy) per-column edge
+transforms ``csc_sort_edges`` and ``csc_edge_cumsum``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -58,3 +59,28 @@ def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
         ex = torch.where(m, ex, 0.0)
     den = segment_sum(ex, segment_ids, num_segments)
     return ex / den[segment_ids].clamp(min=1e-16)
+
+
+def csc_sort_edges(col_ptrs, perm, row_weights, descending: bool = False
+                   ) -> np.ndarray:
+    """Within each CSC column, stably reorder ``perm`` by ``row_weights``:
+    one lexsort on (column, weight), no loop over columns.  Pointers past
+    the edge count are clamped to it."""
+    perm = np.asarray(perm)
+    w = np.asarray(row_weights)
+    E = perm.shape[0]
+    col_ptrs = np.minimum(np.asarray(col_ptrs), E)
+    col_of = np.repeat(np.arange(col_ptrs.shape[0] - 1), np.diff(col_ptrs))
+    order = np.lexsort((-w if descending else w, col_of))
+    return perm[order]
+
+
+def csc_edge_cumsum(col_ptrs, row_data) -> np.ndarray:
+    """Per-column inclusive cumulative sum of edge data: the global cumsum
+    less each column's base."""
+    x = np.asarray(row_data)
+    col_ptrs = np.minimum(np.asarray(col_ptrs), x.shape[0])
+    csum = np.cumsum(x)
+    base = np.concatenate([[0], csum])[col_ptrs[:-1]]
+    col_of = np.repeat(np.arange(col_ptrs.shape[0] - 1), np.diff(col_ptrs))
+    return (csum - base[col_of]).astype(x.dtype)

@@ -13,8 +13,14 @@ engines.  The whole multi-hop expansion has static shapes:
 The padded slot layout is identical to the JAX package's, and hop ``l``
 draws with ``fold(key, l)`` through the same engines, so a sample compares
 array for array; ``split_sample_batches`` cuts an M-batch tree into M
-per-batch trees.  Weighted sampling and the temporal filters are not ported
-yet: :func:`sample_neighbors` raises ``NotImplementedError`` for them.
+per-batch trees.
+
+Weighted sampling (``WeightedEdgeSampler``) and the three temporal filter
+modes run the Gumbel engines: on graphs with an ELL table the windowed
+values engine (each node's ``max_degree`` lane values by one clamped
+gather, then a ``(B, P)`` top-k or a ``(B, k, P)`` argmax), elsewhere the
+chunked window engines of ``primitives.py``.  Timestamps and filter states
+are int32, as in the JAX package, so ``t - state`` wraps alike.
 """
 from __future__ import annotations
 
@@ -25,7 +31,9 @@ import numpy as np
 import torch
 
 from ..data.graph import CscGraph, make_graph
-from ..utils.config import EdgeSampler, UniformEdgeSampler
+from ..utils.config import (TEMPORAL_SAMPLE_DYNAMIC, TEMPORAL_SAMPLE_STATIC,
+                            EdgeSampler, TemporalEdgeFilter,
+                            WeightedEdgeSampler)
 from . import primitives, rng
 
 
@@ -40,7 +48,7 @@ class NeighborSample:
 
     nodes: torch.Tensor        # (N_total,) int64 node ids (garbage if invalid)
     node_valid: torch.Tensor   # (N_total,) bool
-    node_state: torch.Tensor   # (N_total,) int64 filter state (zeros)
+    node_state: torch.Tensor   # (N_total,) int64 filter state (timestamps)
     rows: torch.Tensor         # (E_total,) int64 local src slot
     cols: torch.Tensor         # (E_total,) int64 local dst slot
     eptr: torch.Tensor         # (E_total,) int64 global edge ptr
@@ -64,10 +72,114 @@ def _layer_layout(num_seeds: int, fanouts: Sequence[int]):
     return tuple(node_base), tuple(edge_base)
 
 
+def _filter_mask_from_ts(filter_cfg: TemporalEdgeFilter, t: torch.Tensor,
+                         state: torch.Tensor) -> torch.Tensor:
+    """The temporal window test on edge timestamps ``t`` (B, ...) against
+    the parents' states (B,): STATIC tests ``t``, RELATIVE and DYNAMIC
+    ``t - state`` (negated when not ``forward``), in int32; the window is
+    inclusive at both ends."""
+    lo, hi = filter_cfg.window
+    if filter_cfg.mode == TEMPORAL_SAMPLE_STATIC:
+        d = t
+    else:
+        d = t - state.reshape(state.shape + (1,) * (t.dim() - state.dim()))
+        if not filter_cfg.forward:
+            d = -d
+    return (d >= lo) & (d <= hi)
+
+
+def _filter_mask_fn(filter_cfg, timestamps, state):
+    """``mask_at(eptr) -> bool`` for the current frontier."""
+
+    def mask_at(eptr):
+        return _filter_mask_from_ts(filter_cfg, timestamps[eptr], state)
+
+    return mask_at
+
+
+def _aligned_window_values(arr: torch.Tensor, starts: torch.Tensor,
+                           num_pos: int) -> torch.Tensor:
+    """``vals (B, num_pos)`` with ``vals[i, p] == arr[starts[i] + p]``, by
+    one clamped gather (lanes past the array end repeat its last value;
+    mask them with the degree)."""
+    idx = starts.long()[:, None] + torch.arange(num_pos, device=arr.device)
+    return arr[idx.clamp(0, max(arr.shape[0] - 1, 0))]
+
+
+def _select_lanes(lanes: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``lanes[i, pos[i, s]]`` (``pos`` in range)."""
+    return torch.gather(lanes, -1, pos)
+
+
+def sample_edges_uniform(key, graph: CscGraph, frontier, frontier_valid,
+                         k: int):
+    """Uniform k-subset of each frontier node's in-edges: per node
+    ``min(k, deg)`` distinct edges, by lane ranking on the ELL row when the
+    table exists, else by Floyd's algorithm.  Returns ``(deg (B,), pos
+    (B, k), pvalid (B, k), eptr (B, k), v (B, k))``, ``v`` the neighbor
+    ids."""
+    node = frontier.clamp(0, graph.num_ptr_nodes - 1)
+    if graph.ell is not None:
+        lanes, deg_l, starts = graph.ell_rows(node)
+        deg = torch.where(frontier_valid, deg_l, 0).long()
+        pos, pvalid = primitives.uniform_lane_topk(key, deg, lanes.shape[-1],
+                                                   k)
+    else:
+        starts, ends = graph.neighbors_range(node)
+        deg = torch.where(frontier_valid, ends - starts, 0)
+        pos, pvalid = primitives.floyd_sample(key, deg, k)
+    eptr = (starts.long()[:, None] + pos).clamp(0, max(graph.num_edges - 1, 0))
+    if graph.ell is not None:
+        v = _select_lanes(lanes, pos.clamp(0, lanes.shape[-1] - 1)).long()
+    else:
+        v = graph.gather_neighbors(eptr)
+    return deg, pos, pvalid, eptr, v
+
+
+def _ell_values_sample(key, graph: CscGraph, starts, degs, frontier_state,
+                       k: int, with_replacement: bool, log_weights,
+                       filter_cfg, timestamps):
+    """The windowed-values engine of ELL graphs: each node's P =
+    ``max_degree`` lane values by one gather, then a Gumbel top-k over the
+    (B, P) keys, or ``k`` argmaxes over (B, k, P) with replacement.
+    Returns ``(pos, valid, tvals)``; ``tvals`` are the lanes' timestamps
+    (None unfiltered)."""
+    P = max(graph.max_degree, 1)
+    lane_ok = torch.arange(P, device=degs.device)[None, :] < degs[..., None]
+    logits = torch.zeros(degs.shape + (P,), dtype=torch.float32,
+                         device=degs.device)
+    if log_weights is not None:
+        logits = _aligned_window_values(log_weights, starts, P)
+    tvals = None
+    if filter_cfg is not None:
+        tvals = _aligned_window_values(timestamps, starts, P)
+        lane_ok = lane_ok & _filter_mask_from_ts(filter_cfg, tvals,
+                                                 frontier_state)
+    logits = torch.where(lane_ok, logits, primitives.NEG_INF)
+    finite = torch.isfinite(logits)
+    if with_replacement:
+        noise = rng.gumbel(key, degs.shape + (k, P), device=degs.device)
+        total = torch.where(finite[..., None, :], logits[..., None, :] + noise,
+                            primitives.NEG_INF)
+        pos = primitives.argmax(total)
+        valid = torch.isfinite(total.amax(dim=-1))
+    else:
+        noise = rng.gumbel(key, logits.shape, device=degs.device)
+        keys_ = torch.where(finite, logits + noise, primitives.NEG_INF)
+        # k > P: JAX's lax.top_k refuses; the slots past P are invalid, as
+        # the window engines leave them
+        pos, valid = primitives.topk_slots(keys_, k)
+    return torch.where(valid, pos, 0), valid, tvals
+
+
 def _sample_one_hop(key, graph: CscGraph, frontier, frontier_valid,
-                    frontier_state, k: int, *, with_replacement: bool):
-    """Sample <= k in-edges of each frontier node (uniform, unfiltered).
-    Returns ``(eptr (B,k), neighbor (B,k), valid (B,k), state (B,k))``."""
+                    frontier_state, k: int, *, with_replacement: bool,
+                    log_weights=None, filter_cfg=None, timestamps=None,
+                    window: int = 256):
+    """Sample <= k in-edges of each frontier node.  ``log_weights`` (E,)
+    float32 and ``timestamps`` (E,) int32 are by sorted edge position;
+    ``filter_cfg`` a ``TemporalEdgeFilter`` or None.  Returns ``(eptr
+    (B,k), neighbor (B,k), valid (B,k), state (B,k))``."""
     node = frontier.clamp(0, graph.num_ptr_nodes - 1)
     ell_lanes = None
     if graph.ell is not None:
@@ -78,38 +190,64 @@ def _sample_one_hop(key, graph: CscGraph, frontier, frontier_valid,
         degs = torch.where(frontier_valid, ends - starts, 0)
     starts = starts.long()
 
-    if with_replacement:
-        pos, valid = primitives.replacement_positions(key, degs, k)
+    tvals = None
+    if filter_cfg is None and log_weights is None:
+        if with_replacement:
+            pos, valid = primitives.replacement_positions(key, degs, k)
+        elif ell_lanes is not None:
+            pos, valid = primitives.uniform_lane_topk(
+                key, degs, ell_lanes.shape[-1], k)
+        else:
+            pos, valid = primitives.floyd_sample(key, degs, k)
     elif ell_lanes is not None:
-        pos, valid = primitives.uniform_lane_topk(
-            key, degs, ell_lanes.shape[-1], k)
+        pos, valid, tvals = _ell_values_sample(
+            key, graph, starts, degs, frontier_state, k, with_replacement,
+            log_weights, filter_cfg, timestamps)
     else:
-        pos, valid = primitives.floyd_sample(key, degs, k)
+        engine = (primitives.window_choice_sample if with_replacement
+                  else primitives.window_topk_sample)
+        logw_at = None if log_weights is None else log_weights.__getitem__
+        mask_at = (None if filter_cfg is None else
+                   _filter_mask_fn(filter_cfg, timestamps, frontier_state))
+        pos, valid = engine(key, starts, degs, k,
+                            max_degree=graph.max_degree,
+                            num_edges=graph.num_edges, logw_at=logw_at,
+                            mask_at=mask_at, window=window)
 
     eptr = (starts[..., None] + pos).clamp(0, max(graph.num_edges - 1, 0))
     if ell_lanes is not None:
         sel = pos.clamp(0, ell_lanes.shape[-1] - 1)
-        neighbor = torch.gather(ell_lanes, -1, sel).long()
+        neighbor = _select_lanes(ell_lanes, sel).long()
     elif graph.indices_win is not None:
         win, off = graph.gather_neighbor_windows_rows(starts)
-        neighbor = torch.gather(win, -1, off[..., None] + pos).long()
+        neighbor = _select_lanes(win, off[..., None] + pos).long()
     else:
         neighbor = graph.gather_neighbors(eptr)
-    new_state = frontier_state[..., None].expand(eptr.shape)
+
+    # state propagation: DYNAMIC moves to the edge's timestamp
+    if filter_cfg is not None and filter_cfg.mode == TEMPORAL_SAMPLE_DYNAMIC:
+        if tvals is not None:
+            new_state = _select_lanes(tvals, pos.clamp(0, tvals.shape[-1] - 1))
+        else:
+            new_state = timestamps[eptr]
+    else:
+        new_state = frontier_state[..., None].expand(eptr.shape)
     return eptr, neighbor, valid, new_state
 
 
 def _sample_neighbors_impl(key, graph: CscGraph, inputs: torch.Tensor,
                            input_state: torch.Tensor,
                            fanouts: Tuple[int, ...],
-                           with_replacement: bool) -> NeighborSample:
+                           with_replacement: bool, log_weights=None,
+                           filter_cfg=None, timestamps=None,
+                           window: int = 256) -> NeighborSample:
     num_seeds = inputs.shape[0]
     device = inputs.device
     node_base, edge_base = _layer_layout(num_seeds, fanouts)
 
     nodes = [inputs.long()]
     valids = [torch.ones((num_seeds,), dtype=torch.bool, device=device)]
-    states = [input_state.long()]
+    states = [input_state.int()]
     rows, cols, eptrs, evalids = [], [], [], []
 
     for ell, k in enumerate(fanouts):
@@ -117,7 +255,8 @@ def _sample_neighbors_impl(key, graph: CscGraph, inputs: torch.Tensor,
         B = frontier.shape[0]
         eptr, neighbor, valid, new_state = _sample_one_hop(
             rng.fold(key, ell), graph, frontier, fvalid, fstate, k,
-            with_replacement=with_replacement)
+            with_replacement=with_replacement, log_weights=log_weights,
+            filter_cfg=filter_cfg, timestamps=timestamps, window=window)
         slot = node_base[ell + 1] + (
             torch.arange(B, device=device)[:, None] * k
             + torch.arange(k, device=device)[None, :])
@@ -139,7 +278,7 @@ def _sample_neighbors_impl(key, graph: CscGraph, inputs: torch.Tensor,
     return NeighborSample(
         nodes=torch.cat(nodes),
         node_valid=torch.cat(valids),
-        node_state=torch.cat(states),
+        node_state=torch.cat(states).long(),
         rows=cat(rows, torch.long),
         cols=cat(cols, torch.long),
         eptr=cat(eptrs, torch.long),
@@ -150,28 +289,54 @@ def _sample_neighbors_impl(key, graph: CscGraph, inputs: torch.Tensor,
     )
 
 
+def _log_weights(weights, device) -> torch.Tensor:
+    """``log(float32(w))``, as the JAX package takes it (not
+    ``float32(log(w))``)."""
+    w = weights if torch.is_tensor(weights) else np.asarray(weights)
+    return torch.log(torch.as_tensor(w, device=device).to(torch.float32))
+
+
+def _int32(a, device) -> torch.Tensor:
+    """Host or device integers as int32 on ``device`` (int64 wraps)."""
+    a = a if torch.is_tensor(a) else np.asarray(a)
+    return torch.as_tensor(a, device=device).to(torch.int32)
+
+
 def sample_neighbors(graph: CscGraph, inputs, fanouts: Sequence[int], *,
                      key: Optional[torch.Tensor] = None,
                      sampler: Optional[EdgeSampler] = None,
-                     filter=None) -> NeighborSample:
-    """Multi-hop uniform neighbor sampling on ``graph``'s device.
+                     filter=None, window: int = 256) -> NeighborSample:
+    """Multi-hop neighbor sampling on ``graph``'s device.
 
     ``inputs`` are the seed nodes, ``fanouts`` the per-hop neighbor counts,
-    ``sampler`` a ``UniformEdgeSampler`` (or None: without replacement).
+    ``sampler`` a ``UniformEdgeSampler`` (None: uniform without
+    replacement) or a ``WeightedEdgeSampler`` (weights by sorted edge
+    position; with replacement when it says so), ``filter`` a
+    ``(TemporalEdgeFilter, initial_states)`` pair or a bare
+    ``TemporalEdgeFilter`` (states then zero), ``window`` the chunk width
+    of the window engines.
     """
-    if filter is not None:
-        raise NotImplementedError("temporal filters are not ported yet")
-    if sampler is not None and not isinstance(sampler, UniformEdgeSampler):
-        raise NotImplementedError(
-            f"{type(sampler).__name__} is not ported yet")
     if key is None:
         key = rng.next_key()
+    device = graph.device
+    inputs = torch.as_tensor(inputs).to(device).long()
     with_replacement = bool(sampler is not None and sampler.with_replacement)
-    inputs = torch.as_tensor(inputs).to(graph.device).long()
-    zeros = torch.zeros(inputs.shape, dtype=torch.long, device=graph.device)
-    return _sample_neighbors_impl(key, graph, inputs, zeros,
+    log_weights = None
+    if isinstance(sampler, WeightedEdgeSampler):
+        log_weights = _log_weights(sampler.weights, device)
+    filter_cfg, timestamps = None, None
+    input_state = torch.zeros(inputs.shape, dtype=torch.int32, device=device)
+    if filter is not None:
+        if isinstance(filter, TemporalEdgeFilter):
+            filter_cfg = filter
+        else:
+            filter_cfg, state = filter
+            input_state = _int32(state, device)
+        timestamps = _int32(filter_cfg.timestamps, device)
+    return _sample_neighbors_impl(key, graph, inputs, input_state,
                                   tuple(int(k) for k in fanouts),
-                                  with_replacement)
+                                  with_replacement, log_weights, filter_cfg,
+                                  timestamps, window)
 
 
 def split_sample_batches(sample: NeighborSample, M: int,

@@ -1,26 +1,38 @@
-"""Batched uniform sampling engines.
+"""Batched sampling engines.
 
-Counterpart of the unweighted engines of
-``tch_geometric_tpu/sampling/primitives.py``; each draws exactly the bits
-its JAX twin draws (``sampling/rng.py``), so outputs are bit-equal:
+Counterpart of ``tch_geometric_tpu/sampling/primitives.py``; each engine
+draws exactly the bits its JAX twin draws (``sampling/rng.py``), with the
+same key derivation and draw shapes, so outputs are bit-equal (Gumbel keys
+up to the last ulp of ``log``):
 
 * :func:`floyd_sample` — exact uniform k-subset of ``[0, deg)`` per node by
   Floyd's algorithm, O(k^2) compares, independent of degree;
 * :func:`uniform_lane_topk` — one uniform per ELL lane, top ``k`` among the
   lanes ``< deg``;
-* :func:`replacement_positions` — ``k`` independent ``randint`` draws.
+* :func:`replacement_positions` — ``k`` independent ``randint`` draws;
+* :func:`window_topk_sample` / :func:`window_choice_sample` — Gumbel top-k
+  (without replacement) or per-draw Gumbel argmax (with replacement) over
+  each node's neighbor window, scanned in chunks of ``window`` lanes with a
+  running carry, chunk ``c`` keyed ``fold_in(key, c)``: the weighted and
+  filtered engines;
+* :func:`masked_gumbel_topk` — Gumbel top-k over a dense logit table.
 
-The weighted (Gumbel top-k over windows) engines are not ported yet.
+Ties follow lax: in :func:`top_k` the lower index wins, in
+:func:`argmax` the first maximum.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from . import rng
 
 NEG_INF = float("-inf")
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def floyd_sample(key: torch.Tensor, deg: torch.Tensor, k: int
@@ -68,11 +80,19 @@ def uniform_lane_topk(key: torch.Tensor, deg: torch.Tensor, num_lanes: int,
     lane = torch.arange(num_lanes, device=deg.device)
     r = rng.uniform(key, deg.shape + (num_lanes,), device=deg.device)
     vals = torch.where(lane < deg[..., None], r, NEG_INF)
-    kk = min(k, num_lanes)
-    top_vals, pos = top_k(vals, kk)
+    return topk_slots(vals, k)
+
+
+def topk_slots(keys_: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(positions, valid)`` of the top ``k`` keys along the last axis,
+    -inf keys invalid at position 0; past the axis' length, the slots are
+    invalid padding."""
+    kk = min(k, keys_.shape[-1])
+    top_vals, pos = top_k(keys_, kk)
     valid = torch.isfinite(top_vals)
     if kk < k:
-        pad = deg.shape + (k - kk,)
+        pad = keys_.shape[:-1] + (k - kk,)
         pos = torch.cat([pos, pos.new_zeros(pad)], dim=-1)
         valid = torch.cat([valid, valid.new_zeros(pad)], dim=-1)
     return torch.where(valid, pos, 0), valid
@@ -87,3 +107,101 @@ def replacement_positions(key: torch.Tensor, deg: torch.Tensor, k: int
     positions = rng.randint(key, deg.shape + (k,), 0, hi, device=deg.device)
     valid = (deg > 0)[..., None].expand(positions.shape)
     return torch.where(valid, positions, 0), valid
+
+
+def argmax(vals: torch.Tensor) -> torch.Tensor:
+    """``jnp.argmax`` along the last axis: the first maximum wins (an
+    all -inf row gives 0)."""
+    return torch.argmax(vals, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Chunked Gumbel top-k over neighbor windows
+# ---------------------------------------------------------------------------
+
+EdgeFn = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _window_chunk_logits(chunk: int, starts: torch.Tensor,
+                         degs: torch.Tensor, window: int, num_edges: int,
+                         logw_at: EdgeFn, mask_at: EdgeFn):
+    """Chunk ``chunk``'s ``(positions (B, W), logits (B, W))``: window
+    positions ``chunk*W + [0, W)``, log-weights by global edge pointer
+    (0 when uniform), -inf past the degree or where ``mask_at`` refuses."""
+    offs = chunk * window + torch.arange(window, device=degs.device)
+    pos = offs.expand(degs.shape + (window,))
+    valid = pos < degs[..., None]
+    eptr = (starts[..., None] + pos).clamp(0, max(num_edges - 1, 0))
+    logits = torch.zeros(pos.shape, dtype=torch.float32, device=degs.device)
+    if logw_at is not None:
+        logits = logw_at(eptr).float()
+    if mask_at is not None:
+        valid = valid & mask_at(eptr)
+    return pos, torch.where(valid, logits, NEG_INF)
+
+
+def window_topk_sample(key: torch.Tensor, starts: torch.Tensor,
+                       degs: torch.Tensor, k: int, *, max_degree: int,
+                       num_edges: int, logw_at: EdgeFn = None,
+                       mask_at: EdgeFn = None, window: int = 256
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted sample WITHOUT replacement of ``k`` window positions.
+
+    ``starts``/``degs``: (B,) window start edge pointers and sizes;
+    ``logw_at(eptr)`` log-weights by global edge pointer (None: uniform),
+    ``mask_at(eptr)`` admissibility (temporal filters).  Gumbel top-k with a
+    running (B, k) carry over ``ceil(max_degree / window)`` chunks.
+    Returns ``(positions (B, k) window-relative, valid (B, k))``.
+    """
+    starts, degs = starts.long(), degs.long()
+    B = starts.shape[0]
+    top_vals = torch.full((B, k), NEG_INF, device=degs.device)
+    top_pos = torch.zeros((B, k), dtype=torch.long, device=degs.device)
+    for c in range(max(1, cdiv(max(max_degree, 1), window))):
+        pos, logits = _window_chunk_logits(c, starts, degs, window,
+                                           num_edges, logw_at, mask_at)
+        noise = rng.gumbel(rng.fold_in(key, c), pos.shape,
+                           device=degs.device)
+        keys_ = torch.where(torch.isfinite(logits), logits + noise, NEG_INF)
+        top_vals, idx = top_k(torch.cat([top_vals, keys_], dim=1), k)
+        top_pos = torch.gather(torch.cat([top_pos, pos], dim=1), 1, idx)
+    valid = torch.isfinite(top_vals)
+    return torch.where(valid, top_pos, 0), valid
+
+
+def window_choice_sample(key: torch.Tensor, starts: torch.Tensor,
+                         degs: torch.Tensor, k: int, *, max_degree: int,
+                         num_edges: int, logw_at: EdgeFn = None,
+                         mask_at: EdgeFn = None, window: int = 256
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``k`` independent weighted draws (with replacement) per window:
+    each draw is a Gumbel argmax over the admissible window, chunk by chunk
+    (a ``(B, k, W)`` draw each) with a per-draw running max.  A draw is
+    valid iff the admissible set is non-empty."""
+    starts, degs = starts.long(), degs.long()
+    B = starts.shape[0]
+    best_vals = torch.full((B, k), NEG_INF, device=degs.device)
+    best_pos = torch.zeros((B, k), dtype=torch.long, device=degs.device)
+    for c in range(max(1, cdiv(max(max_degree, 1), window))):
+        pos, logits = _window_chunk_logits(c, starts, degs, window,
+                                           num_edges, logw_at, mask_at)
+        noise = rng.gumbel(rng.fold_in(key, c), (B, k, pos.shape[-1]),
+                           device=degs.device)
+        total = torch.where(torch.isfinite(logits)[:, None, :],
+                            logits[:, None, :] + noise, NEG_INF)
+        chunk_best = total.amax(dim=-1)
+        chunk_pos = torch.gather(pos, 1, argmax(total))
+        better = chunk_best > best_vals
+        best_vals = torch.where(better, chunk_best, best_vals)
+        best_pos = torch.where(better, chunk_pos, best_pos)
+    valid = torch.isfinite(best_vals)
+    return torch.where(valid, best_pos, 0), valid
+
+
+def masked_gumbel_topk(key: torch.Tensor, logits: torch.Tensor, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gumbel top-k over a dense logit table ``(..., N)`` (-inf marks
+    invalid entries).  Returns ``(indices (..., k), valid (..., k))``."""
+    noise = rng.gumbel(key, logits.shape, device=logits.device)
+    return topk_slots(torch.where(torch.isfinite(logits), logits + noise,
+                                  NEG_INF), k)

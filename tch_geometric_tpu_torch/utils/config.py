@@ -7,8 +7,8 @@ Where the reference structurally matches these into PyO3 enums and
 monomorphises per (sampler x filter-mode x direction) via a macro
 (src/python.rs:107-185), here the sampler branches on the config in Python
 and the array payloads (weights/timestamps) are tensors.  A copy of
-``tch_geometric_tpu/utils/config.py``: the torch package imports nothing
-from the JAX package.
+``tch_geometric_tpu/utils/config.py`` (the torch package imports nothing
+from the JAX package), plus ``WeightedEdgeSampler.with_replacement``.
 """
 from __future__ import annotations
 
@@ -57,9 +57,13 @@ class WeightedEdgeSampler(EdgeSampler):
 
     ``weights`` is addressed by *sorted* (CSC) edge position, matching the
     reference's ``EdgeAttr`` addressing by global edge ptr (graph.rs:104-120).
+    ``with_replacement`` draws ``k`` independent weighted picks per node:
+    the JAX package's ``_sample_neighbors_impl(with_replacement=True,
+    log_weights=...)``, which its ``WeightedEdgeSampler`` has no field for.
     """
 
     weights: MixedData = None
+    with_replacement: bool = False
 
     def validate(self, hetero: bool = False) -> None:
         validate_mixeddata(self.weights, hetero=hetero, dtype=np.float64)

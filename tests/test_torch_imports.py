@@ -39,6 +39,9 @@ MODULES = ["tch_geometric_tpu_torch.data.dataset",
            "tch_geometric_tpu_torch.ops.spmm",
            "tch_geometric_tpu_torch.ops.spmm_kernels",
            "tch_geometric_tpu_torch.parallel.train",
+           "tch_geometric_tpu_torch.sampling.hetero_neighbor",
+           "tch_geometric_tpu_torch.sampling.neighbor",
+           "tch_geometric_tpu_torch.sampling.primitives",
            "tch_geometric_tpu_torch.utils.checkpoint",
            "tch_geometric_tpu_torch.utils.kernel_gates",
            "tch_geometric_tpu_torch.utils.metrics",
@@ -61,8 +64,8 @@ def test_import_loads_no_jax():
 
 @pytest.mark.parametrize("module", MODULES)
 def test_module_import_loads_no_jax(module):
-    """Each module of the GAT/GCN/GIN, attention and training slices,
-    imported alone in a fresh interpreter, loads no JAX and nothing of the
+    """Each module of the GAT/GCN/GIN, attention, training and sampling
+    slices, imported alone in a fresh interpreter, loads no JAX and nothing of the
     JAX package."""
     code = ("import sys, importlib\n"
             f"bad = lambda: {{m for m in sys.modules if m.split('.')[0] in "
@@ -83,7 +86,8 @@ EXPORTS = {
         "spmm_blocked_multiweighted", "spmm_blocked_multiweighted_cuda",
         "gat_attend_blocked", "gat_attend_blocked_cuda",
         "gat_attend_blocked_flash", "gat_attend_blocked_flash_cuda",
-        "quantize_rows", "spmm_blocked_q8", "spmm_blocked_q8_cuda"],
+        "quantize_rows", "spmm_blocked_q8", "spmm_blocked_q8_cuda",
+        "csc_sort_edges", "csc_edge_cumsum"],
     "tch_geometric_tpu_torch.utils.kernel_gates": [
         "run_gat_route_gates", "run_q8_gates"],
     "tch_geometric_tpu_torch.parallel": [
@@ -94,8 +98,16 @@ EXPORTS = {
         "MetricsLogger", "trace_span", "profile", "adam_state_from_optax",
         "train_state_from_flax"],
     "tch_geometric_tpu_torch.data": [
-        "csc_graph_from_coo", "csr_graph_from_coo"],
-    "tch_geometric_tpu_torch.sampling": ["split_sample_batches"],
+        "csc_graph_from_coo", "csr_graph_from_coo", "HeteroData"],
+    "tch_geometric_tpu_torch.sampling": [
+        "split_sample_batches", "sample_edges_uniform",
+        "sample_hetero_neighbors", "compact_hetero_sample",
+        "neighbor_sampling_heterogenous"],
+    "tch_geometric_tpu_torch.sampling.primitives": [
+        "window_topk_sample", "window_choice_sample", "masked_gumbel_topk"],
+    "tch_geometric_tpu_torch": [
+        "neighbor_sampling_heterogenous", "sample_hetero_neighbors",
+        "validate_mixeddata"],
     "tch_geometric_tpu_torch.models": ["keyed_dropout"],
 }
 
@@ -103,9 +115,10 @@ EXPORTS = {
 @pytest.mark.parametrize("module,name", [(m, n) for m, names in
                                          EXPORTS.items() for n in names])
 def test_ported_names_exported(module, name):
-    """The multi-head GAT routes (B7, B8, B9), the int8 SpMM (B11) and the
-    training slice's entry points are public names of the port; each
-    ``_cuda`` wrapper carries a launch count."""
+    """The multi-head GAT routes (B7, B8, B9), the int8 SpMM (B11), the
+    training slice's entry points and the sampling slice's samplers, data
+    and ops are public names of the port; each ``_cuda`` wrapper carries a
+    launch count."""
     import importlib
     obj = getattr(importlib.import_module(module), name)
     assert callable(obj)

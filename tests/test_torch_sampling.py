@@ -18,9 +18,7 @@ from tch_geometric_tpu_torch.data.storage import to_csc
 from tch_geometric_tpu_torch.sampling import primitives, rng
 from tch_geometric_tpu_torch.sampling.neighbor import (
     compact_sample, neighbor_sampling_homogenous, sample_neighbors)
-from tch_geometric_tpu_torch.utils.config import (TemporalEdgeFilter,
-                                                  UniformEdgeSampler,
-                                                  WeightedEdgeSampler)
+from tch_geometric_tpu_torch.utils.config import UniformEdgeSampler
 
 from validators import validate_neighbor_samples
 
@@ -126,17 +124,3 @@ def test_top_k_ties_follow_lax():
     jv, ji = jax.lax.top_k(jnp.asarray(vals), 6)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
-
-
-def test_unported_samplers_raise(karate):
-    x, _, ei = karate
-    n = x.shape[0]
-    cp, ri, _ = to_csc(ei, n)
-    g = make_graph(cp, ri, num_src=n, num_dst=n, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sample_neighbors(g, [0], [2], key=rng.key(0),
-                         sampler=WeightedEdgeSampler(np.ones(len(ri))))
-    with pytest.raises(NotImplementedError):
-        sample_neighbors(g, [0], [2], key=rng.key(0),
-                         filter=TemporalEdgeFilter((0, 1),
-                                                   np.zeros(len(ri), np.int64)))
