@@ -146,6 +146,46 @@ prints no result line):
    seeds' hop-0 validity (the filter masks) exactly equal, Gumbel-ranked
    samples differing in at most 1e-4 of the valid slots (the count is
    printed); and ``rng.gumbel`` on 1M draws within rtol 4e-7.
+10. the rest of the reference-parity API (no kernel of B1-B11 lies on it;
+   the launch counts are zeroed before (a)-(g), printed after and must all
+   be 0; the phase prints its wall time): (a) ``to_csc`` and ``to_csr`` of
+   the products COO three ways, each timed: numpy's stable sort, the native
+   C++ counting sort (asserted built: no numpy fallback) and
+   ``coo_to_csc_device`` on the card, exactly equal; ``ind2ptr`` on the
+   card against ``ind2ptr_np``; ``find_edge`` on 1M pairs, half real edges
+   and half random, against a numpy search of the sorted edge keys; (b)
+   walks from 2,560 starts (OGB's products node2vec example: 256 nodes x 10
+   walks), length 40: node2vec at (p, q) = (1, 1) and (1, 1.5) on the
+   products out-edge CSR of (a)'s card build (the binary-search path; max
+   degree 113,135), ``tempo_random_walk`` (edge and node timestamps in [0,
+   1000), window (0, 400)) and ``biased_tempo_random_walk`` (uniform,
+   linear, exponential; forward, ``retry_count`` 10) on the in-edge
+   adjacency (the CSC as the reversed graph's CSR, max degree 56: the ELL
+   path; on the out-edge CSR their draws per step would be walks x max
+   degree), and one node2vec call of 262,144 starts; ms per request; every
+   step an edge, or -1 after a dead end (a temporal walk's restart returns
+   to an earlier position), temporal steps in the window, CTDNE timestamps
+   never decreasing; (c) negative sampling: homogeneous on the products CSR
+   (65,536 inputs, 5 negatives, 5 tries), heterogeneous on phase 9's
+   mag-shaped graph (1,024 papers, 1,024 authors; inbound False and True),
+   no accepted negative an edge (in the probe's direction) or a self-loop;
+   (d) HGT sampling on the mag shape, 128 paper seeds, [512] x 4 per node
+   type, uniform and temporal (timerange (0, 400)), through
+   ``hgt_sampling`` and ``HGTSamplerTransform``: ms per request, valid
+   nodes per type, every kept edge real with both ends in the sample; (e)
+   budget sampling on the mag shape, 1,024 papers, [15, 10] per type, with
+   no filter and with the temporal filter (window (0, 400), forward,
+   ``relative`` False and True): ms per request, valid slots, every edge
+   real and through the filter; (f) ``NeighborSamplerTransform`` on
+   products and on the mag shape, ``NegativeSamplerTransform`` on products,
+   ``SeedLoader`` over 65,536 seeds: ms per call; (g) card against CPU on
+   phase 9's 5% cuts, same key and inputs, on ELL tables and again without
+   tables (the products cut's in-edge adjacency for the walks): node2vec at
+   (1, 1.5), both negative samplers and ``coo_to_csc_device`` exactly
+   equal, temporal and CTDNE walks (4,096 of length 12) differing in at
+   most 1e-3 of the walks, HGT (two layers of [512]) and budget (uniform,
+   temporal) in at most 1e-3 of the valid slots (each count printed). Each
+   part's wall time and the phase's are printed.
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -2090,12 +2130,10 @@ def check_sampling_card_vs_cpu(sg, mag, device):
     size (``window=CUT_WINDOW``); the seeds' hop-0 validity (the filter
     masks) exactly equal; and ``rng.gumbel`` on 1M draws."""
     from tch_geometric_tpu_torch.data.graph import ell_width_for, make_graph
-    from tch_geometric_tpu_torch.data.storage import to_csc
     from tch_geometric_tpu_torch.sampling import rng
     from tch_geometric_tpu_torch.sampling.hetero_neighbor import \
         sample_hetero_neighbors
     from tch_geometric_tpu_torch.sampling.neighbor import sample_neighbors
-    from tch_geometric_tpu_torch.utils.types import rel_key
     cpu = torch.device("cpu")
     out = {}
     ns = sg["ns"]
@@ -2125,23 +2163,8 @@ def check_sampling_card_vs_cpu(sg, mag, device):
                 f"{ns}-node subgraph, {engine}", cfg,
                 *tree_diff(s[device], s[cpu]), exact=cfg == "uniform")
 
-    counts, edge_types, csc = mag
-    r = np.random.default_rng(27)
-    keep = {t: np.sort(r.choice(c, max(int(c * 0.05), 16), replace=False))
-            for t, c in counts.items()}
-    new_id = {}
-    for t, k in keep.items():
-        new_id[t] = np.full(counts[t], -1, np.int64)
-        new_id[t][k] = np.arange(len(k))
-    sub_csc = {}
-    for e in edge_types:
-        cp, ri = csc[rel_key(e)]
-        dst = np.repeat(np.arange(len(cp) - 1), np.diff(cp))
-        ei = np.stack([new_id[e[0]][ri], new_id[e[2]][dst]])
-        ei = ei[:, (ei >= 0).all(axis=0)]
-        sub_csc[rel_key(e)] = to_csc(ei, (len(keep[e[0]]),
-                                          len(keep[e[2]])))[:2]
-    sub_counts = {t: len(k) for t, k in keep.items()}
+    edge_types, csc = mag[1], mag[2]
+    sub_counts, sub_csc, r = mag_cut(mag)
     no_ell = {rk for rk, (cp, _) in csc.items()
               if ell_width_for(int(np.diff(cp).max())) is None}
     graphs = {dev: hetero_graphs(sub_counts, edge_types, sub_csc, dev,
@@ -2180,6 +2203,789 @@ def check_sampling_card_vs_cpu(sg, mag, device):
     check(err <= GUMBEL_ATOL, "rng.gumbel card vs CPU within rtol")
     out["gumbel_card_vs_cpu_max_diff"] = maxerr(a, b)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the rest of the reference-parity API on the data layer
+# ---------------------------------------------------------------------------
+
+FIND_EDGE_PAIRS = 1 << 20
+WALK_STARTS = 256 * 10          # OGB's products node2vec: 256 nodes x 10 walks
+WALK_LENGTH = 40
+WALK_PQ = ((1.0, 1.0), (1.0, 1.5))   # examples/random_walk.py
+WALK_BIASES = ("uniform", "linear", "exponential")
+WALK_RETRIES = 10
+BULK_WALKS = 262_144
+OUT_TEMPO_CHUNK = 2048          # (b)'s tempo walk on the out-edge CSR: 56
+                                # chunks a step, not 442 of the default 256
+PHASE10_REQUESTS = 2            # per configuration, the first a warm-up
+NEG_INPUTS, NEG_NUM, NEG_TRIES = 65_536, 5, 5   # examples/negative_sampling.py
+HETERO_NEG_INPUTS = 1024
+HGT_SEEDS, HGT_SAMPLES = 128, [512] * 4         # PyG's HGTLoader docstring
+BUDGET_SEEDS, BUDGET_FANOUTS = 1024, [15, 10]
+MAG_FEATURES = 128
+LOADER_SEEDS, LOADER_BATCH = 65_536, 1024
+CUT_WALKS, CUT_WALK_LENGTH = 4096, 12
+CUT_HGT_SAMPLES = HGT_SAMPLES[:2]      # (g): two layers of (d)'s picks
+CUT_BUDGET_CONFIGS = 2                 # (g): (e)'s uniform and temporal
+CUT_DIFF_LIMIT = 1e-3           # card vs CPU: differing walks or valid slots
+
+
+def requests(name, timer, fn, n=PHASE10_REQUESTS):
+    """``n`` calls of ``fn(i)`` on the timer; logs and returns the last
+    result and the times (the first a warm-up; a request of a second or
+    more runs once: torch compiles nothing, so a warm-up would only time
+    the same launches again)."""
+    ms, out = [], None
+    for i in range(n):
+        out, t = timer(lambda: fn(i))
+        ms.append(t)
+    mean = float(np.mean(ms[1:])) if n > 1 else ms[0]
+    if n > 1:
+        log(f"phase 10 {name}: ms per request (first, warm-up) {ms[0]:.1f}, "
+            "then " + ", ".join(f"{m:.1f}" for m in ms[1:])
+            + f"; mean {mean:.2f}")
+    else:
+        log(f"phase 10 {name}: ms per request {ms[0]:.1f} (one run)")
+    return out, dict(request_ms=ms[1:], first_request_ms=ms[0],
+                     request_ms_mean=mean)
+
+
+def data_layer(p, device, timer):
+    """Phase 10 (a): ``to_csc`` and ``to_csr`` of the products COO three
+    ways (numpy, the native C++ sort, ``coo_to_csc_device`` on the card),
+    exactly equal; ``ind2ptr`` on the card against ``ind2ptr_np``;
+    ``find_edge`` on 1M pairs, half real edges, half random, against a
+    numpy search of the sorted edge keys.  Returns the numbers and the
+    device build's host CSR arrays."""
+    from tch_geometric_tpu_torch import native
+    from tch_geometric_tpu_torch.data import storage
+    check(native.available(), "the native C++ library is built (no numpy "
+          "fallback)")
+    ei, n = p["data"].edge_index, p["data"].num_nodes
+    out = {}
+    csr = None
+    for layout, csc in (("csc", True), ("csr", False)):
+        a, t_np = timer(lambda: storage._numpy_csx(ei, n, n, csc))
+        b, t_nat = timer(lambda: storage._native_csx(ei, n, n, csc))
+        coo, t_h2d = timer(lambda: (torch.from_numpy(ei[0]).to(device),
+                                    torch.from_numpy(ei[1]).to(device)))
+        major, minor = (coo[1], coo[0]) if csc else (coo[0], coo[1])
+        d, t_dev = timer(lambda: storage.coo_to_csc_device(minor, major, n,
+                                                           n))
+        d_host = [x.cpu().numpy() for x in d]
+        for name, x, y, z in zip(("ptrs", "indices", "perm"), a, b, d_host):
+            check(np.array_equal(x, y) and np.array_equal(x, z),
+                  f"to_{layout} {name}: numpy, native and card builds equal")
+        ptr, t_ptr = timer(lambda: storage.ind2ptr(major[d[2]], n))
+        check(np.array_equal(ptr.cpu().numpy(), storage.ind2ptr_np(
+            ei[1 if csc else 0][a[2]], n)), f"{layout}: ind2ptr on the card "
+              "equals ind2ptr_np")
+        log(f"phase 10 (a) to_{layout} of {ei.shape[1]} edges: numpy "
+            f"{t_np:.1f} ms, native {t_nat:.1f} ms, card {t_dev:.1f} ms "
+            f"(+ {t_h2d:.1f} ms to copy the COO there), ind2ptr on the card "
+            f"{t_ptr:.2f} ms; the three builds exactly equal")
+        out[layout] = dict(numpy_ms=t_np, native_ms=t_nat, card_ms=t_dev,
+                           card_copy_ms=t_h2d, ind2ptr_card_ms=t_ptr)
+        if not csc:
+            csr = (d_host[0], d_host[1])
+        del a, b, d, d_host, coo, major, minor
+
+    # find_edge on the CSC graph: u on the pointer axis (dst), v the src
+    g, cp, ri = p["graph"], p["col_ptrs"], p["row_indices"]
+    E, half = ri.shape[0], FIND_EDGE_PAIRS // 2
+    r = np.random.default_rng(40)
+    e = r.integers(0, E, half)
+    u = np.concatenate([np.searchsorted(cp, e, side="right") - 1,
+                        r.integers(0, n, half)])
+    v = np.concatenate([ri[e], r.integers(0, n, half)])
+    found, t_find = timer(lambda: g.find_edge(torch.from_numpy(u).to(device),
+                                              torch.from_numpy(v).to(device)))
+    keys = np.repeat(np.arange(n, dtype=np.int64), np.diff(cp)) * n + ri
+    q = u * n + v
+    at = np.searchsorted(keys, q)
+    hit = keys[np.minimum(at, E - 1)] == q
+    want = np.where(hit, at, -1)         # the first pointer of (u, v)
+    found = found.cpu().numpy()
+    check(np.array_equal(found, want), "find_edge equals the numpy search")
+    check(bool((found[:half] >= 0).all()) and np.array_equal(
+        ri[found[:half]], ri[e]), "find_edge finds every real edge")
+    log(f"phase 10 (a) find_edge of {FIND_EDGE_PAIRS} pairs (half real): "
+        f"{t_find:.2f} ms; {int(hit[half:].sum())} of the random half are "
+        "edges; equal to the numpy search")
+    out.update(find_edge_ms=t_find, random_pairs_found=int(hit[half:].sum()))
+    return out, csr
+
+
+def _walk_edges_ok(g, w):
+    """Every live step of ``w`` (B, L) follows an edge of ``g``, and a -1
+    stays -1."""
+    a, b = w[:, :-1], w[:, 1:]
+    live = b >= 0
+    ok = g.has_edge(a.clamp(min=0), b.clamp(min=0))
+    return bool((ok | ~live).all()) and not bool((~live[:, :-1]
+                                                  & live[:, 1:]).any())
+
+
+def _tempo_walks_ok(what, g, w, ts, start_ts):
+    """A temporal walk's step follows an edge of ``g`` or restarts at an
+    earlier position of its walk, and every step's timestamp lies in the
+    root's window."""
+    a, b = w[:, :-1], w[:, 1:]
+    L = w.shape[1]
+    earlier = ((w[:, None, :] == b[:, :, None])
+               & (torch.arange(L, device=w.device)[None, None, :]
+                  <= torch.arange(L - 1, device=w.device)[None, :, None])
+               ).any(dim=-1)
+    is_edge = g.has_edge(a, b)
+    check(bool((is_edge | earlier).all()),
+          f"{what}: every step is an edge or a restart")
+    lo, hi = TEMPORAL_WINDOW
+    d = ts - start_ts[:, None]
+    check(bool(((d >= lo) & (d < hi)).all()),
+          f"{what}: every step lies in the root's window")
+    return int((~is_edge).sum())
+
+
+def walk_requests(p, csr, device, timer):
+    """Phase 10 (b), through the public walk entry points on host arrays,
+    as a user calls them (each call builds its device graph, so its time
+    includes that build): node2vec at (1, 1) and (1, 1.5) on the products
+    out-edge CSR from (a)'s card build (no table fits its max degree: the
+    binary-search path), and one call of 262,144 starts; the temporal walk
+    on the out-edge CSR once (``window_choice_sample`` over the max degree
+    in chunks of ``OUT_TEMPO_CHUNK``) and on the in-edge adjacency (the
+    CSC read as the CSR of the reversed graph: the ELL path, where the
+    chunk width is unused); the CTDNE walks on the in-edge
+    adjacency (on the out-edge CSR their dense (walks, max_degree) step
+    tensors would hold 2,560 x 113,135 = 290M draws a step: ROADMAP §C).
+    Each walk's steps are checked on a device graph of the same arrays."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.sampling import rng, walks
+    n = p["data"].num_nodes
+    out_g, t = timer(lambda: make_graph(csr[0], csr[1], num_src=n,
+                                        num_dst=n, device=device))
+    in_g, in_csr = p["graph"], (p["col_ptrs"], p["row_indices"])
+    log(f"phase 10 (b) out-edge CSR: max degree {out_g.max_degree}, ELL "
+        f"{out_g.ell is not None}, {t:.1f} ms to the card; in-edge "
+        f"adjacency: max degree {in_g.max_degree}, ELL {in_g.ell is not None}")
+    r = np.random.default_rng(43)
+    starts = r.integers(0, n, WALK_STARTS)
+    node_ts = r.integers(0, TIME_RANGE, n)
+    edge_ts = r.integers(0, TIME_RANGE, in_g.num_edges)
+    start_ts = r.integers(0, TIME_RANGE, WALK_STARTS)
+    start_ts_d = torch.from_numpy(start_ts).to(device)
+
+    def on(a):
+        return torch.from_numpy(a).to(device)
+
+    res = {"out_max_degree": out_g.max_degree}
+    with torch.no_grad():
+        for pq in WALK_PQ:
+            w, res[f"node2vec {pq}"] = requests(
+                f"(b) random_walk out-edge CSR p,q={pq}", timer,
+                lambda i: walks.random_walk(
+                    *csr, starts, WALK_LENGTH, *pq,
+                    key=rng.fold(rng.key(44), i), device=device),
+                n=PHASE10_REQUESTS if pq == (1.0, 1.0) else 1)
+            check(w.shape == (WALK_STARTS, WALK_LENGTH + 1)
+                  and _walk_edges_ok(out_g, on(w)),
+                  f"node2vec {pq}: every step is an edge")
+        w, res["node2vec bulk"] = requests(
+            f"(b) random_walk out-edge CSR, {BULK_WALKS} starts", timer,
+            lambda i: walks.random_walk(
+                *csr, r.integers(0, n, BULK_WALKS), WALK_LENGTH,
+                key=rng.key(45), device=device), n=1)
+        check(_walk_edges_ok(out_g, on(w)), "bulk node2vec: every step is "
+              "an edge")
+
+        for name, g, arrays, nreq in (("in-edge ELL", in_g, in_csr,
+                                       PHASE10_REQUESTS),
+                                      ("out-edge CSR", out_g, csr, 1)):
+            chunk = 256 if g.ell is not None else OUT_TEMPO_CHUNK
+            (w, ts), res[f"tempo {name}"] = requests(
+                f"(b) tempo_random_walk {name}, window {TEMPORAL_WINDOW}, "
+                f"window_chunk {chunk}", timer,
+                lambda i: walks.tempo_random_walk(
+                    *arrays, node_ts, edge_ts, starts, start_ts, WALK_LENGTH,
+                    TEMPORAL_WINDOW, key=rng.fold(rng.key(46), i),
+                    window_chunk=chunk, device=device), n=nreq)
+            res[f"tempo {name}"]["restarted_steps"] = _tempo_walks_ok(
+                f"tempo {name}", g, on(w), on(ts), start_ts_d)
+        for bias in WALK_BIASES:
+            (w, ts), res[f"ctdne {bias}"] = requests(
+                f"(b) biased_tempo_random_walk {bias}, forward, "
+                f"retry_count {WALK_RETRIES}, in-edge ELL", timer,
+                lambda i: walks.biased_tempo_random_walk(
+                    *in_csr, node_ts, edge_ts, starts, start_ts, WALK_LENGTH,
+                    bias, True, WALK_RETRIES, key=rng.fold(rng.key(47), i),
+                    device=device), n=1)
+            w, ts = on(w), on(ts)
+            live = w[:, 1:] >= 0
+            check(_walk_edges_ok(in_g, w), f"ctdne {bias}: every step is "
+                  "an edge")
+            check(bool(((ts[:, 1:] >= ts[:, :-1]) | ~live).all()),
+                  f"ctdne {bias}: timestamps never decrease")
+            res[f"ctdne {bias}"]["complete_walks"] = int(live.all(dim=1).sum())
+            log(f"  ctdne {bias}: {res[f'ctdne {bias}']['complete_walks']} "
+                f"of {WALK_STARTS} walks complete")
+    return res, out_g
+
+
+def _assert_not_edges(what, g, u, w):
+    u, w = torch.as_tensor(u), torch.as_tensor(w)
+    check(bool((u != w).all()), f"{what}: no negative is a self-loop")
+    check(not bool(g.has_edge(u.to(g.device), w.to(g.device)).any()),
+          f"{what}: no negative is an edge")
+
+
+def mag_csr(counts, edge_types, csc):
+    """Host CSR ``(row_ptrs, col_indices)`` and sizes per relation of the
+    mag-shaped graph's CSC arrays."""
+    from tch_geometric_tpu_torch.data.storage import to_csr
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    out, sizes = {}, {}
+    for e in edge_types:
+        cp, ri = csc[rel_key(e)]
+        sizes[rel_key(e)] = (counts[e[0]], counts[e[2]])
+        dst = np.repeat(np.arange(len(cp) - 1), np.diff(cp))
+        out[rel_key(e)] = to_csr(np.stack([ri, dst]), sizes[rel_key(e)])[:2]
+    return out, sizes
+
+
+def negative_requests(p, csr, out_g, mag, device, timer):
+    """Phase 10 (c): homogeneous negatives on the products CSR (65,536
+    inputs, 5 negatives, 5 tries) through the parity API (which builds its
+    device graph per call); heterogeneous on the mag-shaped graph (1,024
+    papers and 1,024 authors), inbound False and True.  No accepted
+    negative may be an edge (in the probe's direction) or a self-loop."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.sampling.negative import (
+        negative_sample_neighbors_heterogenous,
+        negative_sample_neighbors_homogenous)
+    n = p["data"].num_nodes
+    r = np.random.default_rng(48)
+    inputs = r.integers(0, n, NEG_INPUTS)
+    (samples, rows, cols, count), res = requests(
+        f"(c) negative homogeneous, {NEG_INPUTS} inputs", timer,
+        lambda i: negative_sample_neighbors_homogenous(
+            csr[0], csr[1], (n, n), inputs, NEG_NUM, NEG_TRIES,
+            key=rng.fold(rng.key(49), i), device=device), n=2)
+    check(count == NEG_INPUTS, "sample_count is the input count")
+    _assert_not_edges("negative homogeneous", out_g, inputs[rows],
+                      samples[cols])
+    res["accepted_share"] = len(rows) / (NEG_INPUTS * NEG_NUM)
+    log(f"  accepted {len(rows)} of {NEG_INPUTS * NEG_NUM} slots, "
+        f"{len(samples) - NEG_INPUTS} new samples")
+
+    counts, edge_types, csc = mag
+    csr_m, sizes = mag_csr(counts, edge_types, csc)
+    node_types = sorted(counts)
+    graphs = {k: make_graph(*v, num_src=sizes[k][0], num_dst=sizes[k][1],
+                            ell_table=False, window_table=False,
+                            device=device) for k, v in csr_m.items()}
+    hin = {"paper": r.integers(0, counts["paper"], HETERO_NEG_INPUTS),
+           "author": r.integers(0, counts["author"], HETERO_NEG_INPUTS)}
+    out = {"homogeneous": res}
+    for inbound in (False, True):
+        (s, rows, cols, _c), out[f"hetero_inbound_{inbound}"] = requests(
+            f"(c) negative heterogeneous, inbound {inbound}", timer,
+            lambda i: negative_sample_neighbors_heterogenous(
+                node_types, edge_types, {k: v[0] for k, v in csr_m.items()},
+                {k: v[1] for k, v in csr_m.items()}, sizes, hin, NEG_NUM,
+                NEG_TRIES, inbound, key=rng.fold(rng.key(50), i),
+                device=device), n=1)
+        total = 0
+        for src, rel, dst in edge_types:
+            k = f"{src}__{rel}__{dst}"
+            if src not in hin or not len(rows[k]):
+                continue
+            u, w = hin[src][rows[k]], s[dst][cols[k]]
+            _assert_not_edges(f"negative {k} inbound {inbound}", graphs[k],
+                              w if inbound else u, u if inbound else w)
+            total += len(rows[k])
+        log(f"  inbound {inbound}: {total} accepted negatives, checked")
+    return out
+
+
+def mag_hetero_data(mag, seed=51):
+    """A ``HeteroData`` of the mag-shaped graph: zero features of
+    ``MAG_FEATURES`` columns, the COO in sorted-CSC order, and per-edge
+    timestamps in ``[0, TIME_RANGE)``; returns it and the timestamps by
+    sorted edge per relation."""
+    from tch_geometric_tpu_torch.data import HeteroData
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    counts, edge_types, csc = mag
+    r = np.random.default_rng(seed)
+    ei, attrs, ts = {}, {}, {}
+    for e in edge_types:
+        cp, ri = csc[rel_key(e)]
+        ei[e] = np.stack([ri, np.repeat(np.arange(len(cp) - 1),
+                                        np.diff(cp))])
+        ts[rel_key(e)] = r.integers(0, TIME_RANGE, len(ri))
+        attrs[e] = {"timestamps": ts[rel_key(e)]}
+    x = {t: np.zeros((c, MAG_FEATURES), np.float32)
+         for t, c in counts.items()}
+    return HeteroData(x=x, edge_index=ei, edge_attrs=attrs), ts
+
+
+def _hetero_batch_edges_ok(what, batch, hdata):
+    """Every edge of a hetero batch is real: its original COO edge joins
+    the batch nodes its local ids name."""
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    n_edges = 0
+    for e in hdata.edge_types:
+        k = rel_key(e)
+        rows, cols = batch.edge_index[k]
+        coo = hdata.edge_index[e][:, batch.e_id[k]]
+        check(np.array_equal(coo[0], batch.n_id[e[0]][rows])
+              and np.array_equal(coo[1], batch.n_id[e[2]][cols]),
+              f"{what} {k}: every edge is real, both ends in the batch")
+        n_edges += len(rows)
+    return n_edges
+
+
+def hgt_requests(mag, hdata, ts, device, timer):
+    """Phase 10 (d): HGT sampling on the mag-shaped graph, 128 paper seeds,
+    [512] x 4 per node type, uniform and temporal (timerange (0, 400)),
+    through ``hgt_sampling`` (which builds its device graphs per call) and
+    ``HGTSamplerTransform``; valid nodes per type; every kept edge real with
+    both ends in the sample, every node sampled once."""
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.sampling.hgt import hgt_sampling
+    from tch_geometric_tpu_torch.transforms import HGTSamplerTransform
+    counts, edge_types, csc = mag
+    node_types = sorted(counts)
+    r = np.random.default_rng(52)
+    seeds = {"paper": r.integers(0, counts["paper"], HGT_SEEDS)}
+    seed_ts = {"paper": r.integers(0, TIME_RANGE, HGT_SEEDS)}
+    ns = {t: HGT_SAMPLES for t in node_types}
+    out = {}
+    for temporal in (False, True):
+        mode = "temporal" if temporal else "uniform"
+        tkw = dict(input_timestamps=seed_ts if temporal else None,
+                   timerange=TEMPORAL_WINDOW if temporal else None)
+        (nodes, nts, rows, cols, eptr), t = timer(lambda: hgt_sampling(
+            node_types, edge_types, {k: v[0] for k, v in csc.items()},
+            {k: v[1] for k, v in csc.items()}, ts if temporal else None,
+            seeds, tkw["input_timestamps"], ns, len(HGT_SAMPLES),
+            tkw["timerange"], key=rng.key(53), node_counts=counts,
+            device=device))
+        for src, rel, dst in edge_types:
+            k = f"{src}__{rel}__{dst}"
+            cp, ri = csc[k]
+            v, w = nodes[src][rows[k]], nodes[dst][cols[k]]
+            check(np.array_equal(ri[eptr[k]], v) and bool(
+                ((eptr[k] >= cp[w]) & (eptr[k] < cp[w + 1])).all()),
+                f"hgt_sampling {mode} {k}: every kept edge is real")
+        for tt in node_types:
+            check(len(np.unique(nodes[tt])) == len(nodes[tt]),
+                  f"hgt_sampling {mode} {tt}: each node sampled once")
+        valid = {tt: len(v) for tt, v in nodes.items()}
+        log(f"phase 10 (d) hgt_sampling {mode}: {t:.1f} ms (with the "
+            f"device graphs' build); valid nodes per type {valid}; "
+            f"{sum(len(v) for v in rows.values())} kept edges, checked")
+        tf = HGTSamplerTransform(hdata, HGT_SAMPLES, temporal=temporal,
+                                 device=device)
+        batch, res = requests(
+            f"(d) HGTSamplerTransform {mode}", timer,
+            lambda i: tf(seeds, key=rng.fold(rng.key(54), i), **tkw), n=1)
+        kept = _hetero_batch_edges_ok(f"HGTSamplerTransform {mode}", batch,
+                                      hdata)
+        res.update(parity_api_ms=t, parity_valid_nodes=valid,
+                   transform_valid_nodes={k: len(v) for k, v in
+                                          batch.n_id.items()},
+                   transform_kept_edges=kept)
+        log(f"  transform valid nodes per type "
+            f"{res['transform_valid_nodes']}; {kept} kept edges, checked")
+        out[mode] = res
+    return out
+
+
+BUDGET_CONFIGS = (("uniform", None, False), ("temporal", TEMPORAL_WINDOW,
+                                              False),
+                  ("temporal_relative", TEMPORAL_WINDOW, True))
+
+
+def check_budget_sample(what, s, graphs, ts, window, relative):
+    """Every valid budget edge is real; under the filter its timestamp
+    passes the half-open forward window against its parent's, and the
+    child's timestamp is the edge's (the parent's when ``relative``)."""
+    n_edges = 0
+    for k, g in graphs.items():
+        src, _rel, dst = k.split("__")
+        ev = s.edge_valid[k]
+        e, rr, cc = s.eptr[k][ev], s.rows[k][ev], s.cols[k][ev]
+        child, parent = s.nodes[src][rr], s.nodes[dst][cc]
+        check(torch.equal(g.indices[e], child) and bool(
+            ((e >= g.indptr[parent]) & (e < g.indptr[parent + 1])).all()),
+            f"{what} {k}: every edge is real")
+        if window is not None:
+            t, pt = ts[k][e], s.node_ts[dst][cc]
+            d = t - pt
+            check(bool(((d >= window[0]) & (d < window[1])).all()),
+                  f"{what} {k}: every edge passes the window")
+            check(torch.equal(s.node_ts[src][rr], pt if relative else t),
+                  f"{what} {k}: the child's timestamp")
+        n_edges += int(ev.sum())
+    return n_edges
+
+
+def budget_requests(mag, hdata, ts, device, timer):
+    """Phase 10 (e): budget sampling on the mag-shaped graph, 1,024 papers,
+    [15, 10] per type, with no filter and with the temporal filter (window
+    (0, 400), forward), ``relative`` False and True: ``sample_budget`` on
+    the transform's device graphs per request, and ``budget_sampling``
+    once (which builds its own); valid slots; edges checked."""
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.sampling.budget import (budget_sampling,
+                                                         sample_budget)
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    counts, edge_types, csc = mag
+    node_types = sorted(counts)
+    graphs = {rel_key(e): hdata.csc(e, device) for e in edge_types}
+    dts = {k: torch.from_numpy(v).to(device).int() for k, v in ts.items()}
+    r = np.random.default_rng(55)
+    seeds = {"paper": r.integers(0, counts["paper"], BUDGET_SEEDS)}
+    seed_ts = {"paper": r.integers(0, TIME_RANGE, BUDGET_SEEDS)}
+    nn = {t: BUDGET_FANOUTS for t in node_types}
+    out = {}
+    for name, window, relative in BUDGET_CONFIGS:
+        s, res = requests(
+            f"(e) sample_budget {name}", timer,
+            lambda i: sample_budget(
+                graphs, edge_types, seeds, nn, len(BUDGET_FANOUTS),
+                edge_timestamps=dts, input_timestamps=seed_ts, window=window,
+                forward=True, relative=relative, node_types=node_types,
+                key=rng.fold(rng.key(56), i)))
+        res["valid_slots"] = {t: int(v.sum()) for t, v in
+                              s.node_valid.items()}
+        res["edges"] = check_budget_sample(f"budget {name}", s, graphs, dts,
+                                           window, relative)
+        log(f"  valid slots per type {res['valid_slots']}; {res['edges']} "
+            "edges, checked")
+        out[name] = res
+    compact, t = timer(lambda: budget_sampling(
+        node_types, edge_types, {k: v[0] for k, v in csc.items()},
+        {k: v[1] for k, v in csc.items()}, None, seeds, None, nn,
+        len(BUDGET_FANOUTS), key=rng.key(57), node_counts=counts,
+        device=device))
+    log(f"phase 10 (e) budget_sampling (parity API, with the device "
+        f"graphs' build): {t:.1f} ms; "
+        f"{sum(len(v) for v in compact[0].values())} nodes")
+    out["parity_api_ms"] = t
+    return out
+
+
+def transform_requests(p, hdata, device, timer):
+    """Phase 10 (f): ``NeighborSamplerTransform`` on products (``Data``,
+    1024 seeds, [15, 10, 5]) and on the mag shape (``HeteroData``, 1024
+    papers, [15, 10] per relation), ``NegativeSamplerTransform`` on products
+    (65,536 inputs) and ``SeedLoader`` over 65,536 seeds; the transforms'
+    set-up (device graphs) timed apart; batches checked."""
+    from tch_geometric_tpu_torch.loader import SeedLoader
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.transforms import (NegativeSamplerTransform,
+                                                    NeighborSamplerTransform)
+    data, n = p["data"], p["data"].num_nodes
+    r = np.random.default_rng(58)
+    out = {}
+    tf, t = timer(lambda: NeighborSamplerTransform(data, FANOUTS,
+                                                   device=device))
+    b, out["neighbor_products"] = requests(
+        "(f) NeighborSamplerTransform products", timer,
+        lambda i: tf(r.integers(0, n, SEEDS_PER_REQUEST),
+                     key=rng.fold(rng.key(59), i)))
+    check(b.x.shape == (len(b.n_id), data.x.shape[1]) and np.array_equal(
+        data.edge_index[:, b.e_id], b.n_id[b.edge_index]),
+        "products batch: features gathered, every edge real")
+    out["neighbor_products"]["setup_ms"] = t
+
+    tf, t = timer(lambda: NeighborSamplerTransform(hdata, BUDGET_FANOUTS,
+                                                   device=device))
+    b, out["neighbor_mag"] = requests(
+        "(f) NeighborSamplerTransform mag", timer,
+        lambda i: tf({"paper": r.integers(0, hdata.num_nodes("paper"),
+                                          SEEDS_PER_REQUEST)},
+                     key=rng.fold(rng.key(60), i)))
+    _hetero_batch_edges_ok("mag batch", b, hdata)
+    out["neighbor_mag"]["setup_ms"] = t
+
+    _, t = timer(lambda: data.csr(device))
+    tf = NegativeSamplerTransform(data, NEG_NUM, NEG_TRIES, device=device)
+    b, out["negative_products"] = requests(
+        "(f) NegativeSamplerTransform products", timer,
+        lambda i: tf(r.integers(0, n, NEG_INPUTS),
+                     key=rng.fold(rng.key(61), i)))
+    src, dst = b.n_id[b.edge_index]
+    _assert_not_edges("negative transform", data.csr(device), src, dst)
+    out["negative_products"]["setup_ms"] = t
+
+    seeds = r.integers(0, n, LOADER_SEEDS)
+    loader = SeedLoader(seeds, LOADER_BATCH, seed=62)
+    batches, t = timer(lambda: list(loader))
+    check(len(batches) == LOADER_SEEDS // LOADER_BATCH and np.array_equal(
+        np.sort(np.concatenate(batches)), np.sort(seeds)),
+        "SeedLoader: one epoch covers the seeds")
+    log(f"phase 10 (f) SeedLoader over {LOADER_SEEDS} seeds: one epoch of "
+        f"{len(batches)} batches {t:.2f} ms")
+    out["seed_loader_epoch_ms"] = t
+    return out
+
+
+def mag_cut(mag, frac=0.05, seed=27):
+    """The mag-shaped graph cut to ``frac`` of each type's nodes (phase 9
+    (c)'s cut): node counts, host CSC per relation, and the generator that
+    drew it (later draws continue from it)."""
+    from tch_geometric_tpu_torch.data.storage import to_csc
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    counts, edge_types, csc = mag
+    r = np.random.default_rng(seed)
+    keep = {t: np.sort(r.choice(c, max(int(c * frac), 16), replace=False))
+            for t, c in counts.items()}
+    new_id = {}
+    for t, k in keep.items():
+        new_id[t] = np.full(counts[t], -1, np.int64)
+        new_id[t][k] = np.arange(len(k))
+    sub_csc = {}
+    for e in edge_types:
+        cp, ri = csc[rel_key(e)]
+        dst = np.repeat(np.arange(len(cp) - 1), np.diff(cp))
+        ei = np.stack([new_id[e[0]][ri], new_id[e[2]][dst]])
+        ei = ei[:, (ei >= 0).all(axis=0)]
+        sub_csc[rel_key(e)] = to_csc(ei, (len(keep[e[0]]),
+                                          len(keep[e[2]])))[:2]
+    return {t: len(k) for t, k in keep.items()}, sub_csc, r
+
+
+def sample_diff(a, b, ts_field):
+    """Valid node slots where two padded hetero samples (card, CPU) differ
+    in validity, id or timestamp, plus edge slots differing in validity or
+    pointer; and the CPU's valid node slots."""
+    d, v = 0, 0
+    for t in a.nodes:
+        va, vb = a.node_valid[t].cpu(), b.node_valid[t]
+        both = va & vb
+        d += int(((va != vb) | (both & (
+            (a.nodes[t].cpu() != b.nodes[t])
+            | (getattr(a, ts_field)[t].cpu() != getattr(b, ts_field)[t]))))
+            .sum())
+        v += int(vb.sum())
+    for k in a.eptr:
+        va, vb = a.edge_valid[k].cpu(), b.edge_valid[k]
+        d += int(((va != vb) | (va & vb & ((a.eptr[k].cpu() != b.eptr[k])
+                                          | (a.rows[k].cpu() != b.rows[k]))))
+                 .sum())
+    return d, v
+
+
+def check_rate(what, diff, total, limit):
+    rate = diff / max(total, 1)
+    log(f"check: phase 10 (g) {what} card vs CPU: {diff} of {total} differ "
+        f"({rate:.2e}; limit {limit})")
+    check(rate <= limit, f"{what}: card and CPU differ at {rate:.2e}")
+    return dict(differing=diff, total=total, rate=rate)
+
+
+def check_phase10_card_vs_cpu(sg, mag, device):
+    """Phase 10 (g): the same key and inputs on the card and on the CPU, on
+    phase 9's 5% cuts, each graph with its ELL tables (the walks through
+    their public entry points) and again with ``ell_table=False,
+    window_table=False``: node2vec, both negative
+    samplers and ``coo_to_csc_device`` exactly equal; temporal and CTDNE
+    walks differing in at most 1e-3 of the walks; HGT (two layers of
+    (d)'s picks) and budget ((e)'s uniform and temporal) samples in at
+    most 1e-3 of the valid slots.  Without tables every relation runs
+    Floyd's 50 draws, so the cut keeps these few configurations."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.data.storage import coo_to_csc_device, to_csr
+    from tch_geometric_tpu_torch.sampling import rng, walks
+    from tch_geometric_tpu_torch.sampling.budget import sample_budget
+    from tch_geometric_tpu_torch.sampling.hgt import sample_hgt
+    from tch_geometric_tpu_torch.sampling.negative import (
+        negative_sample_neighbors_heterogenous,
+        negative_sample_neighbors_homogenous)
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    cpu = torch.device("cpu")
+    devs = (device, cpu)
+    out = {}
+    cp, ri, ns = sg["cp"], sg["ri"], sg["ns"]
+    r = np.random.default_rng(63)
+    starts = r.integers(0, ns, CUT_WALKS)
+    start_ts = r.integers(0, TIME_RANGE, CUT_WALKS)
+    node_ts = r.integers(0, TIME_RANGE, ns)
+    edge_ts = r.integers(0, TIME_RANGE, len(ri))
+
+    # the cut's in-edge adjacency, read as a CSR: the public entry points
+    # (which build the ELL tables), then the impls on table-less graphs
+    # (the entry points take no table option, as in the JAX package)
+    pq = WALK_PQ[1]                      # the accept test's path
+    tempo_args = (node_ts, edge_ts, starts, start_ts, CUT_WALK_LENGTH,
+                  TEMPORAL_WINDOW)
+    ctdne_args = (node_ts, edge_ts, starts, start_ts, CUT_WALK_LENGTH)
+    api = dict(
+        node2vec=lambda d: torch.from_numpy(walks.random_walk(
+            cp, ri, starts, CUT_WALK_LENGTH, *pq, key=rng.key(64),
+            device=d)),
+        tempo=lambda d: tuple(map(torch.from_numpy, walks.tempo_random_walk(
+            cp, ri, *tempo_args, key=rng.key(65), window_chunk=CUT_WINDOW,
+            device=d))),
+        ctdne=lambda d, bias: tuple(map(
+            torch.from_numpy, walks.biased_tempo_random_walk(
+                cp, ri, *ctdne_args, bias, True, WALK_RETRIES,
+                key=rng.key(66), device=d))))
+    plain = {d: make_graph(cp, ri, num_src=ns, num_dst=ns, device=d,
+                           ell_table=False, window_table=False) for d in devs}
+    check(plain[cpu].ell is None and walks._csr_from_parts(
+        cp, ri, cpu).ell is not None, "the cut's ELL and plain engines")
+
+    def on(dev, a, dtype=torch.long):
+        return torch.from_numpy(np.asarray(a)).to(dev, dtype)
+
+    args = {d: (on(d, node_ts, torch.int32), on(d, edge_ts, torch.int32),
+                on(d, starts), on(d, start_ts, torch.int32)) for d in devs}
+    impl = dict(
+        node2vec=lambda d: walks._random_walk_impl(
+            rng.key(64), plain[d], on(d, starts), CUT_WALK_LENGTH, *pq,
+            walks.NUM_TRIALS).cpu(),
+        tempo=lambda d: walks._tempo_walk_impl(
+            rng.key(65), plain[d], *args[d], CUT_WALK_LENGTH,
+            *TEMPORAL_WINDOW, CUT_WINDOW),
+        ctdne=lambda d, bias: walks._biased_tempo_walk_impl(
+            rng.key(66), plain[d], *args[d], CUT_WALK_LENGTH, bias, True,
+            WALK_RETRIES))
+    for engine, fns in (("ELL", api), ("plain", impl)):
+        w = {d: fns["node2vec"](d) for d in devs}
+        check(torch.equal(w[device], w[cpu]),
+              f"node2vec {engine} {pq}: card and CPU walks equal")
+        log(f"check: phase 10 (g) node2vec {engine} p,q={pq}: "
+            f"{CUT_WALKS} walks equal card vs CPU")
+        res = {d: fns["tempo"](d) for d in devs}
+        out[f"tempo_{engine}"] = check_rate(
+            f"tempo walks {engine}", _walk_diff(res, device, cpu),
+            CUT_WALKS, CUT_DIFF_LIMIT)
+        for bias in WALK_BIASES:
+            res = {d: fns["ctdne"](d, bias) for d in devs}
+            out[f"ctdne_{bias}_{engine}"] = check_rate(
+                f"ctdne {bias} walks {engine}", _walk_diff(res, device, cpu),
+                CUT_WALKS, CUT_DIFF_LIMIT)
+    del plain, args
+
+    # the cut's COO: the card's CSC build and the CPU's
+    dst = np.repeat(np.arange(ns), np.diff(cp))
+    c = {d: coo_to_csc_device(on(d, ri), on(d, dst), ns, ns) for d in devs}
+    check(all(torch.equal(x.cpu(), y) for x, y in zip(c[device], c[cpu])),
+          "coo_to_csc_device: card and CPU builds equal")
+    rp_o, ci_o = to_csr(np.stack([ri, dst]), ns)[:2]
+    inputs = r.integers(0, ns, CUT_WALKS)
+    neg = {d: negative_sample_neighbors_homogenous(
+        rp_o, ci_o, (ns, ns), inputs, NEG_NUM, NEG_TRIES, key=rng.key(67),
+        device=d) for d in devs}
+    check(all(np.array_equal(x, y) for x, y in zip(neg[device][:3],
+                                                   neg[cpu][:3])),
+          "negative homogeneous: card and CPU equal")
+    log("check: phase 10 (g) coo_to_csc_device and negative homogeneous: "
+        "card and CPU equal")
+
+    edge_types = mag[1]
+    sub_counts, sub_csc, r = mag_cut(mag)
+    node_types = sorted(sub_counts)
+    csr_m, sizes = mag_csr(sub_counts, edge_types, sub_csc)
+    hin = {"paper": r.integers(0, sub_counts["paper"], HETERO_NEG_INPUTS),
+           "author": r.integers(0, sub_counts["author"], HETERO_NEG_INPUTS)}
+    for inbound in (False, True):
+        res = {d: negative_sample_neighbors_heterogenous(
+            node_types, edge_types, {k: v[0] for k, v in csr_m.items()},
+            {k: v[1] for k, v in csr_m.items()}, sizes, hin, NEG_NUM,
+            NEG_TRIES, inbound, key=rng.key(68), device=d) for d in devs}
+        check(all(np.array_equal(res[device][i][k], res[cpu][i][k])
+                  for i in range(3) for k in res[cpu][i]),
+              f"negative heterogeneous inbound {inbound}: card and CPU equal")
+    log("check: phase 10 (g) negative heterogeneous (inbound both ways): "
+        "card and CPU equal")
+
+    ts = {rel_key(e): r.integers(0, TIME_RANGE, len(sub_csc[rel_key(e)][1]))
+          for e in edge_types}
+    seeds = {"paper": r.integers(0, sub_counts["paper"], HGT_SEEDS)}
+    bseeds = {"paper": r.integers(0, sub_counts["paper"], BUDGET_SEEDS)}
+    seed_ts = {"paper": r.integers(0, TIME_RANGE, BUDGET_SEEDS)}
+    engines = (("ELL", {}), ("plain", dict(ell_table=False,
+                                           window_table=False)))
+    for engine, kw in engines:
+        graphs = {d: {rel_key(e): make_graph(
+            *sub_csc[rel_key(e)], num_src=sub_counts[e[0]],
+            num_dst=sub_counts[e[2]], device=d, **kw) for e in edge_types}
+            for d in devs}
+        for temporal in (False, True):
+            mode = "temporal" if temporal else "uniform"
+            s = {d: sample_hgt(
+                graphs[d], edge_types, seeds,
+                {t: CUT_HGT_SAMPLES for t in node_types},
+                len(CUT_HGT_SAMPLES),
+                node_counts=sub_counts,
+                edge_timestamps=ts if temporal else None,
+                input_timestamps={"paper": seed_ts["paper"][:HGT_SEEDS]}
+                if temporal else None,
+                timerange=TEMPORAL_WINDOW if temporal else None,
+                node_types=node_types, key=rng.key(69)) for d in devs}
+            out[f"hgt_{mode}_{engine}"] = check_rate(
+                f"HGT {mode} {engine} (valid slots)",
+                *sample_diff(s[device], s[cpu], "node_ts"), CUT_DIFF_LIMIT)
+        for name, window, relative in BUDGET_CONFIGS[:CUT_BUDGET_CONFIGS]:
+            s = {d: sample_budget(
+                graphs[d], edge_types, bseeds,
+                {t: BUDGET_FANOUTS for t in node_types},
+                len(BUDGET_FANOUTS), edge_timestamps=ts,
+                input_timestamps=seed_ts, window=window, forward=True,
+                relative=relative, node_types=node_types, key=rng.key(70))
+                for d in devs}
+            out[f"budget_{name}_{engine}"] = check_rate(
+                f"budget {name} {engine} (valid slots)",
+                *sample_diff(s[device], s[cpu], "node_ts"), CUT_DIFF_LIMIT)
+    return out
+
+
+def _walk_diff(res, device, cpu):
+    """Walks (rows) whose nodes or timestamps differ card vs CPU."""
+    (wa, ta), (wb, tb) = res[device], res[cpu]
+    return int(((wa.cpu() != wb) | (ta.cpu() != tb)).any(dim=1).sum())
+
+
+def phase10(p, mag, sg, device, timer):
+    """Phase 10: (a)-(g), each part's wall seconds logged; returns its
+    numbers."""
+    t0 = time.perf_counter()
+    res, secs = {}, {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t
+        log(f"phase 10 {name}: {secs[name]:.1f}s")
+        return out
+
+    res["data_layer"], csr = part("(a)", lambda: data_layer(p, device,
+                                                              timer))
+    res["walks"], out_g = part("(b)", lambda: walk_requests(p, csr, device,
+                                                            timer))
+    res["negative"] = part("(c)", lambda: negative_requests(
+        p, csr, out_g, mag, device, timer))
+    del out_g
+    hdata, ts = part("mag HeteroData", lambda: mag_hetero_data(mag))
+    res["hgt"] = part("(d)", lambda: hgt_requests(mag, hdata, ts, device,
+                                                  timer))
+    res["budget"] = part("(e)", lambda: budget_requests(mag, hdata, ts,
+                                                        device, timer))
+    res["transforms"] = part("(f)", lambda: transform_requests(
+        p, hdata, device, timer))
+    del hdata
+    res["card_vs_cpu"] = part("(g)", lambda: check_phase10_card_vs_cpu(
+        sg, mag, device))
+    res["part_s"] = secs
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 10 wall time {res['wall_s']:.1f}s")
+    return res
 
 
 def gpu_line() -> str:
@@ -2386,6 +3192,16 @@ def main(argv=None) -> int:
         f"{sampling_launches}")
     torch.cuda.empty_cache()
     sampling_res["card_vs_cpu"] = check_sampling_card_vs_cpu(sg, mag, device)
+    torch.cuda.empty_cache()
+
+    for fn in wrappers:
+        fn.launches = 0
+    parity_res = phase10(p, mag, sg, device, timer)
+    parity_launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"phase 10 launches (no kernel of B1-B11 lies on it): "
+        f"{parity_launches}")
+    check(not any(parity_launches.values()),
+          "no kernel of B1-B11 ran in phase 10")
     del mag
 
     summary = dict(
@@ -2411,6 +3227,7 @@ def main(argv=None) -> int:
         attend_vs_segment_f32=attend_sub,
         attend_peak_device_gib=attend_peak_gb,
         train=train_res, profile=prof, sampling=sampling_res,
+        parity=parity_res,
         total_s=time.perf_counter() - t_all, **sub)
     log("serving: " + json.dumps(summary))
     if args.scale == 1.0:

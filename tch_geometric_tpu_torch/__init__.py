@@ -25,18 +25,34 @@ Ported so far:
   ``neighbor_sampling_homogenous``) and heterogeneous
   (``sample_hetero_neighbors``, ``neighbor_sampling_heterogenous``), with
   ``data.HeteroData``, ``ops.csc_sort_edges`` / ``csc_edge_cumsum`` and
-  ``ops.spmm(edge_weight=, agg="max")``.
+  ``ops.spmm(edge_weight=, agg="max")``;
+* the rest of the reference-parity API: node2vec, temporal and CTDNE walks
+  (``random_walk``, ``tempo_random_walk``, ``biased_tempo_random_walk``),
+  HGT and budget sampling (``hgt_sampling`` / ``sample_hgt``,
+  ``budget_sampling`` / ``sample_budget``), negative sampling, the
+  ``transforms`` and ``loader`` modules, and the data layer under them:
+  ``SparseGraph.find_edge`` / ``has_edge``, ``data.coo_to_csc_device`` (a
+  stable sort on the card), the native C++ CSC/CSR sort (``native``),
+  ``data.load_ogbn_dir`` and ``data.planted_hetero``.
 
 Every Pallas kernel of the JAX package has its counterpart here; the
 samplers are plain torch ops on the caller's device.
 """
 
-from . import data, models, ops, parallel, sampling, utils
-from .data.storage import ind2ptr, to_csc, to_csr
+from . import (data, loader, models, ops, parallel, sampling, transforms,
+               utils)
+from .data.storage import ind2ptr_np as ind2ptr
+from .data.storage import to_csc, to_csr
+from .sampling.budget import budget_sampling, sample_budget
 from .sampling.hetero_neighbor import (neighbor_sampling_heterogenous,
                                       sample_hetero_neighbors)
+from .sampling.hgt import hgt_sampling, sample_hgt
+from .sampling.negative import (negative_sample_neighbors_heterogenous,
+                                negative_sample_neighbors_homogenous)
 from .sampling.neighbor import neighbor_sampling_homogenous, sample_neighbors
 from .sampling.rng import seed as rng_reseed
+from .sampling.walks import (biased_tempo_random_walk, random_walk,
+                             tempo_random_walk)
 from .utils.config import (
     TEMPORAL_SAMPLE_DYNAMIC,
     TEMPORAL_SAMPLE_RELATIVE,
@@ -48,11 +64,17 @@ from .utils.config import (
     validate_mixeddata,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
-    "data", "models", "ops", "parallel", "sampling", "utils",
-    "ind2ptr", "to_csc", "to_csr",
+    "data", "loader", "models", "ops", "parallel", "sampling", "transforms",
+    "utils", "ind2ptr", "to_csc", "to_csr", "rng_reseed",
     "neighbor_sampling_homogenous", "sample_neighbors",
-    "neighbor_sampling_heterogenous", "sample_hetero_neighbors", "rng_reseed",
+    "neighbor_sampling_heterogenous", "sample_hetero_neighbors",
+    "random_walk", "tempo_random_walk", "biased_tempo_random_walk",
+    "hgt_sampling", "sample_hgt", "budget_sampling", "sample_budget",
+    "negative_sample_neighbors_homogenous",
+    "negative_sample_neighbors_heterogenous",
     "TEMPORAL_SAMPLE_DYNAMIC", "TEMPORAL_SAMPLE_RELATIVE",
     "TEMPORAL_SAMPLE_STATIC", "EdgeSampler", "TemporalEdgeFilter",
     "UniformEdgeSampler", "WeightedEdgeSampler", "validate_mixeddata",

@@ -95,7 +95,7 @@ class GCNConv(nn.Module):
     degrees (valid-child counts)."""
 
     def __init__(self, in_features: int, features: int, dtype=None,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         self.dtype = dtype
         self.lin = nn.Linear(in_features, features, bias=True, device=device)
@@ -141,7 +141,7 @@ class GATConv(nn.Module):
     """Multi-head graph attention (GATv1-style additive logits)."""
 
     def __init__(self, in_features: int, features: int, heads: int = 4,
-                 dtype=None, device=None):
+                 dtype=None, device="cuda"):
         super().__init__()
         if features % heads:
             raise ValueError(f"features ({features}) must be divisible by "
@@ -245,7 +245,7 @@ class GINConv(nn.Module):
     (masked child sum).  ``eps`` is learnable, initialized to 0."""
 
     def __init__(self, in_features: int, features: int,
-                 hidden: Optional[int] = None, dtype=None, device=None):
+                 hidden: Optional[int] = None, dtype=None, device="cuda"):
         super().__init__()
         width = hidden if hidden is not None else features
         self.dtype = dtype

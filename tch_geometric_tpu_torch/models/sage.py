@@ -38,7 +38,7 @@ class SAGEConv(nn.Module):
     bias."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, dtype=None, device=None):
+                 bias: bool = True, dtype=None, device="cuda"):
         super().__init__()
         self.dtype = dtype
         self.lin_self = nn.Linear(in_features, out_features, bias=bias,

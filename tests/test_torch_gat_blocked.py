@@ -441,7 +441,7 @@ def test_gatconv_inputs_through_routes(route, heads, features):
     from tch_geometric_tpu_torch.models.gnn import GATConv
     indptr, src, _, _, _ = CASES["testbed"]
     b = tsb.build_blocked(indptr, src, rows_per_block=128, device="cpu")
-    conv = GATConv(16, features, heads)
+    conv = GATConv(16, features, heads, device="cpu")
     conv.reset_parameters(torch.Generator().manual_seed(3))
     x = torch.from_numpy(np.random.default_rng(5).normal(
         size=(len(indptr) - 1, 16)).astype(np.float32))

@@ -31,6 +31,11 @@ def test_no_jax_imports(path):
 
 
 MODULES = ["tch_geometric_tpu_torch.data.dataset",
+           "tch_geometric_tpu_torch.data.graph",
+           "tch_geometric_tpu_torch.data.ogb",
+           "tch_geometric_tpu_torch.data.storage",
+           "tch_geometric_tpu_torch.loader",
+           "tch_geometric_tpu_torch.native",
            "tch_geometric_tpu_torch.models.dropout",
            "tch_geometric_tpu_torch.models.gnn",
            "tch_geometric_tpu_torch.ops._build",
@@ -39,9 +44,14 @@ MODULES = ["tch_geometric_tpu_torch.data.dataset",
            "tch_geometric_tpu_torch.ops.spmm",
            "tch_geometric_tpu_torch.ops.spmm_kernels",
            "tch_geometric_tpu_torch.parallel.train",
+           "tch_geometric_tpu_torch.sampling.budget",
            "tch_geometric_tpu_torch.sampling.hetero_neighbor",
+           "tch_geometric_tpu_torch.sampling.hgt",
+           "tch_geometric_tpu_torch.sampling.negative",
            "tch_geometric_tpu_torch.sampling.neighbor",
            "tch_geometric_tpu_torch.sampling.primitives",
+           "tch_geometric_tpu_torch.sampling.walks",
+           "tch_geometric_tpu_torch.transforms",
            "tch_geometric_tpu_torch.utils.checkpoint",
            "tch_geometric_tpu_torch.utils.kernel_gates",
            "tch_geometric_tpu_torch.utils.metrics",
@@ -65,8 +75,9 @@ def test_import_loads_no_jax():
 @pytest.mark.parametrize("module", MODULES)
 def test_module_import_loads_no_jax(module):
     """Each module of the GAT/GCN/GIN, attention, training and sampling
-    slices, imported alone in a fresh interpreter, loads no JAX and nothing of the
-    JAX package."""
+    slices, and of the data layer, walks, HGT, budget and negative samplers,
+    transforms and loader, imported alone in a fresh interpreter, loads no
+    JAX and nothing of the JAX package."""
     code = ("import sys, importlib\n"
             f"bad = lambda: {{m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}}}\n"
@@ -98,16 +109,31 @@ EXPORTS = {
         "MetricsLogger", "trace_span", "profile", "adam_state_from_optax",
         "train_state_from_flax"],
     "tch_geometric_tpu_torch.data": [
-        "csc_graph_from_coo", "csr_graph_from_coo", "HeteroData"],
+        "csc_graph_from_coo", "csr_graph_from_coo", "HeteroData",
+        "coo_to_csc_device", "ind2ptr", "ind2ptr_np", "load_ogbn_dir",
+        "planted_hetero"],
     "tch_geometric_tpu_torch.sampling": [
         "split_sample_batches", "sample_edges_uniform",
         "sample_hetero_neighbors", "compact_hetero_sample",
-        "neighbor_sampling_heterogenous"],
+        "neighbor_sampling_heterogenous", "random_walk", "tempo_random_walk",
+        "biased_tempo_random_walk", "hgt_sampling", "sample_hgt",
+        "compact_hgt_sample", "budget_sampling", "sample_budget",
+        "compact_budget_sample", "negative_sample_neighbors_homogenous",
+        "negative_sample_neighbors_heterogenous"],
+    "tch_geometric_tpu_torch.transforms": [
+        "NeighborSamplerTransform", "HGTSamplerTransform",
+        "NegativeSamplerTransform", "Batch", "HeteroBatch"],
+    "tch_geometric_tpu_torch.loader": ["SeedLoader", "to_csc", "to_csr"],
+    "tch_geometric_tpu_torch.native": ["available", "coo_to_csx", "ind2ptr"],
     "tch_geometric_tpu_torch.sampling.primitives": [
         "window_topk_sample", "window_choice_sample", "masked_gumbel_topk"],
     "tch_geometric_tpu_torch": [
         "neighbor_sampling_heterogenous", "sample_hetero_neighbors",
-        "validate_mixeddata"],
+        "validate_mixeddata", "random_walk", "tempo_random_walk",
+        "biased_tempo_random_walk", "hgt_sampling", "sample_hgt",
+        "budget_sampling", "sample_budget",
+        "negative_sample_neighbors_homogenous",
+        "negative_sample_neighbors_heterogenous"],
     "tch_geometric_tpu_torch.models": ["keyed_dropout"],
 }
 
@@ -116,11 +142,50 @@ EXPORTS = {
                                          EXPORTS.items() for n in names])
 def test_ported_names_exported(module, name):
     """The multi-head GAT routes (B7, B8, B9), the int8 SpMM (B11), the
-    training slice's entry points and the sampling slice's samplers, data
-    and ops are public names of the port; each ``_cuda`` wrapper carries a
-    launch count."""
+    training slice's entry points, the sampling slices' samplers, data and
+    ops, the transforms and the loader are public names of the port; each
+    ``_cuda`` wrapper carries a launch count."""
     import importlib
     obj = getattr(importlib.import_module(module), name)
     assert callable(obj)
     if name.endswith("_cuda") and name != "gat_attend_blocked_cuda":
         assert isinstance(obj.launches, int)
+
+
+JAX_PACKAGES = {"tch_geometric_tpu": "tch_geometric_tpu_torch",
+                "tch_geometric_tpu.data": "tch_geometric_tpu_torch.data",
+                "tch_geometric_tpu.sampling":
+                    "tch_geometric_tpu_torch.sampling"}
+
+
+@pytest.mark.parametrize("jax_module", sorted(JAX_PACKAGES))
+def test_every_jax_name_exported(jax_module):
+    """Every public name of the JAX top level and of its ``data`` and
+    ``sampling`` packages exists in the port's counterpart, save
+    ``data.load_ogbn`` (it needs the ``ogb`` package and a download; the
+    port reads the same data with ``load_ogbn_dir``)."""
+    import importlib
+    jmod = importlib.import_module(jax_module)
+    ours = importlib.import_module(JAX_PACKAGES[jax_module])
+    names = getattr(jmod, "__all__", None) or [
+        n for n in dir(jmod) if not n.startswith("_")]
+    missing = sorted(n for n in names if not hasattr(ours, n)
+                     and (jax_module, n) != ("tch_geometric_tpu.data",
+                                             "load_ogbn"))
+    assert not missing, missing
+    if jax_module == "tch_geometric_tpu":
+        assert {"transforms", "loader"} <= set(ours.__all__)
+
+
+def test_layer_and_model_devices_default_to_the_card():
+    """Every public layer and model constructor of the port defaults to
+    ``device="cuda"`` (read from the signature: no card needed)."""
+    import inspect
+
+    from tch_geometric_tpu_torch import models
+    classes = [models.SAGEConv, models.GraphSAGE, models.GCNConv,
+               models.GATConv, models.GINConv, models.GCN, models.GAT,
+               models.GIN]
+    for cls in classes:
+        dev = inspect.signature(cls).parameters["device"]
+        assert dev.default == "cuda", cls.__name__

@@ -10,7 +10,7 @@ from tch_geometric_tpu.data.graph import make_graph as jmake_graph
 from tch_geometric_tpu_torch.data import io as tio
 from tch_geometric_tpu_torch.data import ogb as togb
 from tch_geometric_tpu_torch.data.graph import make_graph
-from tch_geometric_tpu_torch.data.storage import ind2ptr, to_csc, to_csr
+from tch_geometric_tpu_torch.data.storage import ind2ptr_np, to_csc, to_csr
 
 
 def _powerlaw(n=900, e=9000, seed=0):
@@ -49,7 +49,7 @@ def test_to_csc_to_csr_exact(name):
 
 def test_ind2ptr_and_bounds():
     ind = np.array([0, 0, 2, 2, 2, 5])
-    np.testing.assert_array_equal(ind2ptr(ind, 6), tgt.ind2ptr(ind, 6))
+    np.testing.assert_array_equal(ind2ptr_np(ind, 6), tgt.ind2ptr(ind, 6))
     with pytest.raises(ValueError):
         to_csc(np.array([[0, 9], [1, 2]]), 5)
 
