@@ -186,6 +186,35 @@ prints no result line):
    most 1e-3 of the walks, HGT (two layers of [512]) and budget (uniform,
    temporal) in at most 1e-3 of the valid slots (each count printed). Each
    part's wall time and the phase's are printed.
+11. the HGT, node2vec and link-prediction models and trainers (no kernel of
+   B1-B11 lies on them; the launch counts are zeroed before (a)-(e),
+   printed after and must all be 0; each part prints its wall time and
+   peak device memory, each trainer its ms per step, host clock to a
+   synchronise, one warm-up then 5 steps, with its peak device memory):
+   (a) ``HGT(128 features, hidden 128, out 349, 2 layers, 4 heads)`` (the
+   repo's HGT training configuration, scripts/bench_partitioned_hgt.py;
+   349 ogbn-mag venues) through ``make_hgt_trainer`` on phase 9's
+   mag-shaped graph, 128 seeded N(0, 1) feature columns a type, seeded
+   paper labels, 512 papers a step, [128, 128] per type, Adam at 1e-3, per
+   relation and relation-batched; 20 steps on one batch, whose loss on one
+   fixed sample must fall; one temporal step (timerange (0, 400)); (b)
+   ``Node2Vec(2,449,029, 128, context 20, 1 negative)`` (OGB's products
+   node2vec example) through ``make_node2vec_trainer`` on the products
+   out-edge CSR, walks of 40 from 2,560 starts a step, p = q = 1, Adam at
+   0.01 over the dense table, one trial a step (the walks of the default
+   16, which is checked and timed); 20 steps on one fixed batch of walks
+   and negatives, whose loss must fall; (c) ``make_link_trainer`` with
+   ``GraphSAGE(100, 256, 256, 3 layers, dropout 0.5)``, [15, 10, 5], 1
+   negative of 8 tries, Adam at 1e-3, on the products CSC, 1,024 edges a
+   step: the accepted share, no accepted negative an edge from its source
+   or an endpoint; (d) card against CPU, same parameters, keys and inputs:
+   (c) on phase 3's 5% subgraph (3 steps of 256 edges, losses within
+   1e-3), (b) on its out-edge CSR (3 steps, draws equal, losses within
+   1e-5), HGT on the mag cut (one CPU sample on both, forward and
+   gradients within 1e-4 of the largest, both layouts; 3 trainer steps,
+   differing sample slots at most 1e-3 of the valid ones, losses within
+   1e-3 when none differs); (e) ``torch.profiler`` over one HGT and one
+   node2vec step, read as phase 8 reads its windows.
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -1724,7 +1753,8 @@ def profile_split(prof, window: str):
 def short_op(name: str) -> str:
     """A kernel's name without its template noise: the kernel and, for
     PyTorch's elementwise kernels, the functor it applies."""
-    base = name.replace("void ", "").split("(")[0].split("<")[0]
+    base = (name.replace("void ", "").replace("(anonymous namespace)::", "")
+            .split("(")[0].split("<")[0])
     inner = re.findall(r"([A-Za-z_]\w*(?:Functor|_kernel_cuda)\w*(?:<\w+>)?)",
                        name)
     return f"{base}[{inner[-1]}]" if inner else base[:90]
@@ -2780,9 +2810,9 @@ def sample_diff(a, b, ts_field):
     return d, v
 
 
-def check_rate(what, diff, total, limit):
+def check_rate(what, diff, total, limit, where="phase 10 (g)"):
     rate = diff / max(total, 1)
-    log(f"check: phase 10 (g) {what} card vs CPU: {diff} of {total} differ "
+    log(f"check: {where} {what} card vs CPU: {diff} of {total} differ "
         f"({rate:.2e}; limit {limit})")
     check(rate <= limit, f"{what}: card and CPU differ at {rate:.2e}")
     return dict(differing=diff, total=total, rate=rate)
@@ -2954,7 +2984,7 @@ def _walk_diff(res, device, cpu):
 
 def phase10(p, mag, sg, device, timer):
     """Phase 10: (a)-(g), each part's wall seconds logged; returns its
-    numbers."""
+    numbers and (a)'s host out-edge CSR of products."""
     t0 = time.perf_counter()
     res, secs = {}, {}
 
@@ -2985,6 +3015,552 @@ def phase10(p, mag, sg, device, timer):
     res["part_s"] = secs
     res["wall_s"] = time.perf_counter() - t0
     log(f"phase 10 wall time {res['wall_s']:.1f}s")
+    return res, csr
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the HGT, node2vec and link-prediction models and trainers
+# ---------------------------------------------------------------------------
+
+# scripts/bench_partitioned_hgt.py:47-52 (BASELINE.md "Round-4"); 349 is
+# ogbn-mag's venue classes
+HGT_HIDDEN, HGT_OUT, HGT_LAYERS, HGT_HEADS = 128, 349, 2, 4
+HGT_TRAIN_SEEDS, HGT_TRAIN_SAMPLES = 512, [128, 128]
+TIMED_STEPS = 5                 # after one warm-up step
+# OGB's examples/nodeproppred/products/node2vec.py
+N2V_DIM, N2V_CONTEXT, N2V_NEG, N2V_LR = 128, 20, 1, 0.01
+# at p = q = 1 a walk's first draw is always accepted, so one trial gives
+# the walks of the trainer's default 16 (checked on the card, and the 16
+# trials' walk is timed beside it)
+N2V_TRIALS = 1
+LINK_EDGES, LINK_NEG, LINK_TRIES = 1024, 1, 8
+# (d)'s link steps on the 5% cut: 768 seeds to the sampler (the CPU takes
+# about 25 s a step for phase 7 (d)'s 1,024)
+LINK_CUT_EDGES = 256
+CUT_STEPS = 3
+CUT_FORWARD_RTOL = 1e-4         # HGT forward and gradients, card vs CPU
+N2V_CUT_RTOL = 1e-5             # node2vec losses, card vs CPU
+# (e)'s windows: an HGT step is ~480k profiler events (the samplers' int64
+# threefry), whose parse by ``prof.events()`` took 120 s for 3 steps on
+# the H100's host, and the node2vec window's 42 s
+PROFILE_STEPS = 1
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| over the largest |b|."""
+    return maxerr(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+def mag_features(counts, device, seed=80):
+    """``MAG_FEATURES`` seeded N(0, 1) columns for every node type."""
+    gen = torch.Generator().manual_seed(seed)
+    return {t: torch.randn(c, MAG_FEATURES, generator=gen).to(device)
+            for t, c in sorted(counts.items())}
+
+
+def hgt_model(counts, edge_types, stacked, device, seed=81):
+    from tch_geometric_tpu_torch.models import HGT
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    return HGT(MAG_FEATURES, HGT_HIDDEN, HGT_OUT, HGT_LAYERS, sorted(counts),
+               sorted((rel_key(e), e[0], e[2]) for e in edge_types), "paper",
+               heads=HGT_HEADS, stacked_rels=stacked, device=device,
+               generator=torch.Generator().manual_seed(seed))
+
+
+def hgt_trainer(model, counts, edge_types, graphs, x, **kw):
+    from tch_geometric_tpu_torch.parallel import make_hgt_trainer
+    return make_hgt_trainer(model, graphs, edge_types,
+                            {t: HGT_TRAIN_SAMPLES for t in counts},
+                            len(HGT_TRAIN_SAMPLES), counts, x,
+                            seed_type="paper", learning_rate=TRAIN_LR, **kw)
+
+
+def sample_loss(model, batch, labels):
+    """Mean cross entropy of the model on one drawn ``(sample, feats,
+    edges)``: a fixed batch's loss."""
+    with torch.no_grad():
+        _s, feats, edges = batch
+        logits = model(feats, edges)[: labels.shape[0]]
+        return float(torch.nn.functional.cross_entropy(logits, labels))
+
+
+def timed_steps(timer, step, what):
+    """One warm-up and ``TIMED_STEPS`` calls of ``step()``, which returns
+    its loss, on the timer, with peak device memory; each loss must be
+    finite.  Returns the numbers."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(1 + TIMED_STEPS):
+        loss, t = timer(step)
+        ms.append(t)
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]), f"{what}: loss finite")
+    res = dict(step_ms=ms[1:], first_step_ms=ms[0],
+               step_ms_mean=float(np.mean(ms[1:])),
+               peak_device_gib=peak_gib(), losses=losses)
+    log(f"phase 11 {what}: step ms (first, warm-up) {ms[0]:.1f}, then "
+        + ", ".join(f"{m:.1f}" for m in ms[1:])
+        + f"; mean {res['step_ms_mean']:.2f} ms; peak device memory "
+        f"{res['peak_device_gib']:.2f} GiB; losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    return res
+
+
+def hgt_phase(mag, device, timer):
+    """Phase 11 (a): ``HGT(hidden 128, out 349, 2 layers, 4 heads)`` on the
+    mag-shaped graph, 128 seeded N(0, 1) feature columns a type, seeded
+    paper labels, 512 paper seeds a step, [128, 128] per type, Adam at
+    1e-3: per layout (per relation, relation-batched) a warm-up and
+    ``TIMED_STEPS`` timed steps; then ``FIT_STEPS`` steps on one fixed
+    batch of seeds (per relation; each step draws its own sample), whose
+    loss on one fixed sample of them must fall; one temporal step (edge
+    timestamps in [0, 1000), timerange (0, 400)).
+    Returns the numbers and the per-relation trainer for (e)."""
+    from tch_geometric_tpu_torch.sampling import rng
+    counts, edge_types, csc = mag
+    graphs = hetero_graphs(counts, edge_types, csc, device)
+    x = mag_features(counts, device)
+    labels = torch.from_numpy(np.random.default_rng(82).integers(
+        0, HGT_OUT, counts["paper"])).to(device)
+    r = np.random.default_rng(83)
+    key = rng.key(84)
+    out, trainers = {}, {}
+    for stacked in (False, True):
+        name = "stacked" if stacked else "per_rel"
+        model = hgt_model(counts, edge_types, stacked, device)
+        tr = hgt_trainer(model, counts, edge_types, graphs, x)
+        state = tr.init_fn()
+
+        def step():
+            nonlocal state
+            seeds = torch.from_numpy(r.integers(
+                0, counts["paper"], HGT_TRAIN_SEEDS)).to(device)
+            state, loss, _acc = tr.train_step(state, key, seeds,
+                                              labels[seeds])
+            return loss
+        out[name] = timed_steps(timer, step, f"(a) HGT {name}, "
+                                f"{HGT_TRAIN_SEEDS} papers a step")
+        trainers[name] = (tr, state, model)
+        del model
+
+    tr, state, model = trainers["per_rel"]
+    seeds = torch.from_numpy(r.integers(0, counts["paper"],
+                                        HGT_TRAIN_SEEDS)).to(device)
+    batch = tr.sample_and_gather(rng.key(85), seeds)
+    before = sample_loss(model, batch, labels[seeds])
+    for _ in range(FIT_STEPS):
+        state, _, _ = tr.train_step(state, key, seeds, labels[seeds])
+    after = sample_loss(model, batch, labels[seeds])
+    log(f"phase 11 (a) HGT per_rel: {FIT_STEPS} steps on one batch: loss "
+        f"of one fixed sample {before:.4f} -> {after:.4f}")
+    check(after < before, f"HGT: {FIT_STEPS} steps on one batch lower its "
+          f"loss ({before:.4f} -> {after:.4f})")
+    out["fit_loss_before"], out["fit_loss_after"] = before, after
+    del batch
+
+    _w, ts = hetero_edge_values(graphs, 86, device)
+    model_t = hgt_model(counts, edge_types, False, device)
+    tr_t = hgt_trainer(model_t, counts, edge_types, graphs, x,
+                       edge_timestamps=ts, timerange=TEMPORAL_WINDOW)
+    (_st, loss, _acc), t = timer(lambda: tr_t.train_step(
+        tr_t.init_fn(), key, seeds, labels[seeds]))
+    check(np.isfinite(float(loss)), "HGT temporal: loss finite")
+    log(f"phase 11 (a) HGT per_rel temporal, timerange {TEMPORAL_WINDOW}: "
+        f"one step {t:.1f} ms (the first of its trainer), loss "
+        f"{float(loss):.4f}")
+    out["temporal_step_ms"] = t
+    return out, dict(trainer=tr, state=state, seeds=seeds,
+                     labels=labels[seeds], key=key)
+
+
+def node2vec_phase(csr, n, device, timer):
+    """Phase 11 (b): ``Node2Vec(num_nodes, 128, context 20, 1 negative)`` on
+    the products out-edge CSR, walks of 40 from 2,560 starts a step (256
+    nodes x 10 walks), p = q = 1, Adam at 0.01 over the dense table: a
+    warm-up and ``TIMED_STEPS`` timed steps, then ``FIT_STEPS`` steps on
+    one fixed batch of walks and negatives, whose loss must fall.  One step
+    key's walks and negatives at ``N2V_TRIALS`` trials equal the trainer's
+    default 16 trials', whose draw is timed."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.models import (Node2Vec,
+                                                make_node2vec_trainer)
+    from tch_geometric_tpu_torch.sampling import rng
+    g = make_graph(csr[0], csr[1], num_src=n, num_dst=n, device=device)
+    model = Node2Vec(n, N2V_DIM, N2V_CONTEXT, N2V_NEG, device=device,
+                     generator=torch.Generator().manual_seed(87))
+    tr = make_node2vec_trainer(model, g, walk_length=WALK_LENGTH,
+                               learning_rate=N2V_LR, num_trials=N2V_TRIALS)
+    r = np.random.default_rng(88)
+    key = rng.key(89)
+    starts = torch.from_numpy(r.integers(0, n, WALK_STARTS)).to(device)
+    one, t1 = timer(lambda: tr.walks_and_negs(key, starts))
+    default = make_node2vec_trainer(model, g, walk_length=WALK_LENGTH)
+    full, t16 = timer(lambda: default.walks_and_negs(key, starts))
+    check(all(torch.equal(a, b) for a, b in zip(one, full)),
+          f"node2vec at p = q = 1: {N2V_TRIALS} and 16 trials draw the same "
+          "walks and negatives")
+    log(f"phase 11 (b) node2vec walks and negatives of one step key: "
+        f"{N2V_TRIALS} trial {t1:.1f} ms, the default 16 trials {t16:.1f} "
+        "ms, equal")
+    del one, full
+    state = tr.init_fn()
+
+    def step():
+        nonlocal state
+        s = torch.from_numpy(r.integers(0, n, WALK_STARTS)).to(device)
+        state, loss = tr.train_step(state, key, s)
+        return loss
+    out = timed_steps(timer, step, f"(b) node2vec, {WALK_STARTS} walks a "
+                      "step")
+    out.update(walks_1_trial_ms=t1, walks_16_trials_ms=t16,
+               out_max_degree=g.max_degree, ell=g.ell is not None)
+    # one fixed batch: the step count pinned at 0, so each step draws the
+    # walks and negatives of fold(fit_key, 0) from the same starts
+    fit_key = rng.key(90)
+    walks, neg = tr.walks_and_negs(rng.fold(fit_key, 0), starts)
+    with torch.no_grad():
+        before = float(model.loss(walks, neg))
+    steps = state.step
+    for _ in range(FIT_STEPS):
+        state, _ = tr.train_step(state._replace(step=0), fit_key, starts)
+    state = state._replace(step=steps + FIT_STEPS)
+    with torch.no_grad():
+        after = float(model.loss(walks, neg))
+    log(f"phase 11 (b) node2vec: {FIT_STEPS} steps on one fixed batch of "
+        f"walks and negatives: its loss {before:.4f} -> {after:.4f}")
+    check(after < before, f"node2vec: {FIT_STEPS} steps on one batch lower "
+          f"its loss ({before:.4f} -> {after:.4f})")
+    out.update(fit_loss_before=before, fit_loss_after=after)
+    return out, dict(trainer=tr, state=state, key=key, r=r, n=n)
+
+
+def link_edges(col_ptrs, row_indices, m, r):
+    """``m`` edges of a host CSC drawn uniformly: (src, dst)."""
+    e = r.integers(0, len(row_indices), m)
+    return row_indices[e], np.searchsorted(col_ptrs, e, side="right") - 1
+
+
+def link_model(f, device):
+    from tch_geometric_tpu_torch.models import GraphSAGE
+    return GraphSAGE(f, 256, 256, 3, dropout=TRAIN_DROPOUT, device=device,
+                     generator=torch.Generator().manual_seed(91))
+
+
+def link_trainer(model):
+    from tch_geometric_tpu_torch.parallel import make_link_trainer
+    return make_link_trainer(model, FANOUTS, num_neg=LINK_NEG,
+                             try_count=LINK_TRIES, learning_rate=TRAIN_LR)
+
+
+def link_phase(p, device, timer):
+    """Phase 11 (c): ``make_link_trainer(GraphSAGE(100, 256, 256, 3 layers,
+    dropout 0.5), [15, 10, 5], 1 negative, 8 tries, Adam at 1e-3)`` on the
+    products CSC and features, 1,024 positive edges a step (3,072 seeds to
+    the sampler): a warm-up and ``TIMED_STEPS`` timed steps; each step's
+    negatives drawn again from its key: the accepted share, and no accepted
+    negative is an edge from its source (the probe's direction) or equals
+    either endpoint."""
+    from tch_geometric_tpu_torch.sampling import rng
+    g, x = p["graph"], p["x_table"]
+    model = link_model(x.shape[1], device)
+    tr = link_trainer(model)
+    state = tr.init_fn()
+    key = rng.key(92)
+    r = np.random.default_rng(93)
+    batches = []
+
+    def step():
+        nonlocal state
+        src, dst = (torch.from_numpy(a).to(device) for a in link_edges(
+            p["col_ptrs"], p["row_indices"], LINK_EDGES, r))
+        batches.append((state.step, src, dst))
+        state, loss, _rank = tr.train_step(state, key, g, x, src, dst)
+        return loss
+    out = timed_steps(timer, step, f"(c) link, {LINK_EDGES} edges a step")
+    shares = []
+    for i, src, dst in batches:
+        neg, ok = tr.negatives(rng.fold(key, i), g, src, dst)
+        s, d = src[:, None].expand_as(neg)[ok], dst[:, None].expand_as(neg)[ok]
+        check(bool((neg[ok] != s).all() & (neg[ok] != d).all()),
+              "link: no accepted negative equals an endpoint")
+        check(not bool(g.has_edge(neg[ok], s).any()),
+              "link: no accepted negative is an edge from its source")
+        shares.append(float(ok.float().mean()))
+    out["accepted_share"] = shares
+    log("phase 11 (c) link: accepted negatives per step "
+        + ", ".join(f"{v:.4f}" for v in shares) + "; none an edge from its "
+        "source or an endpoint")
+    return out
+
+
+def check_link_card_vs_cpu(sg, device):
+    """Phase 11 (d), link: (c)'s trainer on the 5% products subgraph,
+    ``CUT_STEPS`` steps of ``LINK_CUT_EDGES`` edges from the same
+    parameters, key and edges on the card and the CPU (samples, negatives
+    and dropout masks bit-equal); losses within ``TRAIN_REL_THRESHOLD``
+    relative."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.sampling import rng
+    ns = sg["ns"]
+    card = link_model(sg["xs"].shape[1], device)
+    cpu = copy.deepcopy(card).cpu()
+    g_cpu = make_graph(sg["cp"], sg["ri"], num_src=ns, num_dst=ns,
+                       device="cpu")
+    r = np.random.default_rng(94)
+    edges = [link_edges(sg["cp"], sg["ri"], LINK_CUT_EDGES, r)
+             for _ in range(CUT_STEPS)]
+    res = {}
+    for side, model, g, xs in (("card", card, sg["g"], sg["xs"]),
+                               ("cpu", cpu, g_cpu, sg["xs"].cpu())):
+        tr = link_trainer(model)
+        state, losses = tr.init_fn(), []
+        for src, dst in edges:
+            state, loss, _ = tr.train_step(state, rng.key(95), g, xs, src,
+                                           dst)
+            losses.append(float(loss))
+        res[side] = losses
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["card"], res["cpu"]))
+    log(f"check: phase 11 (d) link card vs CPU on the {ns}-node subgraph, "
+        f"{CUT_STEPS} steps: losses card {res['card']}, CPU {res['cpu']}; "
+        f"largest relative difference {rel:.3e} (limit "
+        f"{TRAIN_REL_THRESHOLD})")
+    check(rel <= TRAIN_REL_THRESHOLD, f"link losses card vs CPU: {rel:.3e}")
+    return dict(losses_card=res["card"], losses_cpu=res["cpu"],
+                max_rel_loss_diff=rel)
+
+
+def check_node2vec_card_vs_cpu(sg, device):
+    """Phase 11 (d), node2vec: (b)'s trainer on the 5% cut's out-edge CSR,
+    ``CUT_STEPS`` steps from the same table, key and starts on the card
+    and the CPU: each step's walks and negatives exactly equal, losses
+    within ``N2V_CUT_RTOL`` relative."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.data.storage import to_csr
+    from tch_geometric_tpu_torch.models import (Node2Vec,
+                                                make_node2vec_trainer)
+    from tch_geometric_tpu_torch.sampling import rng
+    ns, cp, ri = sg["ns"], sg["cp"], sg["ri"]
+    rp, ci, _ = to_csr(np.stack([ri, np.repeat(np.arange(ns),
+                                               np.diff(cp))]), ns)
+    card = Node2Vec(ns, N2V_DIM, N2V_CONTEXT, N2V_NEG, device=device,
+                    generator=torch.Generator().manual_seed(96))
+    cpu = copy.deepcopy(card).cpu()
+    starts = np.random.default_rng(97).integers(0, ns, (CUT_STEPS,
+                                                        WALK_STARTS))
+    res, draws = {}, {}
+    for side, model, dev in (("card", card, device), ("cpu", cpu, "cpu")):
+        g = make_graph(rp, ci, num_src=ns, num_dst=ns, device=dev)
+        tr = make_node2vec_trainer(model, g, walk_length=WALK_LENGTH,
+                                   learning_rate=N2V_LR,
+                                   num_trials=N2V_TRIALS)
+        state, losses, draws[side] = tr.init_fn(), [], []
+        for i, s in enumerate(starts):
+            draws[side].append([a.cpu() for a in tr.walks_and_negs(
+                rng.fold(rng.key(98), i), s)])
+            state, loss = tr.train_step(state, rng.key(98), s)
+            losses.append(float(loss))
+        res[side] = losses
+    check(all(torch.equal(a, b) for x, y in zip(draws["card"], draws["cpu"])
+              for a, b in zip(x, y)),
+          "node2vec card vs CPU: every step's walks and negatives equal")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["card"], res["cpu"]))
+    pdiff = rel_err(card.embedding.weight.detach(),
+                    cpu.embedding.weight.detach().to(device))
+    log(f"check: phase 11 (d) node2vec card vs CPU on the cut's out-edge "
+        f"CSR, {CUT_STEPS} steps: walks and negatives equal; losses card "
+        f"{res['card']}, CPU {res['cpu']}; largest relative difference "
+        f"{rel:.3e} (limit {N2V_CUT_RTOL}); table relative difference "
+        f"{pdiff:.3e}")
+    check(rel <= N2V_CUT_RTOL, f"node2vec losses card vs CPU: {rel:.3e}")
+    return dict(losses_card=res["card"], losses_cpu=res["cpu"],
+                max_rel_loss_diff=rel, table_rel_diff=pdiff)
+
+
+def hgt_grad_errs(card, cpu):
+    """HGT gradients, card against CPU: the largest per-tensor relative
+    difference and its tensor, save the key linears' biases, whose gradient
+    is zero in exact arithmetic (a bias adds one score to all of a
+    destination's in-edges of a relation, and the softmax cancels it): for
+    those, the largest value on either side over the largest gradient."""
+    scale = max(float(g.abs().max()) for g in cpu.values())
+    err, worst, noise = 0.0, "", 0.0
+    for k, g in cpu.items():
+        a = card[k]
+        if ".k." in k and k.endswith(".bias"):
+            noise = max(noise, float(a.abs().max()) / scale,
+                        float(g.abs().max()) / scale)
+            continue
+        e = rel_err(a, g.to(a.device))
+        if e >= err:
+            err, worst = e, k
+    return err, worst, noise
+
+
+def check_hgt_card_vs_cpu(mag, device):
+    """Phase 11 (d), HGT on ``mag_cut``: (i) per layout, the model's
+    forward and gradients on one sample drawn on the CPU and copied to the
+    card, within ``CUT_FORWARD_RTOL`` of the largest value of each (the
+    key biases' gradients, zero in exact arithmetic, within it of the
+    largest gradient: ``hgt_grad_errs``); (ii)
+    ``CUT_STEPS`` trainer steps (per relation) on both: each step's sample
+    redrawn from its key, the differing slots at most ``CUT_DIFF_LIMIT`` of
+    the valid ones, and the losses within ``TRAIN_REL_THRESHOLD`` relative
+    when no slot differs."""
+    from tch_geometric_tpu_torch.sampling import rng
+    cpu = torch.device("cpu")
+    edge_types = mag[1]
+    sub_counts, sub_csc, r = mag_cut(mag)
+    x = {cpu: mag_features(sub_counts, cpu, seed=99)}
+    x[device] = {t: v.to(device) for t, v in x[cpu].items()}
+    graphs = {d: hetero_graphs(sub_counts, edge_types, sub_csc, d)
+              for d in (device, cpu)}
+    labels = torch.from_numpy(r.integers(0, HGT_OUT, sub_counts["paper"]))
+    seeds = torch.from_numpy(r.integers(0, sub_counts["paper"],
+                                        (CUT_STEPS, HGT_TRAIN_SEEDS)))
+    out = {}
+    for stacked in (False, True):
+        name = "stacked" if stacked else "per_rel"
+        models = {device: hgt_model(sub_counts, edge_types, stacked, device)}
+        models[cpu] = copy.deepcopy(models[device]).cpu()
+        tr_cpu = hgt_trainer(models[cpu], sub_counts, edge_types,
+                             graphs[cpu], x[cpu])
+        _s, feats, edges = tr_cpu.sample_and_gather(rng.key(100), seeds[0])
+        y = labels[seeds[0]]
+        res = {}
+        for d in (device, cpu):
+            f = {t: v.to(d) for t, v in feats.items()}
+            e = {k: tuple(a.to(d) for a in v) for k, v in edges.items()}
+            logits = models[d](f, e)
+            loss = torch.nn.functional.cross_entropy(
+                logits[: y.shape[0]], y.to(d))
+            params = dict(models[d].named_parameters())
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True)
+            res[d] = (logits.detach(), {k: g for k, g in zip(params, grads)
+                                        if g is not None})
+        lerr = rel_err(res[device][0], res[cpu][0].to(device))
+        gerr, worst, noise = hgt_grad_errs(res[device][1], res[cpu][1])
+        log(f"check: phase 11 (d) HGT {name} on the cut, one CPU sample on "
+            f"both: logits relative difference {lerr:.3e}, gradients "
+            f"{gerr:.3e} ({worst}; limit {CUT_FORWARD_RTOL} each); the key "
+            "biases' gradients, zero in exact arithmetic, at most "
+            f"{noise:.3e} of the largest gradient")
+        check(lerr <= CUT_FORWARD_RTOL and gerr <= CUT_FORWARD_RTOL
+              and noise <= CUT_FORWARD_RTOL,
+              f"HGT {name} forward and gradients card vs CPU: {lerr:.3e}, "
+              f"{gerr:.3e}, {noise:.3e}")
+        out[name] = dict(logits_rel_diff=lerr, grads_rel_diff=gerr,
+                         grads_worst=worst, key_bias_grad_share=noise)
+
+        if stacked:
+            continue
+        key = rng.key(101)
+        losses, diffs = {}, []
+        trainers = {d: hgt_trainer(models[d], sub_counts, edge_types,
+                                   graphs[d], x[d]) for d in (device, cpu)}
+        states = {d: tr.init_fn() for d, tr in trainers.items()}
+        for i in range(CUT_STEPS):
+            s = {d: trainers[d].sample_and_gather(rng.fold(key, i), seeds[i])
+                 [0] for d in (device, cpu)}
+            diffs.append(sample_diff(s[device], s[cpu], "node_ts"))
+            for d, tr in trainers.items():
+                states[d], loss, _ = tr.train_step(states[d], key, seeds[i],
+                                                   labels[seeds[i]])
+                losses.setdefault(d, []).append(float(loss))
+        differ = sum(dd for dd, _v in diffs)
+        valid = sum(v for _d, v in diffs)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[device],
+                                                      losses[cpu]))
+        out["steps"] = check_rate(
+            "HGT trainer samples (valid slots)", differ, valid,
+            CUT_DIFF_LIMIT, where="phase 11 (d)")
+        log(f"check: phase 11 (d) HGT {CUT_STEPS} trainer steps: losses card "
+            f"{losses[device]}, CPU {losses[cpu]}; largest relative "
+            f"difference {rel:.3e} (limit {TRAIN_REL_THRESHOLD} when no slot "
+            "differs)")
+        if differ == 0:
+            check(rel <= TRAIN_REL_THRESHOLD,
+                  f"HGT losses card vs CPU: {rel:.3e}")
+        out["steps"].update(losses_card=losses[device], losses_cpu=losses[cpu],
+                            max_rel_loss_diff=rel)
+    return out
+
+
+def profile_phase11(hgt, n2v, device):
+    """Phase 11 (e): ``torch.profiler`` windows over ``PROFILE_STEPS`` HGT
+    steps and as many node2vec steps ((a)'s and (b)'s trainers and
+    states), read as phase 8 reads its windows."""
+    from tch_geometric_tpu_torch.utils.metrics import profile, trace_span
+    out = {}
+
+    def hgt_steps():
+        for _ in range(PROFILE_STEPS):
+            hgt["state"], _, _ = hgt["trainer"].train_step(
+                hgt["state"], hgt["key"], hgt["seeds"], hgt["labels"])
+
+    def n2v_steps():
+        for _ in range(PROFILE_STEPS):
+            s = torch.from_numpy(n2v["r"].integers(0, n2v["n"], WALK_STARTS))
+            n2v["state"], _ = n2v["trainer"].train_step(
+                n2v["state"], n2v["key"], s.to(device))
+
+    for name, fn in ((f"hgt_train_{PROFILE_STEPS}_steps", hgt_steps),
+                     (f"node2vec_train_{PROFILE_STEPS}_steps", n2v_steps)):
+        torch.cuda.synchronize()
+        with profile(os.path.join(PROFILE_DIR, name)) as prof:
+            with trace_span("window"):
+                fn()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        r = out[name] = profile_split(prof, "window")
+        r.update(export_s=t1 - t0, split_s=time.perf_counter() - t1)
+        log(f"profile {name}: window {r['window_ms']:.2f} ms, device busy "
+            f"{r['device_busy_ms']:.2f} ms, idle share {r['idle_share']:.3f}; "
+            "device ms by span: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in r["device_ms_by_span"].items())
+            + "; top 10 device ops by own time: " + "; ".join(
+                f"{short_op(o['name'])} x{o['count']} {o['ms']:.3f} ms"
+                for o in r["top10"])
+            + f"; trace export {r['export_s']:.1f} s, event parse and split "
+            f"{r['split_s']:.1f} s")
+    return out
+
+
+def phase11(p, mag, csr, sg, device, timer):
+    """Phase 11: (a)-(e), each part's wall seconds and the peak device
+    memory since the part began logged; returns its numbers."""
+    t0 = time.perf_counter()
+    res, secs = {}, {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t
+        log(f"phase 11 {name}: {secs[name]:.1f}s, peak device memory "
+            f"{peak_gib():.2f} GiB")
+        return out
+
+    res["hgt"], hgt = part("(a)", lambda: hgt_phase(mag, device, timer))
+    res["node2vec"], n2v = part("(b)", lambda: node2vec_phase(
+        csr, p["data"].num_nodes, device, timer))
+    res["link"] = part("(c)", lambda: link_phase(p, device, timer))
+    torch.cuda.empty_cache()
+    res["card_vs_cpu"] = part("(d)", lambda: dict(
+        link=check_link_card_vs_cpu(sg, device),
+        node2vec=check_node2vec_card_vs_cpu(sg, device),
+        hgt=check_hgt_card_vs_cpu(mag, device)))
+    res["profile"] = part("(e)", lambda: profile_phase11(hgt, n2v, device))
+    res["part_s"] = secs
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 11 wall time {res['wall_s']:.1f}s")
     return res
 
 
@@ -3196,13 +3772,23 @@ def main(argv=None) -> int:
 
     for fn in wrappers:
         fn.launches = 0
-    parity_res = phase10(p, mag, sg, device, timer)
+    parity_res, csr = phase10(p, mag, sg, device, timer)
     parity_launches = {fn.__name__: fn.launches for fn in wrappers}
     log(f"phase 10 launches (no kernel of B1-B11 lies on it): "
         f"{parity_launches}")
     check(not any(parity_launches.values()),
           "no kernel of B1-B11 ran in phase 10")
-    del mag
+    torch.cuda.empty_cache()
+
+    for fn in wrappers:
+        fn.launches = 0
+    models_res = phase11(p, mag, csr, sg, device, timer)
+    models_launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"phase 11 launches (no kernel of B1-B11 lies on it): "
+        f"{models_launches}")
+    check(not any(models_launches.values()),
+          "no kernel of B1-B11 ran in phase 11")
+    del mag, csr
 
     summary = dict(
         card=card, scale=args.scale, nodes=n, edges=p["graph"].num_edges,
@@ -3227,7 +3813,7 @@ def main(argv=None) -> int:
         attend_vs_segment_f32=attend_sub,
         attend_peak_device_gib=attend_peak_gb,
         train=train_res, profile=prof, sampling=sampling_res,
-        parity=parity_res,
+        parity=parity_res, models=models_res,
         total_s=time.perf_counter() - t_all, **sub)
     log("serving: " + json.dumps(summary))
     if args.scale == 1.0:

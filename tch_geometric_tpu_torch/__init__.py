@@ -33,7 +33,16 @@ Ported so far:
   ``transforms`` and ``loader`` modules, and the data layer under them:
   ``SparseGraph.find_edge`` / ``has_edge``, ``data.coo_to_csc_device`` (a
   stable sort on the card), the native C++ CSC/CSR sort (``native``),
-  ``data.load_ogbn_dir`` and ``data.planted_hetero``.
+  ``data.load_ogbn_dir`` and ``data.planted_hetero``;
+* the HGT and node2vec models (``models.HGT``, ``HGTConv``, ``Node2Vec``
+  with ``make_node2vec_trainer``) and the single-device HGT and
+  link-prediction trainers (``parallel.make_hgt_trainer``,
+  ``make_link_trainer``), with Adam equal to ``optax.adam``
+  (``utils.adam``) and the flax carriers ``utils.hgt_params_from_flax``
+  and ``node2vec_params_from_flax``.
+
+The distributed family (``parallel``'s mesh, sharded features,
+``dist_*`` samplers and partitioned trainers) is not ported yet.
 
 Every Pallas kernel of the JAX package has its counterpart here; the
 samplers are plain torch ops on the caller's device.

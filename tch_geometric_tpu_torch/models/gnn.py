@@ -43,8 +43,10 @@ def _uniform_(p: torch.Tensor, fan_in: int, generator) -> None:
 
 
 def _lecun_normal_(p: torch.Tensor, generator) -> None:
-    """flax ``lecun_normal`` on an (H, D) parameter: fan_in is H."""
-    std = math.sqrt(1.0 / p.shape[-2]) / _TRUNC_STD
+    """flax ``lecun_normal``: fan_in is the product of every axis but the
+    last (H for an (H, D) table, H*d for (H, d, d), R*H*d for
+    (R, H, d, d))."""
+    std = math.sqrt(1.0 / math.prod(p.shape[:-1])) / _TRUNC_STD
     w = torch.empty(p.shape, dtype=p.dtype)
     p.copy_(nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                   generator=generator))

@@ -3,7 +3,7 @@
 Counterpart of ``tch_geometric_tpu/parallel/train.py``: ``make_gnn_trainer``
 (``init_fn``, ``train_step``, ``eval_step``, ``sample_and_gather``),
 ``make_sage_trainer`` and ``make_multibatch_sage_trainer``, with Adam equal
-to ``optax.adam`` (:func:`adam_update`).
+to ``optax.adam`` (``utils.adam.adam_update``).
 
 The JAX step is one jitted program; here each phase is a sequence of torch
 ops on the graph's device, wrapped in a ``trace_span`` of the JAX scope's
@@ -14,28 +14,19 @@ its loss and accuracy as device tensors.
 """
 from __future__ import annotations
 
-from typing import (Callable, Dict, Mapping, NamedTuple, Optional, Sequence,
-                    Tuple, Union)
+from typing import (Callable, Mapping, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
-import numpy as np
 import torch
 from torch.nn import functional as nnf
 
 from ..data.graph import CscGraph
 from ..sampling import rng
 from ..sampling.neighbor import NeighborSample, _sample_neighbors_impl
+from ..utils.adam import (AdamState, LearningRate, Params, adam_update,
+                          gradients, init_state, own_params)
+from ..utils.adam import adam_init  # noqa: F401  (importable from here too)
 from ..utils.metrics import trace_span
-
-Params = Dict[str, torch.Tensor]
-LearningRate = Union[float, Callable[[int], float]]
-
-
-class AdamState(NamedTuple):
-    """``optax.scale_by_adam``'s state: the update count and the first and
-    second moments, keyed as the parameters."""
-    count: int
-    mu: Params
-    nu: Params
 
 
 class TrainState(NamedTuple):
@@ -47,38 +38,6 @@ class TrainState(NamedTuple):
     params: Params
     opt_state: AdamState
     step: int
-
-
-B1, B2, EPS = 0.9, 0.999, 1e-8
-
-
-def adam_init(params: Params) -> AdamState:
-    return AdamState(0, {k: torch.zeros_like(p) for k, p in params.items()},
-                     {k: torch.zeros_like(p) for k, p in params.items()})
-
-
-@torch.no_grad()
-def adam_update(params: Params, grads: Params, state: AdamState,
-                learning_rate: LearningRate) -> AdamState:
-    """One ``optax.adam`` step (b1 0.9, b2 0.999, eps 1e-8, eps_root 0,
-    bias-corrected), applied to ``params`` in place; returns the new state.
-    A callable ``learning_rate`` is a schedule of the count before this
-    update, as optax calls it."""
-    count = state.count + 1
-    lr = (learning_rate(state.count) if callable(learning_rate)
-          else learning_rate)
-    # optax takes 1 - decay**count in float32: float32(0.999) is 1.3e-8
-    # above 0.999, which moves 1 - 0.999 by 1.3e-5 of itself
-    bc1, bc2 = (float(np.float32(1.0) - np.float32(b) ** np.float32(count))
-                for b in (B1, B2))
-    mu, nu = {}, {}
-    for k, p in params.items():
-        g = grads[k]
-        mu[k] = (1.0 - B1) * g + B1 * state.mu[k]
-        nu[k] = (1.0 - B2) * (g * g) + B2 * state.nu[k]
-        upd = (mu[k] / bc1) / ((nu[k] / bc2).sqrt() + EPS)
-        p.add_(upd * -lr)
-    return AdamState(count, mu, nu)
 
 
 class GnnTrainer(NamedTuple):
@@ -105,24 +64,13 @@ def _sample_and_gather(key: torch.Tensor, graph: CscGraph,
     return sample, x
 
 
-def _own_params(model, params: Params) -> None:
-    """Raise unless ``params`` are ``model``'s own parameters: the forward
-    reads the model's, so other tensors would take no gradient."""
-    own = dict(model.named_parameters())
-    if own.keys() != params.keys() or any(own[k] is not p
-                                          for k, p in params.items()):
-        raise ValueError("the state's params are not this trainer's model's "
-                         "parameters; build the state with its init_fn")
-
-
 def _init_fn(model):
     def init_fn(*_) -> TrainState:
         """The model's own parameters (drawn from its ``generator`` at
         construction) and a fresh Adam state at step 0.  Takes the JAX
         ``init_fn``'s ``(key, graph, x_table, seeds)`` and needs none of
         them."""
-        params = dict(model.named_parameters())
-        return TrainState(params, adam_init(params), 0)
+        return init_state(model, TrainState)
     return init_fn
 
 
@@ -138,8 +86,7 @@ def _loss_step(model, params: Params, key: torch.Tensor,
             dropout_key=rng.fold(key, rng.DROPOUT_STREAM))
         labels = torch.as_tensor(labels).to(logits.device).long()
         loss = nnf.cross_entropy(logits, labels)
-        grads = dict(zip(params, torch.autograd.grad(loss,
-                                                     list(params.values()))))
+        grads = gradients(loss, params)
     with trace_span("update"):
         opt_state = adam_update(params, grads, opt_state, learning_rate)
     acc = (logits.detach().argmax(-1) == labels).float().mean()
@@ -177,7 +124,7 @@ def make_gnn_trainer(model, fanouts: Sequence[int], *,
     def train_step(state: TrainState, key: torch.Tensor, graph: CscGraph,
                    x_table: torch.Tensor, seeds, labels
                    ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
-        _own_params(model, state.params)
+        own_params(model, state.params)
         step_key = rng.fold(key, state.step)
         sample, x = sample_and_gather(step_key, graph, x_table, seeds)
         opt_state, loss, acc = _loss_step(model, state.params, step_key,
@@ -191,7 +138,7 @@ def make_gnn_trainer(model, fanouts: Sequence[int], *,
                   key: torch.Tensor, graph: CscGraph, x_table: torch.Tensor,
                   seeds, labels) -> Tuple[torch.Tensor, torch.Tensor]:
         if isinstance(state, TrainState):
-            _own_params(model, state.params)
+            own_params(model, state.params)
         elif state is not None:
             model.load_state_dict(state)
         sample, x = sample_and_gather(key, graph, x_table, seeds)
@@ -237,7 +184,7 @@ def make_multibatch_sage_trainer(model, fanouts: Sequence[int], *,
     def train_step(state: TrainState, key: torch.Tensor, graph: CscGraph,
                    x_table: torch.Tensor, seeds, labels
                    ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
-        _own_params(model, state.params)
+        own_params(model, state.params)
         seeds = torch.as_tensor(seeds).to(graph.device).long()
         M = seeds.shape[0]
         keys = [rng.fold(key, state.step + i) for i in range(M)]

@@ -38,11 +38,15 @@ MODULES = ["tch_geometric_tpu_torch.data.dataset",
            "tch_geometric_tpu_torch.native",
            "tch_geometric_tpu_torch.models.dropout",
            "tch_geometric_tpu_torch.models.gnn",
+           "tch_geometric_tpu_torch.models.hgt",
+           "tch_geometric_tpu_torch.models.node2vec",
            "tch_geometric_tpu_torch.ops._build",
            "tch_geometric_tpu_torch.ops.attention_blocked",
            "tch_geometric_tpu_torch.ops.segment",
            "tch_geometric_tpu_torch.ops.spmm",
            "tch_geometric_tpu_torch.ops.spmm_kernels",
+           "tch_geometric_tpu_torch.parallel.hgt_train",
+           "tch_geometric_tpu_torch.parallel.link_train",
            "tch_geometric_tpu_torch.parallel.train",
            "tch_geometric_tpu_torch.sampling.budget",
            "tch_geometric_tpu_torch.sampling.hetero_neighbor",
@@ -52,6 +56,7 @@ MODULES = ["tch_geometric_tpu_torch.data.dataset",
            "tch_geometric_tpu_torch.sampling.primitives",
            "tch_geometric_tpu_torch.sampling.walks",
            "tch_geometric_tpu_torch.transforms",
+           "tch_geometric_tpu_torch.utils.adam",
            "tch_geometric_tpu_torch.utils.checkpoint",
            "tch_geometric_tpu_torch.utils.kernel_gates",
            "tch_geometric_tpu_torch.utils.metrics",
@@ -75,9 +80,10 @@ def test_import_loads_no_jax():
 @pytest.mark.parametrize("module", MODULES)
 def test_module_import_loads_no_jax(module):
     """Each module of the GAT/GCN/GIN, attention, training and sampling
-    slices, and of the data layer, walks, HGT, budget and negative samplers,
-    transforms and loader, imported alone in a fresh interpreter, loads no
-    JAX and nothing of the JAX package."""
+    slices, of the data layer, walks, HGT, budget and negative samplers,
+    transforms and loader, and of the HGT and node2vec models and their
+    trainers, imported alone in a fresh interpreter, loads no JAX and
+    nothing of the JAX package."""
     code = ("import sys, importlib\n"
             f"bad = lambda: {{m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}}}\n"
@@ -103,11 +109,13 @@ EXPORTS = {
         "run_gat_route_gates", "run_q8_gates"],
     "tch_geometric_tpu_torch.parallel": [
         "make_gnn_trainer", "make_sage_trainer",
-        "make_multibatch_sage_trainer"],
+        "make_multibatch_sage_trainer", "HGTTrainState", "make_hgt_trainer",
+        "make_link_trainer"],
     "tch_geometric_tpu_torch.utils": [
         "save_checkpoint", "restore_checkpoint", "latest_step",
         "MetricsLogger", "trace_span", "profile", "adam_state_from_optax",
-        "train_state_from_flax"],
+        "train_state_from_flax", "hgt_params_from_flax",
+        "node2vec_params_from_flax", "load_flax_params"],
     "tch_geometric_tpu_torch.data": [
         "csc_graph_from_coo", "csr_graph_from_coo", "HeteroData",
         "coo_to_csc_device", "ind2ptr", "ind2ptr_np", "load_ogbn_dir",
@@ -134,7 +142,8 @@ EXPORTS = {
         "budget_sampling", "sample_budget",
         "negative_sample_neighbors_homogenous",
         "negative_sample_neighbors_heterogenous"],
-    "tch_geometric_tpu_torch.models": ["keyed_dropout"],
+    "tch_geometric_tpu_torch.models": ["keyed_dropout", "HGT", "HGTConv",
+                                       "Node2Vec", "make_node2vec_trainer"],
 }
 
 
@@ -143,7 +152,8 @@ EXPORTS = {
 def test_ported_names_exported(module, name):
     """The multi-head GAT routes (B7, B8, B9), the int8 SpMM (B11), the
     training slice's entry points, the sampling slices' samplers, data and
-    ops, the transforms and the loader are public names of the port; each
+    ops, the transforms and the loader, the HGT and node2vec models and the
+    HGT and link trainers are public names of the port; each
     ``_cuda`` wrapper carries a launch count."""
     import importlib
     obj = getattr(importlib.import_module(module), name)
@@ -154,14 +164,16 @@ def test_ported_names_exported(module, name):
 
 JAX_PACKAGES = {"tch_geometric_tpu": "tch_geometric_tpu_torch",
                 "tch_geometric_tpu.data": "tch_geometric_tpu_torch.data",
+                "tch_geometric_tpu.models": "tch_geometric_tpu_torch.models",
                 "tch_geometric_tpu.sampling":
                     "tch_geometric_tpu_torch.sampling"}
 
 
 @pytest.mark.parametrize("jax_module", sorted(JAX_PACKAGES))
 def test_every_jax_name_exported(jax_module):
-    """Every public name of the JAX top level and of its ``data`` and
-    ``sampling`` packages exists in the port's counterpart, save
+    """Every public name of the JAX top level and of its ``data``,
+    ``models`` and ``sampling`` packages exists in the port's counterpart,
+    save
     ``data.load_ogbn`` (it needs the ``ogb`` package and a download; the
     port reads the same data with ``load_ogbn_dir``)."""
     import importlib
@@ -185,7 +197,56 @@ def test_layer_and_model_devices_default_to_the_card():
     from tch_geometric_tpu_torch import models
     classes = [models.SAGEConv, models.GraphSAGE, models.GCNConv,
                models.GATConv, models.GINConv, models.GCN, models.GAT,
-               models.GIN]
+               models.GIN, models.HGTConv, models.HGT, models.Node2Vec]
     for cls in classes:
         dev = inspect.signature(cls).parameters["device"]
         assert dev.default == "cuda", cls.__name__
+
+
+# the distributed family, ROADMAP queue A7: each slice of it takes its
+# names off this list
+DISTRIBUTED = {
+    # modules
+    "mesh", "partition", "sharded_features", "dist_sampling", "dist_walks",
+    "dist_budget", "dist_hgt", "dist_hetero", "dist_negative", "multihost",
+    "resilience",
+    # mesh.py
+    "data_sharding", "make_mesh", "param_sharding_rule", "replicated",
+    "shard_params",
+    # the partitioned trainers
+    "make_partitioned_hgt_trainer", "make_partitioned_trainer",
+    "make_partitioned_multibatch_trainer",
+    # sharded features
+    "build_interleaved_features", "halo_gather",
+    "make_sharded_feature_trainer",
+    # the dist_* samplers and their graph layouts
+    "PartitionedGraph", "build_partitioned_graph", "dist_sample_neighbors",
+    "dist_random_walk", "dist_tempo_random_walk",
+    "dist_biased_tempo_random_walk", "effective_edge_ts",
+    "dist_budget_sample", "dist_budget_sample_hetero", "StackedRels",
+    "build_partitioned_hetero", "dist_hgt_sample", "put_stacked_rels",
+    "stack_partitioned_rels", "dist_hetero_neighbor_sample",
+    "dist_negative_sample", "dist_negative_sample_hetero",
+    # resilience
+    "barrier", "inject_shard_fault", "shard_checksums",
+}
+
+
+def test_every_jax_parallel_name_exported_but_the_distributed():
+    """Every public name of the JAX ``parallel`` package, its submodules
+    included (each is imported first, so the names do not depend on what
+    else the process imported), exists in the port's, save the named
+    distributed ones; and none of those is in the port yet (a slice that
+    ports one takes it off the list)."""
+    import importlib
+    import pkgutil
+    jmod = importlib.import_module("tch_geometric_tpu.parallel")
+    for m in pkgutil.iter_modules(jmod.__path__):
+        importlib.import_module(f"tch_geometric_tpu.parallel.{m.name}")
+    ours = importlib.import_module("tch_geometric_tpu_torch.parallel")
+    names = {n for n in dir(jmod) if not n.startswith("_")}
+    assert DISTRIBUTED <= names, sorted(DISTRIBUTED - names)
+    missing = sorted(n for n in names - DISTRIBUTED if not hasattr(ours, n))
+    assert not missing, missing
+    ported = sorted(n for n in DISTRIBUTED if hasattr(ours, n))
+    assert not ported, ported
