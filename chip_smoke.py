@@ -215,6 +215,22 @@ prints no result line):
    differing sample slots at most 1e-3 of the valid ones, losses within
    1e-3 when none differs); (e) ``torch.profiler`` over one HGT and one
    node2vec step, read as phase 8 reads its windows.
+12. the partitioned graph, the owner-routed exchanges and the partitioned
+   SAGE trainers (no kernel of B1-B11 lies on them; their launch counts
+   must stay 0): (a) ``build_partitioned_graph`` of phase 3's CSC at P = 1
+   and P = 4, 1,000 seeded rows checked against the CSC; (b)
+   ``dist_sample_neighbors`` of 1,024 seeds, [15, 10, 5], capacity factor
+   1.3, at P = 1 over a process group of world size 1 (NCCL, a
+   ``file://`` store under ``build/``) and at P = 4 thread ranks on the
+   card: trees bit-identical, overflow 0; (c) ``make_partitioned_trainer``
+   with ``scripts/bench_partitioned_products.py``'s GraphSAGE(256, 47, 3
+   layers), 1,024 seeds a step, at P = 1 and P = 4: losses within 1e-5;
+   (d) ``make_partitioned_multibatch_trainer``, 8 minibatches of 512
+   seeds, P = 1; (e) card against CPU on phase 3's 5% subgraph: a
+   1,024-seed request (the card at P = 4 threads, the CPU at P = 1) and a
+   256-seed request at P = 4 on both differ in 0 slots, and 3 trainer
+   steps of 256 seeds at P = 4 give losses within 1e-5.  P = 4 on one
+   card is a structural check: four threads share the card and the GIL.
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -308,7 +324,7 @@ def host_prep(scale: float, device):
     the host seconds of each step."""
     from tch_geometric_tpu_torch.data.graph import make_graph
     from tch_geometric_tpu_torch.data.ogb import synthetic_ogbn
-    from tch_geometric_tpu_torch.data.storage import to_csc
+    from tch_geometric_tpu_torch.data.storage import coo_to_csc_device
     from tch_geometric_tpu_torch.models.sage import GraphSAGE
     from tch_geometric_tpu_torch.ops.spmm_blocked import (build_blocked,
                                                           build_blocked_hot)
@@ -318,8 +334,13 @@ def host_prep(scale: float, device):
     sec["synthetic_graph"] = time.perf_counter() - t
     n = data.num_nodes
     t = time.perf_counter()
-    col_ptrs, row_indices, perm = to_csc(data.edge_index, n)
-    sec["to_csc"] = time.perf_counter() - t
+    # the CSC by the card's stable sort (phase 10 (a) holds it exactly
+    # against the native ``to_csc``), copied back for the host builders
+    ei = torch.from_numpy(data.edge_index).to(device)
+    col_ptrs, row_indices, perm = (
+        x.cpu().numpy() for x in coo_to_csc_device(ei[0], ei[1], n, n))
+    del ei
+    sec["csc_on_card"] = time.perf_counter() - t
     t = time.perf_counter()
     graph = make_graph(col_ptrs, row_indices, perm, num_src=n, num_dst=n,
                        device=device)
@@ -421,7 +442,8 @@ def subgraph(data, device, frac=0.05):
     ei = ei[:, (ei >= 0).all(axis=0)]
     ns = len(keep)
     cp, ri, _ = to_csc(ei, ns)
-    return dict(cp=cp, ri=ri, ns=ns, edges=int(ei.shape[1]), r=r, keep=keep,
+    return dict(cp=cp, ri=ri, ns=ns, edges=int(ei.shape[1]), ei=ei, r=r,
+                keep=keep,
                 xs=torch.from_numpy(data.x[keep]).to(device),
                 g=make_graph(cp, ri, num_src=ns, num_dst=ns, device=device),
                 b=build_blocked(cp, ri, rows_per_block=W, device=device))
@@ -1694,29 +1716,64 @@ def profile_split(prof, window: str):
     its launch (any thread: autograd runs the backward on its own), else
     to "other"; the top 10 device operations by their own time, with
     counts; and the device idle share, 1 - (union of the device intervals
-    in the window) / (the window's wall time)."""
+    in the window) / (the window's wall time).  Read from the profiler's
+    ``events()``, whose parse takes minutes over an HGT step; phase 8
+    holds :func:`trace_split`, which every window uses, against it."""
     from torch.autograd import DeviceType
     evs = prof.events()
-    cpu = [e for e in evs if e.device_type == DeviceType.CPU]
-    win = [e for e in cpu if e.name == window]
-    check(len(win) == 1, f"profile: one {window} span, found {len(win)}")
-    w0, w1 = win[0].time_range.start, win[0].time_range.end
-    annotations = {e.name for e in cpu
-                   if getattr(e, "is_user_annotation", False)}
+    cpu = [(e.name, e.time_range.start, e.time_range.end, e.id,
+            getattr(e, "is_user_annotation", False))
+           for e in evs if e.device_type == DeviceType.CPU]
+    annotations = {c[0] for c in cpu if c[4]}
     annotations.update(SPANS + (window,))
-    dev = [e for e in evs if e.device_type == DeviceType.CUDA
+    dev = [(e.name, e.time_range.start, e.time_range.end, e.id) for e in evs
+           if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)
            and e.name not in annotations]
+    return _split(cpu, dev, window)
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+
+
+def trace_split(logdir: str, window: str):
+    """:func:`profile_split`'s numbers from the Chrome trace that
+    ``utils.metrics.profile`` wrote to ``logdir``: the device events are
+    its kernel, memcpy and memset records, a launch is the host runtime
+    call with the same correlation id."""
+    with open(os.path.join(logdir, "trace.json")) as f:
+        evs = json.load(f)["traceEvents"]
+    cpu, dev = [], []
+    for e in evs:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        cat, t0 = e.get("cat"), float(e["ts"])
+        t1 = t0 + float(e["dur"])
+        corr = e.get("args", {}).get("correlation")
+        if cat in DEVICE_CATS:
+            dev.append((e["name"], t0, t1, corr))
+        elif cat in HOST_CATS:
+            cpu.append((e["name"], t0, t1, corr, cat == "user_annotation"))
+    return _split(cpu, dev, window)
+
+
+def _split(cpu, dev, window: str):
+    """The split of :func:`profile_split` from host records ``(name,
+    start, end, correlation, is_annotation)`` and device records ``(name,
+    start, end, correlation)``, times in microseconds."""
+    win = [c for c in cpu if c[0] == window]
+    check(len(win) == 1, f"profile: one {window} span, found {len(win)}")
+    w0, w1 = win[0][1], win[0][2]
     check(len(dev) > 0, "profile: the profiler recorded device activity")
-    launch = {e.id: e.time_range.start for e in cpu
-              if e.name.startswith("cu")}
-    spans = sorted(((e.time_range.start, e.time_range.end, e.name)
-                    for e in cpu if e.name in SPANS), key=lambda s: s[0])
+    launch = {c[3]: c[1] for c in cpu if c[0].startswith("cu")}
+    spans = sorted(((c[1], c[2], c[0]) for c in cpu if c[0] in SPANS),
+                   key=lambda s: s[0])
     by_span = {s: 0.0 for s in SPANS + ("other", "unattributed")}
     ops = {}
-    for e in dev:
-        d = e.time_range.end - e.time_range.start
-        t = launch.get(e.id)
+    for name, start, end, corr in dev:
+        d = end - start
+        t = launch.get(corr)
         if t is None:
             where = "unattributed"
         else:
@@ -1724,10 +1781,9 @@ def profile_split(prof, window: str):
             where = (min(inner, key=lambda s: s[1] - s[0])[2] if inner
                      else "other")
         by_span[where] += d
-        tot, cnt = ops.get(e.name, (0.0, 0))
-        ops[e.name] = (tot + d, cnt + 1)
-    iv = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1))
-                for e in dev)
+        tot, cnt = ops.get(name, (0.0, 0))
+        ops[name] = (tot + d, cnt + 1)
+    iv = sorted((max(start, w0), min(end, w1)) for _, start, end, _ in dev)
     busy, cur_s, cur_e = 0.0, None, None
     for s, t in iv:
         if t <= s:
@@ -1743,11 +1799,34 @@ def profile_split(prof, window: str):
     wall = w1 - w0
     top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]
     return dict(window_ms=wall / 1e3, device_busy_ms=busy / 1e3,
-                idle_share=1.0 - busy / wall,
+                idle_share=1.0 - busy / wall, device_events=len(dev),
                 device_ms_by_span={k: v / 1e3 for k, v in by_span.items()},
                 device_ms_total=sum(by_span.values()) / 1e3,
                 top10=[dict(name=k, ms=v[0] / 1e3, count=v[1])
                        for k, v in top])
+
+
+SPLIT_RTOL = 1e-4               # trace vs events split, of the device total
+
+
+def check_same_split(a, b, name: str) -> None:
+    """The trace's split equals the events' split: the same window, busy
+    time, device time in all and by span, within 1 us plus ``SPLIT_RTOL``
+    of the device total (an HGT step's split differed by 4 us of 100-odd
+    ms: `PERF.md` §5)."""
+    keys = ["window_ms", "device_busy_ms", "device_ms_total"]
+    pairs = [(k, a[k], b[k]) for k in keys] + [
+        (k, a["device_ms_by_span"][k], b["device_ms_by_span"][k])
+        for k in b["device_ms_by_span"]]
+    worst = max(pairs, key=lambda t: abs(t[1] - t[2]))
+    diff = abs(worst[1] - worst[2])
+    limit = 1e-3 + SPLIT_RTOL * b["device_ms_total"]
+    log(f"check: profile {name}, the Chrome trace's split against "
+        f"prof.events()': largest difference {diff:.2e} ms ({worst[0]}: "
+        f"{worst[1]:.4f} / {worst[2]:.4f}; limit {limit:.2e}); device "
+        f"events {a['device_events']} / {b['device_events']}")
+    check(diff <= limit, f"profile {name}: trace and events splits agree "
+          f"({diff:.2e} ms)")
 
 
 def short_op(name: str) -> str:
@@ -1803,11 +1882,14 @@ def profile_phase(p, trainers, device):
                      ("sage_requests_3", requests),
                      ("sage_blocked_forward", blocked)):
         torch.cuda.synchronize()
-        with profile(os.path.join(PROFILE_DIR, name)) as prof:
+        logdir = os.path.join(PROFILE_DIR, name)
+        with profile(logdir) as prof:
             with trace_span("window"):
                 fn()
                 torch.cuda.synchronize()
-        r = out[name] = profile_split(prof, "window")
+        r = out[name] = trace_split(logdir, "window")
+        if name == "sage_train_3_steps":
+            check_same_split(r, profile_split(prof, "window"), name)
         log(f"profile {name}: window {r['window_ms']:.2f} ms, device busy "
             f"{r['device_busy_ms']:.2f} ms, idle share {r['idle_share']:.3f}; "
             "device ms by span: " + ", ".join(
@@ -1960,13 +2042,20 @@ def sampling_requests(p, device, timer):
     return out
 
 
-def mag_graph(scale, seed=30):
+def mag_graph(scale, device, seed=30):
     """A graph of ogbn-mag's shape: ``MAG_NODES`` and ``MAG_RELATIONS``
     (with the reverses of writes, has_topic and affiliated_with) at
     ``scale``, endpoints uniform from ``seed``.  Returns the node counts,
-    edge types and per-relation host CSC ``(col_ptrs, row_indices)``."""
-    from tch_geometric_tpu_torch.data.storage import to_csc
+    edge types and per-relation host CSC ``(col_ptrs, row_indices)``,
+    built on ``device`` by ``coo_to_csc_device`` and copied back."""
+    from tch_geometric_tpu_torch.data.storage import coo_to_csc_device
     from tch_geometric_tpu_torch.utils.types import rel_key
+
+    def csc_of(ei, size):
+        t = torch.from_numpy(np.ascontiguousarray(ei)).to(device)
+        return tuple(x.cpu().numpy()
+                     for x in coo_to_csc_device(t[0], t[1], *size)[:2])
+
     r = np.random.default_rng(seed)
     counts = {t: max(int(c * scale), 16) for t, c in MAG_NODES.items()}
     coo = {}
@@ -1977,7 +2066,7 @@ def mag_graph(scale, seed=30):
         coo[(s, rel, d)] = ei
         if rel != "cites":
             coo[(d, f"rev_{rel}", s)] = ei[::-1]
-    csc = {rel_key(e): to_csc(ei, (counts[e[0]], counts[e[2]]))[:2]
+    csc = {rel_key(e): csc_of(ei, (counts[e[0]], counts[e[2]]))
            for e, ei in coo.items()}
     return counts, sorted(coo), csc
 
@@ -2281,13 +2370,14 @@ def requests(name, timer, fn, n=PHASE10_REQUESTS):
                      request_ms_mean=mean)
 
 
-def data_layer(p, device, timer):
-    """Phase 10 (a): ``to_csc`` and ``to_csr`` of the products COO three
-    ways (numpy, the native C++ sort, ``coo_to_csc_device`` on the card),
-    exactly equal; ``ind2ptr`` on the card against ``ind2ptr_np``;
-    ``find_edge`` on 1M pairs, half real edges, half random, against a
-    numpy search of the sorted edge keys.  Returns the numbers and the
-    device build's host CSR arrays."""
+def data_layer(p, sg, device, timer):
+    """Phase 10 (a): ``to_csc`` and ``to_csr`` of the products COO by the
+    native C++ sort and by ``coo_to_csc_device`` on the card, exactly equal
+    (the CSC also to host prep's); on the 5% cut's COO three ways (numpy
+    too), exactly equal, each timed; ``ind2ptr`` on the card against
+    ``ind2ptr_np``; ``find_edge`` on 1M pairs, half real edges, half
+    random, against a numpy search of the sorted edge keys.  Returns the
+    numbers and the device build's host CSR arrays."""
     from tch_geometric_tpu_torch import native
     from tch_geometric_tpu_torch.data import storage
     check(native.available(), "the native C++ library is built (no numpy "
@@ -2295,31 +2385,57 @@ def data_layer(p, device, timer):
     ei, n = p["data"].edge_index, p["data"].num_nodes
     out = {}
     csr = None
+
+    def card_build(coo, csc, nn):
+        major, minor = (coo[1], coo[0]) if csc else (coo[0], coo[1])
+        return timer(lambda: storage.coo_to_csc_device(minor, major, nn, nn))
+
     for layout, csc in (("csc", True), ("csr", False)):
-        a, t_np = timer(lambda: storage._numpy_csx(ei, n, n, csc))
         b, t_nat = timer(lambda: storage._native_csx(ei, n, n, csc))
         coo, t_h2d = timer(lambda: (torch.from_numpy(ei[0]).to(device),
                                     torch.from_numpy(ei[1]).to(device)))
-        major, minor = (coo[1], coo[0]) if csc else (coo[0], coo[1])
-        d, t_dev = timer(lambda: storage.coo_to_csc_device(minor, major, n,
-                                                           n))
+        d, t_dev = card_build(coo, csc, n)
         d_host = [x.cpu().numpy() for x in d]
-        for name, x, y, z in zip(("ptrs", "indices", "perm"), a, b, d_host):
-            check(np.array_equal(x, y) and np.array_equal(x, z),
-                  f"to_{layout} {name}: numpy, native and card builds equal")
+        for name, y, z in zip(("ptrs", "indices", "perm"), b, d_host):
+            check(np.array_equal(y, z),
+                  f"to_{layout} {name}: native and card builds equal")
+        if csc:
+            for name, y, z in zip(("ptrs", "indices"), b,
+                                  (p["col_ptrs"], p["row_indices"])):
+                check(np.array_equal(y, z), f"host prep's CSC {name} equals "
+                      "the native to_csc")
+        major = coo[1] if csc else coo[0]
         ptr, t_ptr = timer(lambda: storage.ind2ptr(major[d[2]], n))
         check(np.array_equal(ptr.cpu().numpy(), storage.ind2ptr_np(
-            ei[1 if csc else 0][a[2]], n)), f"{layout}: ind2ptr on the card "
+            ei[1 if csc else 0][b[2]], n)), f"{layout}: ind2ptr on the card "
               "equals ind2ptr_np")
-        log(f"phase 10 (a) to_{layout} of {ei.shape[1]} edges: numpy "
-            f"{t_np:.1f} ms, native {t_nat:.1f} ms, card {t_dev:.1f} ms "
-            f"(+ {t_h2d:.1f} ms to copy the COO there), ind2ptr on the card "
-            f"{t_ptr:.2f} ms; the three builds exactly equal")
-        out[layout] = dict(numpy_ms=t_np, native_ms=t_nat, card_ms=t_dev,
-                           card_copy_ms=t_h2d, ind2ptr_card_ms=t_ptr)
+        # numpy's stable sort, timed on the 5% cut (the full graph took
+        # 17.6 / 20.2 s of host time, PERF.md)
+        sei, sn = sg["ei"], sg["ns"]
+        a, t_np = timer(lambda: storage._numpy_csx(sei, sn, sn, csc))
+        b_cut, t_nat_cut = timer(lambda: storage._native_csx(sei, sn, sn,
+                                                             csc))
+        d_cut, t_dev_cut = card_build(
+            (torch.from_numpy(sei[0]).to(device),
+             torch.from_numpy(sei[1]).to(device)), csc, sn)
+        for name, x, y, z in zip(("ptrs", "indices", "perm"), a, b_cut,
+                                 d_cut):
+            check(np.array_equal(x, y) and np.array_equal(
+                x, z.cpu().numpy()), f"to_{layout} {name} of the cut: "
+                  "numpy, native and card builds equal")
+        log(f"phase 10 (a) to_{layout} of {ei.shape[1]} edges: native "
+            f"{t_nat:.1f} ms, card {t_dev:.1f} ms (+ {t_h2d:.1f} ms to copy "
+            f"the COO there), ind2ptr on the card {t_ptr:.2f} ms, exactly "
+            f"equal; the cut's {sei.shape[1]} edges: numpy {t_np:.1f} ms, "
+            f"native {t_nat_cut:.1f} ms, card {t_dev_cut:.1f} ms, exactly "
+            "equal")
+        out[layout] = dict(native_ms=t_nat, card_ms=t_dev,
+                           card_copy_ms=t_h2d, ind2ptr_card_ms=t_ptr,
+                           cut_edges=int(sei.shape[1]), cut_numpy_ms=t_np,
+                           cut_native_ms=t_nat_cut, cut_card_ms=t_dev_cut)
         if not csc:
             csr = (d_host[0], d_host[1])
-        del a, b, d, d_host, coo, major, minor
+        del a, b, d, d_host, coo, major, b_cut, d_cut
 
     # find_edge on the CSC graph: u on the pointer axis (dst), v the src
     g, cp, ri = p["graph"], p["col_ptrs"], p["row_indices"]
@@ -2995,7 +3111,7 @@ def phase10(p, mag, sg, device, timer):
         log(f"phase 10 {name}: {secs[name]:.1f}s")
         return out
 
-    res["data_layer"], csr = part("(a)", lambda: data_layer(p, device,
+    res["data_layer"], csr = part("(a)", lambda: data_layer(p, sg, device,
                                                               timer))
     res["walks"], out_g = part("(b)", lambda: walk_requests(p, csr, device,
                                                             timer))
@@ -3512,13 +3628,14 @@ def profile_phase11(hgt, n2v, device):
     for name, fn in ((f"hgt_train_{PROFILE_STEPS}_steps", hgt_steps),
                      (f"node2vec_train_{PROFILE_STEPS}_steps", n2v_steps)):
         torch.cuda.synchronize()
-        with profile(os.path.join(PROFILE_DIR, name)) as prof:
+        logdir = os.path.join(PROFILE_DIR, name)
+        with profile(logdir):
             with trace_span("window"):
                 fn()
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
         t1 = time.perf_counter()
-        r = out[name] = profile_split(prof, "window")
+        r = out[name] = trace_split(logdir, "window")
         r.update(export_s=t1 - t0, split_s=time.perf_counter() - t1)
         log(f"profile {name}: window {r['window_ms']:.2f} ms, device busy "
             f"{r['device_busy_ms']:.2f} ms, idle share {r['idle_share']:.3f}; "
@@ -3527,7 +3644,7 @@ def profile_phase11(hgt, n2v, device):
             + "; top 10 device ops by own time: " + "; ".join(
                 f"{short_op(o['name'])} x{o['count']} {o['ms']:.3f} ms"
                 for o in r["top10"])
-            + f"; trace export {r['export_s']:.1f} s, event parse and split "
+            + f"; trace export {r['export_s']:.1f} s, trace read and split "
             f"{r['split_s']:.1f} s")
     return out
 
@@ -3561,6 +3678,376 @@ def phase11(p, mag, csr, sg, device, timer):
     res["part_s"] = secs
     res["wall_s"] = time.perf_counter() - t0
     log(f"phase 11 wall time {res['wall_s']:.1f}s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the partitioned graph, owner-routed exchanges, partitioned SAGE
+# ---------------------------------------------------------------------------
+
+DIST_PARTS = 4                  # thread ranks sharing the one card
+DIST_CF = 1.3                   # scripts/bench_partitioned_products.py:85
+DIST_CHECK_ROWS = 1000
+DIST_TIMED = 5                  # requests or steps after one warm-up
+DIST_LOSS_STEPS = 3             # (c)'s losses compared across P
+DIST_MB_M = 8                   # bench_partitioned_products.py:139-140
+DIST_MB_B = 512                 # its seeds a minibatch (:72)
+DIST_MB_CALLS = 3               # after one warm-up
+DIST_CUT_SEEDS = 256            # (e): seeds a request or step on the 5% cut
+DIST_LOSS_RTOL = 1e-5
+DIST_STORE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "dist_store")
+
+
+def dist_meshes(device):
+    """P = 1 over a real process group of world size 1 (NCCL on the card,
+    a ``file://`` store under ``build/``) and P = ``DIST_PARTS`` thread
+    ranks on the same device."""
+    from tch_geometric_tpu_torch.parallel import make_mesh, multihost
+    from tch_geometric_tpu_torch.parallel.mesh import (ProcessGroupComm,
+                                                       ThreadComm)
+    os.makedirs(os.path.dirname(DIST_STORE), exist_ok=True)
+    if os.path.exists(DIST_STORE):
+        os.remove(DIST_STORE)
+    multihost.initialize("file://" + DIST_STORE, 1, 0, device=device)
+    one = multihost.make_mesh(("data",), device=device)
+    check(isinstance(one.comm, ProcessGroupComm) and one.size == 1,
+          "P = 1 runs over the process group")
+    import torch.distributed as dist
+    log(f"phase 12: process group backend {dist.get_backend()}, world "
+        f"size {dist.get_world_size()}; {DIST_PARTS} thread ranks on "
+        f"{device}")
+    return {1: one, DIST_PARTS: make_mesh((DIST_PARTS, 1), device=device,
+                                          comm=ThreadComm(DIST_PARTS))}
+
+
+def check_partitioned_rows(g, cp, ri, P, seed=60):
+    """``DIST_CHECK_ROWS`` seeded rows of the partitioned graph against the
+    CSC: degree, global start, the owner's neighbor window and the ELL
+    row.  Returns the count of rows that disagree."""
+    N, E = cp.shape[0] - 1, ri.shape[0]
+    v = torch.from_numpy(np.random.default_rng(seed).choice(
+        N, min(DIST_CHECK_ROWS, N), replace=False)).to(cp.device)
+    deg, start = cp[v + 1] - cp[v], cp[v]
+    row = (v % P) * g.rows_per_part + torch.div(v, P, rounding_mode="floor")
+    lanes = torch.arange(max(g.max_degree, 1), device=cp.device)
+    live = lanes[None, :] < deg[:, None]
+    want = ri[(start[:, None] + lanes).clamp(max=E - 1)]
+    lptr = ((v % P) * g.local_edge_cap + g.lstart[row].long())[:, None] + lanes
+    got = g.lindices[lptr.clamp(max=g.lindices.shape[0] - 1)].long()
+    ok = ((g.ldeg[row].long() == deg) & (g.gstart[row].long() == start)
+          & ((got == want) | ~live).all(1))
+    if g.ell is not None:
+        W = g.ell.shape[1]
+        ell = g.ell[row].long()
+        k = min(W - 2, lanes.shape[0])
+        ok &= ((ell[:, :k] == want[:, :k]) | ~live[:, :k]).all(1)
+        ok &= (ell[:, W - 2] == deg) & (ell[:, W - 1] == start)
+    return int((~ok).sum())
+
+
+def dist_graphs(p, device, timer):
+    """Phase 12 (a): ``build_partitioned_graph`` of phase 3's CSC at P = 1
+    and P = ``DIST_PARTS`` on the card, each timed with its device bytes
+    and ``DIST_CHECK_ROWS`` seeded rows checked against the CSC."""
+    from tch_geometric_tpu_torch.parallel import build_partitioned_graph
+    cp = torch.from_numpy(p["col_ptrs"]).to(device)
+    ri = torch.from_numpy(p["row_indices"]).to(device)
+    graphs, out = {}, {}
+    for P in (1, DIST_PARTS):
+        g, ms = timer(lambda: build_partitioned_graph(cp, ri, P,
+                                                      device=device))
+        bad = check_partitioned_rows(g, cp, ri, P)
+        gib = g.nbytes() / 2**30
+        log(f"phase 12 (a) build_partitioned_graph P={P}: {ms:.1f} ms, "
+            f"{gib:.3f} GiB on the device (rows a part {g.rows_per_part}, "
+            f"edge cap a part {g.local_edge_cap}, ELL "
+            f"{'yes' if g.ell is not None else 'no'}); {bad} of "
+            f"{DIST_CHECK_ROWS} checked rows differ from the CSC")
+        check(bad == 0, f"partitioned graph P={P} rows equal the CSC")
+        graphs[P] = g
+        out[P] = dict(build_ms=ms, device_gib=gib, bad_rows=bad)
+    return graphs, out
+
+
+def dist_layers(s, P):
+    """The per-layer concatenation of a distributed sample's rank blocks
+    (the P = 1 layout), ids, edge pointers and states masked by validity,
+    and that layout's node bases."""
+    nb, eb = s.node_base, s.edge_base
+    out = {}
+    for f, base, mask in (("nodes", nb, "node_valid"),
+                          ("node_state", nb, "node_valid"),
+                          ("node_valid", nb, None),
+                          ("eptr", eb, "edge_valid"),
+                          ("edge_valid", eb, None)):
+        a = getattr(s, f)
+        if mask is not None:
+            a = torch.where(getattr(s, mask), a, -1)
+        out[f] = torch.cat([torch.cat([a[d][base[i]: base[i + 1]]
+                                       for d in range(P)])
+                            for i in range(len(base) - 1)])
+    return out, tuple(P * b for b in nb)
+
+
+def dist_diff(a, b) -> int:
+    """Slots in which two layer dicts of :func:`dist_layers` differ."""
+    return sum(int((a[f] != b[f].to(a[f].device)).sum()) for f in a)
+
+
+def dist_requests(graphs, meshes, n, device, timer):
+    """Phase 12 (b): ``dist_sample_neighbors`` of ``SEEDS_PER_REQUEST``
+    global seeds, ``FANOUTS``, capacity factor ``DIST_CF``, default rounds,
+    one warm-up and ``DIST_TIMED`` requests at each P: ms per request, the
+    valid share per hop, overflow 0, and the P = 1 and P = ``DIST_PARTS``
+    trees bit-identical."""
+    from tch_geometric_tpu_torch.parallel import dist_sample_neighbors
+    from tch_geometric_tpu_torch.sampling import rng
+    seeds = torch.from_numpy(np.random.default_rng(61).integers(
+        0, n, (1 + DIST_TIMED, SEEDS_PER_REQUEST))).to(device)
+    trees, out = {}, {}
+    for P in (1, DIST_PARTS):
+        ms, trees[P], ovf = [], [], 0
+        for i in range(1 + DIST_TIMED):
+            (s, o), t = timer(lambda: dist_sample_neighbors(
+                rng.fold(rng.key(62), i), graphs[P], seeds[i], FANOUTS,
+                meshes[P], capacity_factor=DIST_CF))
+            ms.append(t)
+            ovf += int(o.sum())
+            layers, nb = dist_layers(s, P)
+            trees[P].append(layers)
+        share = [float(layers["node_valid"][nb[h + 1]: nb[h + 2]].float()
+                       .mean()) for h in range(len(FANOUTS))]
+        out[P] = dict(request_ms=ms[1:], first_ms=ms[0],
+                      request_ms_mean=float(np.mean(ms[1:])), overflow=ovf,
+                      valid_share_by_hop=share)
+        log(f"phase 12 (b) dist_sample_neighbors P={P}: ms per request "
+            f"(first {ms[0]:.1f}) " + ", ".join(f"{m:.1f}" for m in ms[1:])
+            + f"; mean {out[P]['request_ms_mean']:.2f}; overflow {ovf}; "
+            "valid share by hop " + ", ".join(f"{v:.4f}" for v in share))
+        check(ovf == 0, f"dist sampler P={P}: overflow 0")
+    diff = sum(dist_diff(a, b) for a, b in zip(trees[1], trees[DIST_PARTS]))
+    log(f"check: phase 12 (b) the P=1 and P={DIST_PARTS} trees of "
+        f"{1 + DIST_TIMED} requests differ in {diff} slots")
+    check(diff == 0, "P=1 and P=4 sample trees bit-identical")
+    out["differing_slots"] = diff
+    return out
+
+
+def dist_model(device, f, dropout=0.0):
+    """``scripts/bench_partitioned_products.py``'s model: GraphSAGE(hidden
+    256, 47 classes, 3 layers), dropout 0, weights from a seed."""
+    from tch_geometric_tpu_torch.models import GraphSAGE
+    return GraphSAGE(f, 256, 47, 3, dropout=dropout, device=device,
+                     generator=torch.Generator().manual_seed(63))
+
+
+def dist_train(p, graphs, meshes, device, timer):
+    """Phase 12 (c): ``make_partitioned_trainer`` with the bench's model,
+    ``FANOUTS``, Adam at ``TRAIN_LR``, capacity factor ``DIST_CF``,
+    ``SEEDS_PER_REQUEST`` global seeds a step, from the same parameters at
+    each P: one warm-up and ``DIST_TIMED`` timed steps, ms per step, peak
+    device memory, overflow 0; the first ``DIST_LOSS_STEPS`` losses of the
+    two P agree within ``DIST_LOSS_RTOL`` relative."""
+    from tch_geometric_tpu_torch.parallel import (build_interleaved_features,
+                                                  make_partitioned_trainer)
+    from tch_geometric_tpu_torch.sampling import rng
+    n = p["x_table"].shape[0]
+    labels = torch.from_numpy(p["data"].y).to(device)
+    seeds = torch.from_numpy(np.random.default_rng(64).integers(
+        0, n, (1 + DIST_TIMED, SEEDS_PER_REQUEST))).to(device)
+    model0 = dist_model(device, p["x_table"].shape[1])
+    out, losses = {}, {}
+    for P in (1, DIST_PARTS):
+        xi = build_interleaved_features(p["x_table"], P)
+        tr = make_partitioned_trainer(copy.deepcopy(model0), FANOUTS,
+                                      meshes[P], learning_rate=TRAIN_LR,
+                                      capacity_factor=DIST_CF)
+        box = {"state": tr.init_fn()}
+
+        def step(i):
+            box["state"], loss, acc, ovf = tr.train_step(
+                box["state"], rng.key(65), graphs[P], xi, seeds[i],
+                labels[seeds[i]])
+            return float(loss), int(ovf)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses[P], ovf = [], [], 0
+        for i in range(1 + DIST_TIMED):
+            (loss, o), t = timer(lambda: step(i))
+            ms.append(t)
+            losses[P].append(loss)
+            ovf += o
+            check(np.isfinite(loss), f"partitioned step P={P}: loss finite")
+        out[P] = dict(step_ms=ms[1:], first_ms=ms[0],
+                      step_ms_mean=float(np.mean(ms[1:])), overflow=ovf,
+                      peak_device_gib=peak_gib(), losses=losses[P])
+        log(f"phase 12 (c) make_partitioned_trainer P={P}: step ms (first "
+            f"{ms[0]:.1f}) " + ", ".join(f"{m:.1f}" for m in ms[1:])
+            + f"; mean {out[P]['step_ms_mean']:.2f}; peak device memory "
+            f"{out[P]['peak_device_gib']:.2f} GiB; overflow {ovf}; losses "
+            + ", ".join(f"{v:.6f}" for v in losses[P]))
+        check(ovf == 0, f"partitioned trainer P={P}: overflow 0")
+        del xi, tr, box
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        losses[DIST_PARTS][:DIST_LOSS_STEPS], losses[1][:DIST_LOSS_STEPS]))
+    log(f"check: phase 12 (c) losses P={DIST_PARTS} against P=1 over "
+        f"{DIST_LOSS_STEPS} steps (dropout 0): largest relative difference "
+        f"{rel:.3e} (limit {DIST_LOSS_RTOL})")
+    check(rel <= DIST_LOSS_RTOL, f"partitioned losses across P: {rel:.3e}")
+    out["max_rel_loss_diff"] = rel
+    return out
+
+
+def dist_multibatch(p, graphs, mesh, device, timer):
+    """Phase 12 (d): ``make_partitioned_multibatch_trainer`` at M =
+    ``DIST_MB_M`` minibatches of ``DIST_MB_B`` seeds (the bench's), P = 1:
+    one warm-up and ``DIST_MB_CALLS`` calls, ms per minibatch."""
+    from tch_geometric_tpu_torch.parallel import (
+        make_partitioned_multibatch_trainer)
+    from tch_geometric_tpu_torch.sampling import rng
+    n = p["x_table"].shape[0]
+    labels = torch.from_numpy(p["data"].y).to(device)
+    tr = make_partitioned_multibatch_trainer(
+        dist_model(device, p["x_table"].shape[1]), FANOUTS, mesh,
+        learning_rate=TRAIN_LR, capacity_factor=DIST_CF)
+    box = {"state": tr.init_fn()}
+    r = np.random.default_rng(66)
+
+    def call(i):
+        s = torch.from_numpy(r.integers(0, n, (DIST_MB_M, DIST_MB_B))).to(
+            device)
+        box["state"], losses, _, ovf = tr.train_step(
+            box["state"], rng.fold(rng.key(67), i), graphs[1], p["x_table"],
+            s, labels[s])
+        return losses.cpu().numpy(), int(ovf)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, ovf = [], 0
+    for i in range(1 + DIST_MB_CALLS):
+        (losses, o), t = timer(lambda: call(i))
+        ms.append(t / DIST_MB_M)
+        ovf += o
+        check(bool(np.isfinite(losses).all()), "multibatch losses finite")
+    out = dict(ms_per_minibatch=ms[1:], first_ms_per_minibatch=ms[0],
+               ms_per_minibatch_mean=float(np.mean(ms[1:])), overflow=ovf,
+               peak_device_gib=peak_gib())
+    log(f"phase 12 (d) make_partitioned_multibatch_trainer M={DIST_MB_M} x "
+        f"{DIST_MB_B} seeds, P=1: ms per minibatch (first {ms[0]:.1f}) "
+        + ", ".join(f"{m:.1f}" for m in ms[1:])
+        + f"; mean {out['ms_per_minibatch_mean']:.2f}; overflow {ovf}; peak "
+        f"device memory {out['peak_device_gib']:.2f} GiB")
+    check(ovf == 0, "partitioned multibatch trainer: overflow 0")
+    return out
+
+
+def dist_card_vs_cpu(data, sg, device):
+    """Phase 12 (e): on the 5% cut, card against CPU, same keys and seeds:
+    (b)'s request at its ``SEEDS_PER_REQUEST`` seeds, the card at P =
+    ``DIST_PARTS`` thread ranks and the CPU at P = 1 (the trees do not
+    depend on P), differs in 0 slots; at P = ``DIST_PARTS`` on both, a
+    request of ``DIST_CUT_SEEDS`` seeds differs in 0 slots, and
+    ``DIST_LOSS_STEPS`` steps of (c)'s trainer (same parameters) give
+    losses within ``DIST_LOSS_RTOL`` relative."""
+    from tch_geometric_tpu_torch.parallel import (build_interleaved_features,
+                                                  build_partitioned_graph,
+                                                  dist_sample_neighbors,
+                                                  make_mesh,
+                                                  make_partitioned_trainer)
+    from tch_geometric_tpu_torch.parallel.mesh import ThreadComm
+    from tch_geometric_tpu_torch.sampling import rng
+    cpu = torch.device("cpu")
+    ns, P = sg["ns"], DIST_PARTS
+    seeds = np.random.default_rng(68).integers(
+        0, ns, (DIST_LOSS_STEPS, DIST_CUT_SEEDS))
+    full = np.random.default_rng(71).integers(0, ns, SEEDS_PER_REQUEST)
+    ys = torch.from_numpy(data.y[sg["keep"]])
+    model = dist_model(cpu, data.x.shape[1])
+    res, full_trees, full_s = {}, {}, {}
+    for side, dev in (("card", device), ("cpu", cpu)):
+        t = time.perf_counter()
+        mesh = make_mesh((P, 1), device=dev, comm=ThreadComm(P))
+        g = build_partitioned_graph(sg["cp"], sg["ri"], P, device=dev)
+        pf = P if side == "card" else 1
+        mf = mesh if pf == P else make_mesh((1, 1), device=dev,
+                                            comm=ThreadComm(1))
+        gf = g if pf == P else build_partitioned_graph(sg["cp"], sg["ri"], 1,
+                                                       device=dev)
+        s, ovf = dist_sample_neighbors(rng.key(72), gf, full, FANOUTS, mf,
+                                       capacity_factor=DIST_CF)
+        check(int(ovf.sum()) == 0, f"(e) {side}: full request overflow 0")
+        full_trees[side] = dist_layers(s, pf)[0]
+        full_s[side] = time.perf_counter() - t
+        s, ovf = dist_sample_neighbors(rng.key(69), g, seeds[0], FANOUTS,
+                                       mesh, capacity_factor=DIST_CF)
+        check(int(ovf.sum()) == 0, f"(e) {side}: overflow 0")
+        tr = make_partitioned_trainer(copy.deepcopy(model).to(dev), FANOUTS,
+                                      mesh, learning_rate=TRAIN_LR,
+                                      capacity_factor=DIST_CF)
+        xi = build_interleaved_features(sg["xs"].to(dev), P)
+        st, losses, y = tr.init_fn(), [], ys.to(dev)
+        for i in range(DIST_LOSS_STEPS):
+            sd = torch.from_numpy(seeds[i]).to(dev)
+            st, loss, _, o = tr.train_step(st, rng.key(70), g, xi, sd, y[sd])
+            check(int(o) == 0, f"(e) {side}: trainer overflow 0")
+            losses.append(float(loss))
+        res[side] = (dist_layers(s, P)[0], losses, time.perf_counter() - t)
+    (tc, lc, sc), (th, lh, sh) = res["card"], res["cpu"]
+    full_diff = dist_diff(full_trees["card"], full_trees["cpu"])
+    diff = dist_diff(tc, th)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    log(f"check: phase 12 (e) card vs CPU on the {ns}-node cut: the "
+        f"{SEEDS_PER_REQUEST}-seed trees (card P={P} threads, CPU P=1) "
+        f"differ in {full_diff} slots (card {full_s['card']:.1f} s, CPU "
+        f"{full_s['cpu']:.1f} s, each with its graph build); at P={P} "
+        f"threads the "
+        f"{DIST_CUT_SEEDS}-seed trees differ in {diff} slots; losses card "
+        f"{lc}, CPU {lh}, largest relative difference {rel:.3e} (limit "
+        f"{DIST_LOSS_RTOL}); card {sc:.1f} s, CPU {sh:.1f} s in all")
+    check(full_diff == 0, "(e) card and CPU full-size trees equal")
+    check(diff == 0, "(e) card and CPU trees equal")
+    check(rel <= DIST_LOSS_RTOL, f"(e) card vs CPU losses: {rel:.3e}")
+    return dict(full_request_differing_slots=full_diff,
+                full_request_s=full_s, differing_slots=diff, losses_card=lc,
+                losses_cpu=lh, max_rel_loss_diff=rel, card_s=sc, cpu_s=sh)
+
+
+def phase12(p, sg, device, timer):
+    """Phase 12: (a)-(e), each part's wall seconds logged; returns its
+    numbers.  Tears the process group down at the end."""
+    from tch_geometric_tpu_torch.parallel import multihost
+    t0 = time.perf_counter()
+    res, secs = {}, {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t
+        log(f"phase 12 {name}: {secs[name]:.1f}s")
+        return out
+
+    meshes = dist_meshes(device)
+    graphs, res["graphs"] = part("(a)", lambda: dist_graphs(p, device,
+                                                            timer))
+    n = p["x_table"].shape[0]
+    res["requests"] = part("(b)", lambda: dist_requests(graphs, meshes, n,
+                                                        device, timer))
+    res["train"] = part("(c)", lambda: dist_train(p, graphs, meshes, device,
+                                                  timer))
+    res["multibatch"] = part("(d)", lambda: dist_multibatch(
+        p, graphs, meshes[1], device, timer))
+    del graphs
+    torch.cuda.empty_cache()
+    res["card_vs_cpu"] = part("(e)", lambda: dist_card_vs_cpu(
+        p["data"], sg, device))
+    multihost.shutdown()
+    res["part_s"] = secs
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 12 wall time {res['wall_s']:.1f}s")
     return res
 
 
@@ -3758,7 +4245,7 @@ def main(argv=None) -> int:
         fn.launches = 0
     sampling_res = sampling_requests(p, device, timer)
     t = time.perf_counter()
-    mag = mag_graph(args.scale)
+    mag = mag_graph(args.scale, device)
     sampling_res["mag_host_s"] = time.perf_counter() - t
     log(f"hetero mag graph: host COO and CSC "
         f"{sampling_res['mag_host_s']:.1f}s")
@@ -3789,6 +4276,16 @@ def main(argv=None) -> int:
     check(not any(models_launches.values()),
           "no kernel of B1-B11 ran in phase 11")
     del mag, csr
+    torch.cuda.empty_cache()
+
+    for fn in wrappers:
+        fn.launches = 0
+    dist_res = phase12(p, sg, device, timer)
+    dist_launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"phase 12 launches (no kernel of B1-B11 lies on it): "
+        f"{dist_launches}")
+    check(not any(dist_launches.values()),
+          "no kernel of B1-B11 ran in phase 12")
 
     summary = dict(
         card=card, scale=args.scale, nodes=n, edges=p["graph"].num_edges,
@@ -3813,13 +4310,14 @@ def main(argv=None) -> int:
         attend_vs_segment_f32=attend_sub,
         attend_peak_device_gib=attend_peak_gb,
         train=train_res, profile=prof, sampling=sampling_res,
-        parity=parity_res, models=models_res,
+        parity=parity_res, models=models_res, dist=dist_res,
         total_s=time.perf_counter() - t_all, **sub)
     log("serving: " + json.dumps(summary))
     if args.scale == 1.0:
         print(json.dumps({"kernels": kernels}), flush=True)
     else:
         log(f"rehearsal at scale {args.scale}: no kernels line")
+    log(f"chip_smoke: total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

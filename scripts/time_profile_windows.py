@@ -7,7 +7,9 @@ on the ogbn-mag-shaped graph and its node2vec trainer on the products
 out-edge CSR, takes one step of each, then per model times ``--steps``
 steps unprofiled, the same steps in a ``utils.metrics.profile`` window, the
 Chrome-trace export, ``prof.events()`` and ``chip_smoke.profile_split``,
-and prints the event count, the trace's size and the top 10 device ops.
+then ``chip_smoke.trace_split`` of the exported trace, which must give the
+same split, and prints the event count, the trace's size and the top 10
+device ops.
 From the root of a checkout, on one GPU:
 
     python3 scripts/time_profile_windows.py [--steps 3]
@@ -45,7 +47,7 @@ def main(argv=None) -> int:
     card = cs.gpu_line()
     print(card, flush=True)
 
-    counts, edge_types, csc = cs.mag_graph(1.0)
+    counts, edge_types, csc = cs.mag_graph(1.0, dev)
     graphs = cs.hetero_graphs(counts, edge_types, csc, dev)
     x = cs.mag_features(counts, dev)
     labels = torch.randint(0, cs.HGT_OUT, (counts["paper"],), device=dev)
@@ -91,11 +93,15 @@ def main(argv=None) -> int:
         t4 = time.perf_counter()
         r = cs.profile_split(prof, "window")
         t5 = time.perf_counter()
+        rt = cs.trace_split(logdir, "window")
+        t6 = time.perf_counter()
+        cs.check_same_split(rt, r, name)
         mib = os.path.getsize(os.path.join(logdir, "trace.json")) / 2**20
         print(f"{name}, {args.steps} steps: unprofiled {t1 - t0:.1f} s, "
               f"window {t2 - t1:.1f} s, export {t3 - t2:.1f} s ({mib:.0f} "
               f"MiB), events() {t4 - t3:.1f} s ({len(evs)} events), split "
-              f"{t5 - t4:.1f} s; device ms by span "
+              f"{t5 - t4:.1f} s, trace read and split {t6 - t5:.1f} s "
+              f"(equal); device ms by span "
               f"{r['device_ms_by_span']}, idle share {r['idle_share']:.3f}",
               flush=True)
         for o in r["top10"]:

@@ -10,6 +10,7 @@ ported: ``load_ogbn_dir`` reads the same data from a directory.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .dataset import Data
 
@@ -130,7 +131,13 @@ def synthetic_ogbn(name: str, *, seed: int = 0,
     # heavy-tailed source popularity: zipf-like via pareto ranks
     pop = (1.0 / (np.arange(n) + 10.0)) ** 0.8
     pop /= pop.sum()
-    src = rng.choice(n, size=e, p=pop)
+    # ``rng.choice(n, size=e, p=pop)``, as numpy draws it (the normalised
+    # cdf searched right of e uniforms), with torch's multi-threaded search
+    cdf = pop.cumsum()
+    cdf /= cdf[-1]
+    src = torch.searchsorted(torch.from_numpy(cdf),
+                             torch.from_numpy(rng.random(e)),
+                             right=True).numpy()
     dst = rng.integers(0, n, size=e)
     x = rng.normal(size=(n, f)).astype(np.float32)
     y = rng.integers(0, c, size=n).astype(np.int64)

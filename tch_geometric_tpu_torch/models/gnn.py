@@ -53,8 +53,13 @@ def _lecun_normal_(p: torch.Tensor, generator) -> None:
 
 
 def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``lin(x)`` as flax's ``nn.Dense(dtype=dtype)``: input and parameters
+    cast to ``dtype``, or with None promoted to their common type (bfloat16
+    rows into a float32 layer give float32)."""
     if dtype is None:
-        return lin(x)
+        dtype = torch.promote_types(x.dtype, lin.weight.dtype)
+        if x.dtype == dtype == lin.weight.dtype:
+            return lin(x)
     bias = None if lin.bias is None else lin.bias.to(dtype)
     return nnf.linear(x.to(dtype), lin.weight.to(dtype), bias)
 

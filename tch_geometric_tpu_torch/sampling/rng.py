@@ -101,7 +101,11 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0, device: DeviceLike = "cuda") -> torch.Tensor:
     """``jax.random.uniform`` in float32."""
-    bits = random_bits(key, shape, device)
+    return _uniform_from_bits(random_bits(key, shape, device), minval, maxval)
+
+
+def _uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float
+                       ) -> torch.Tensor:
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
@@ -130,8 +134,13 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval, maxval,
     including its uint32 wraparound of the ``2**32 % span`` multiplier.
     """
     k = split(key)
-    higher = random_bits(k[0], shape, device)
-    lower = random_bits(k[1], shape, device)
+    return _randint_from_bits(random_bits(k[0], shape, device),
+                              random_bits(k[1], shape, device), minval,
+                              maxval)
+
+
+def _randint_from_bits(higher: torch.Tensor, lower: torch.Tensor, minval,
+                       maxval) -> torch.Tensor:
     minval = torch.as_tensor(minval, dtype=torch.int64, device=higher.device)
     maxval = torch.as_tensor(maxval, dtype=torch.int64, device=higher.device)
     span = (maxval - minval) & MASK32
@@ -153,6 +162,71 @@ def gumbel(key: torch.Tensor, shape: Sequence[int],
     u ~ U[tiny, 1).  Equal to jax up to the last ulp of ``log``."""
     u = uniform(key, shape, _TINY32, 1.0, device)
     return -torch.log(-torch.log(u))
+
+
+# ---------------------------------------------------------------------------
+# One key per row: the draws of ``jax.vmap`` over a batch of keys
+# ---------------------------------------------------------------------------
+#
+# A batch of keys is a ``(B, 2)`` int64 tensor on the device of the draws
+# (one row per key, the two uint32 words), so a frontier of many keys never
+# leaves the device.  Row ``b`` of each draw equals the single-key function
+# under key ``b``.
+
+def fold_in_many(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``vmap(lambda d: fold_in(key, d))(data)``: ``(B, 2)`` keys, ``data``
+    taken as uint32, on ``data``'s device."""
+    k0, k1 = _words(key)
+    d = data.long() & MASK32
+    o0, o1 = threefry2x32(k0, k1, torch.zeros_like(d), d)
+    return torch.stack([o0, o1], dim=-1)
+
+
+def fold_in_each(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """``vmap(lambda k: fold_in(k, data))(keys)``."""
+    zero = torch.zeros_like(keys[:, 0])
+    o0, o1 = threefry2x32(keys[:, 0], keys[:, 1], zero,
+                          zero + (int(data) & MASK32))
+    return torch.stack([o0, o1], dim=-1)
+
+
+def _hash_counters_each(keys: torch.Tensor, n: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    return threefry2x32(keys[:, :1], keys[:, 1:], idx >> 32, idx & MASK32)
+
+
+def random_bits_each(keys: torch.Tensor, shape: Sequence[int]
+                     ) -> torch.Tensor:
+    """``(B,) + shape`` bits, row ``b`` under key ``b``."""
+    shape = tuple(int(s) for s in shape)
+    n = 1
+    for s in shape:
+        n *= s
+    b0, b1 = _hash_counters_each(keys, n)
+    return (b0 ^ b1).reshape((keys.shape[0],) + shape)
+
+
+def split_each(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``vmap(lambda k: split(k, num))(keys)``: ``(B, num, 2)``."""
+    b0, b1 = _hash_counters_each(keys, num)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def uniform_each(keys: torch.Tensor, shape: Sequence[int],
+                 minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``vmap(lambda k: uniform(k, shape, minval, maxval))(keys)``."""
+    return _uniform_from_bits(random_bits_each(keys, shape), minval, maxval)
+
+
+def randint_each(keys: torch.Tensor, shape: Sequence[int], minval, maxval
+                 ) -> torch.Tensor:
+    """``vmap(lambda k, lo, hi: randint(k, shape, lo, hi))``: ``minval`` /
+    ``maxval`` broadcast to ``(B,) + shape``."""
+    k = split_each(keys)
+    return _randint_from_bits(random_bits_each(k[:, 0], shape),
+                              random_bits_each(k[:, 1], shape), minval,
+                              maxval)
 
 
 # ---------------------------------------------------------------------------

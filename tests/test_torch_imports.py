@@ -45,8 +45,14 @@ MODULES = ["tch_geometric_tpu_torch.data.dataset",
            "tch_geometric_tpu_torch.ops.segment",
            "tch_geometric_tpu_torch.ops.spmm",
            "tch_geometric_tpu_torch.ops.spmm_kernels",
+           "tch_geometric_tpu_torch.parallel.dist_sampling",
            "tch_geometric_tpu_torch.parallel.hgt_train",
            "tch_geometric_tpu_torch.parallel.link_train",
+           "tch_geometric_tpu_torch.parallel.mesh",
+           "tch_geometric_tpu_torch.parallel.multihost",
+           "tch_geometric_tpu_torch.parallel.partition",
+           "tch_geometric_tpu_torch.parallel.resilience",
+           "tch_geometric_tpu_torch.parallel.sharded_features",
            "tch_geometric_tpu_torch.parallel.train",
            "tch_geometric_tpu_torch.sampling.budget",
            "tch_geometric_tpu_torch.sampling.hetero_neighbor",
@@ -81,7 +87,8 @@ def test_import_loads_no_jax():
 def test_module_import_loads_no_jax(module):
     """Each module of the GAT/GCN/GIN, attention, training and sampling
     slices, of the data layer, walks, HGT, budget and negative samplers,
-    transforms and loader, and of the HGT and node2vec models and their
+    transforms and loader, of the HGT and node2vec models and their
+    trainers, and of the mesh, the partitioned graph, its exchanges and
     trainers, imported alone in a fresh interpreter, loads no JAX and
     nothing of the JAX package."""
     code = ("import sys, importlib\n"
@@ -110,7 +117,22 @@ EXPORTS = {
     "tch_geometric_tpu_torch.parallel": [
         "make_gnn_trainer", "make_sage_trainer",
         "make_multibatch_sage_trainer", "HGTTrainState", "make_hgt_trainer",
-        "make_link_trainer"],
+        "make_link_trainer", "make_mesh", "data_sharding", "replicated",
+        "param_sharding_rule", "shard_params", "barrier", "shard_checksums",
+        "inject_shard_fault", "build_interleaved_features", "halo_gather",
+        "make_sharded_feature_trainer", "PartitionedGraph",
+        "build_partitioned_graph", "dist_sample_neighbors",
+        "make_partitioned_trainer", "make_partitioned_multibatch_trainer"],
+    "tch_geometric_tpu_torch.parallel.multihost": [
+        "initialize", "make_mesh", "global_from_local", "replicated",
+        "local_seed_shard", "put_partitioned"],
+    "tch_geometric_tpu_torch.parallel.mesh": [
+        "ThreadComm", "ProcessGroupComm", "spmd"],
+    "tch_geometric_tpu_torch.parallel.partition": [
+        "RingShards", "build_ring_shards", "pad_features", "ring_spmm",
+        "alltoall_gather"],
+    "tch_geometric_tpu_torch.parallel.dist_sampling": [
+        "exchange_rounds", "resolve_num_rounds"],
     "tch_geometric_tpu_torch.utils": [
         "save_checkpoint", "restore_checkpoint", "latest_step",
         "MetricsLogger", "trace_span", "profile", "adam_state_from_optax",
@@ -152,8 +174,9 @@ EXPORTS = {
 def test_ported_names_exported(module, name):
     """The multi-head GAT routes (B7, B8, B9), the int8 SpMM (B11), the
     training slice's entry points, the sampling slices' samplers, data and
-    ops, the transforms and the loader, the HGT and node2vec models and the
-    HGT and link trainers are public names of the port; each
+    ops, the transforms and the loader, the HGT and node2vec models, the
+    HGT and link trainers, and the mesh, multihost, partitioned graph,
+    exchange and partitioned-trainer names are public names of the port; each
     ``_cuda`` wrapper carries a launch count."""
     import importlib
     obj = getattr(importlib.import_module(module), name)
@@ -203,47 +226,37 @@ def test_layer_and_model_devices_default_to_the_card():
         assert dev.default == "cuda", cls.__name__
 
 
-# the distributed family, ROADMAP queue A7: each slice of it takes its
-# names off this list
+# the distributed family still to port, ROADMAP queue A7: each slice of it
+# takes its names off this list
 DISTRIBUTED = {
     # modules
-    "mesh", "partition", "sharded_features", "dist_sampling", "dist_walks",
-    "dist_budget", "dist_hgt", "dist_hetero", "dist_negative", "multihost",
-    "resilience",
-    # mesh.py
-    "data_sharding", "make_mesh", "param_sharding_rule", "replicated",
-    "shard_params",
-    # the partitioned trainers
-    "make_partitioned_hgt_trainer", "make_partitioned_trainer",
-    "make_partitioned_multibatch_trainer",
-    # sharded features
-    "build_interleaved_features", "halo_gather",
-    "make_sharded_feature_trainer",
+    "dist_walks", "dist_budget", "dist_hgt", "dist_hetero", "dist_negative",
+    # the partitioned HGT trainer
+    "make_partitioned_hgt_trainer",
     # the dist_* samplers and their graph layouts
-    "PartitionedGraph", "build_partitioned_graph", "dist_sample_neighbors",
     "dist_random_walk", "dist_tempo_random_walk",
     "dist_biased_tempo_random_walk", "effective_edge_ts",
     "dist_budget_sample", "dist_budget_sample_hetero", "StackedRels",
     "build_partitioned_hetero", "dist_hgt_sample", "put_stacked_rels",
     "stack_partitioned_rels", "dist_hetero_neighbor_sample",
     "dist_negative_sample", "dist_negative_sample_hetero",
-    # resilience
-    "barrier", "inject_shard_fault", "shard_checksums",
 }
 
 
 def test_every_jax_parallel_name_exported_but_the_distributed():
     """Every public name of the JAX ``parallel`` package, its submodules
-    included (each is imported first, so the names do not depend on what
-    else the process imported), exists in the port's, save the named
-    distributed ones; and none of those is in the port yet (a slice that
-    ports one takes it off the list)."""
+    included (each package's submodules are imported first, so the names
+    do not depend on what else the process imported), exists in the
+    port's, save the named distributed ones; and none of those is in the
+    port yet (a slice that ports one takes it off the list)."""
     import importlib
     import pkgutil
     jmod = importlib.import_module("tch_geometric_tpu.parallel")
     for m in pkgutil.iter_modules(jmod.__path__):
         importlib.import_module(f"tch_geometric_tpu.parallel.{m.name}")
     ours = importlib.import_module("tch_geometric_tpu_torch.parallel")
+    for m in pkgutil.iter_modules(ours.__path__):
+        importlib.import_module(f"tch_geometric_tpu_torch.parallel.{m.name}")
     names = {n for n in dir(jmod) if not n.startswith("_")}
     assert DISTRIBUTED <= names, sorted(DISTRIBUTED - names)
     missing = sorted(n for n in names - DISTRIBUTED if not hasattr(ours, n))
