@@ -231,6 +231,22 @@ prints no result line):
    256-seed request at P = 4 on both differ in 0 slots, and 3 trainer
    steps of 256 seeds at P = 4 give losses within 1e-5.  P = 4 on one
    card is a structural check: four threads share the card and the GIL.
+13. the 2-axis mesh (no kernel of B1-B11 lies on it; their launch counts
+   must stay 0): (a) ``make_partitioned_trainer(hier=("slice", "chip"))``
+   with phase 12 (c)'s model, key and seeds on (S, C) = (2, 2) thread
+   ranks (the graph at ``num_parts = 2``, the features interleaved over
+   4): ms per step, peak device memory, overflow 0, 3 losses within 1e-5
+   of phase 12 (c)'s flat P = 4 trainer's; its multibatch trainer at M = 8
+   x 512, ms per minibatch; (b) the same at (1, 1) over a process group of
+   world size 1 (NCCL; each axis a ``dist.new_group``), losses against
+   (a); (c) ``make_gnn_trainer(mesh=)`` (data-parallel over ``data`` with
+   block draws, column-parallel over ``model``) with phase 7 (a)'s SAGE
+   (dropout 0.5), key and seeds at (2, 2) threads and (1, 1) over NCCL: 3
+   losses within 1e-5 of phase 7's one-device trainer, and each data
+   rank's share of tree slots equal to the whole 1,024-seed batch's, 1.0;
+   (d) card against CPU on phase 3's 5% subgraph: 3 steps of (a) and of
+   (c) at (2, 2), 256 seeds, losses within 1e-5.  The thread meshes are
+   structural checks, as in phase 12.
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -3901,10 +3917,12 @@ def dist_train(p, graphs, meshes, device, timer):
     return out
 
 
-def dist_multibatch(p, graphs, mesh, device, timer):
+def dist_multibatch(p, g, x, mesh, device, timer, hier=None,
+                    what="phase 12 (d)", seed=66):
     """Phase 12 (d): ``make_partitioned_multibatch_trainer`` at M =
-    ``DIST_MB_M`` minibatches of ``DIST_MB_B`` seeds (the bench's), P = 1:
-    one warm-up and ``DIST_MB_CALLS`` calls, ms per minibatch."""
+    ``DIST_MB_M`` minibatches of ``DIST_MB_B`` seeds (the bench's), P = 1,
+    on graph ``g`` and features ``x`` (phase 13 (a): ``hier`` on its (2, 2)
+    mesh): one warm-up and ``DIST_MB_CALLS`` calls, ms per minibatch."""
     from tch_geometric_tpu_torch.parallel import (
         make_partitioned_multibatch_trainer)
     from tch_geometric_tpu_torch.sampling import rng
@@ -3912,16 +3930,15 @@ def dist_multibatch(p, graphs, mesh, device, timer):
     labels = torch.from_numpy(p["data"].y).to(device)
     tr = make_partitioned_multibatch_trainer(
         dist_model(device, p["x_table"].shape[1]), FANOUTS, mesh,
-        learning_rate=TRAIN_LR, capacity_factor=DIST_CF)
+        learning_rate=TRAIN_LR, capacity_factor=DIST_CF, hier=hier)
     box = {"state": tr.init_fn()}
-    r = np.random.default_rng(66)
+    r = np.random.default_rng(seed)
 
     def call(i):
         s = torch.from_numpy(r.integers(0, n, (DIST_MB_M, DIST_MB_B))).to(
             device)
         box["state"], losses, _, ovf = tr.train_step(
-            box["state"], rng.fold(rng.key(67), i), graphs[1], p["x_table"],
-            s, labels[s])
+            box["state"], rng.fold(rng.key(seed + 1), i), g, x, s, labels[s])
         return losses.cpu().numpy(), int(ovf)
 
     torch.cuda.synchronize()
@@ -3935,12 +3952,16 @@ def dist_multibatch(p, graphs, mesh, device, timer):
     out = dict(ms_per_minibatch=ms[1:], first_ms_per_minibatch=ms[0],
                ms_per_minibatch_mean=float(np.mean(ms[1:])), overflow=ovf,
                peak_device_gib=peak_gib())
-    log(f"phase 12 (d) make_partitioned_multibatch_trainer M={DIST_MB_M} x "
-        f"{DIST_MB_B} seeds, P=1: ms per minibatch (first {ms[0]:.1f}) "
+    shape = tuple(mesh.shape.values())
+    log(f"{what} make_partitioned_multibatch_trainer M={DIST_MB_M} x "
+        f"{DIST_MB_B} seeds, "
+        + (f"P={mesh.size}" if hier is None else f"hier {shape} "
+           f"({ranks13(mesh.size)})")
+        + f": ms per minibatch (first {ms[0]:.1f}) "
         + ", ".join(f"{m:.1f}" for m in ms[1:])
         + f"; mean {out['ms_per_minibatch_mean']:.2f}; overflow {ovf}; peak "
         f"device memory {out['peak_device_gib']:.2f} GiB")
-    check(ovf == 0, "partitioned multibatch trainer: overflow 0")
+    check(ovf == 0, f"{what} partitioned multibatch trainer: overflow 0")
     return out
 
 
@@ -4039,7 +4060,7 @@ def phase12(p, sg, device, timer):
     res["train"] = part("(c)", lambda: dist_train(p, graphs, meshes, device,
                                                   timer))
     res["multibatch"] = part("(d)", lambda: dist_multibatch(
-        p, graphs, meshes[1], device, timer))
+        p, graphs[1], p["x_table"], meshes[1], device, timer))
     del graphs
     torch.cuda.empty_cache()
     res["card_vs_cpu"] = part("(e)", lambda: dist_card_vs_cpu(
@@ -4048,6 +4069,335 @@ def phase12(p, sg, device, timer):
     res["part_s"] = secs
     res["wall_s"] = time.perf_counter() - t0
     log(f"phase 12 wall time {res['wall_s']:.1f}s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the 2-axis mesh: hier= partitioned trainers, the DP+TP trainer
+# ---------------------------------------------------------------------------
+
+HIER = ("slice", "chip")
+MESH2 = (2, 2)                  # (S, C) and (data, model): 4 thread ranks
+DPTP_KEY = 11                   # phase 7 (a)'s key and seed generator
+DPTP_SEEDS = 12
+CUT_HIER_KEY, CUT_DPTP_KEY = 74, 75
+DIST_STORE13 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "dist_store13")
+
+
+def meshes13(device):
+    """Four thread ranks on the card as (S, C) = (2, 2) and ('data',
+    'model') = (2, 2) meshes, and (1, 1) meshes of both over a process
+    group of world size 1 (NCCL on the card, a ``file://`` store under
+    ``build/``), whose single axes run over ``dist.new_group`` groups."""
+    from tch_geometric_tpu_torch.parallel import make_mesh, multihost
+    from tch_geometric_tpu_torch.parallel.mesh import (ProcessGroupComm,
+                                                       ThreadComm)
+    os.makedirs(os.path.dirname(DIST_STORE13), exist_ok=True)
+    if os.path.exists(DIST_STORE13):
+        os.remove(DIST_STORE13)
+    multihost.initialize("file://" + DIST_STORE13, 1, 0, device=device)
+    out = {}
+    for kind, names in (("hier", HIER), ("dptp", ("data", "model"))):
+        one = multihost.make_mesh(names, ici_shape=(1, 1), device=device)
+        check(isinstance(one.comm, ProcessGroupComm)
+              and sorted(one.groups) == sorted((n,) for n in names)
+              and all(isinstance(c, ProcessGroupComm)
+                      for c in one.groups.values()),
+              f"(1, 1) {kind} mesh: a new_group for each axis")
+        out[kind] = {1: one, 4: make_mesh(MESH2, names, device=device,
+                                          comm=ThreadComm(4))}
+    import torch.distributed as dist
+    log(f"phase 13: process group backend {dist.get_backend()}, world size "
+        f"{dist.get_world_size()}, {len(out['hier'][1].groups)} sub-axis "
+        f"groups a (1, 1) mesh; 4 thread ranks on {device} as (2, 2)")
+    return out
+
+
+def steps13(timer, step, what):
+    """One warm-up and ``DIST_TIMED`` timed calls of ``step(i) -> (loss,
+    overflow)`` with peak device memory: (ms, first ms, losses, overflow,
+    peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, ovf = [], [], 0
+    for i in range(1 + DIST_TIMED):
+        (loss, o), t = timer(lambda: step(i))
+        ms.append(t)
+        losses.append(loss)
+        ovf += o
+        check(np.isfinite(loss), f"{what}: loss finite")
+    return ms[1:], ms[0], losses, ovf, peak_gib()
+
+
+def rel_max(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def ranks13(P: int) -> str:
+    """Where a phase 13 mesh's ranks run (four thread ranks on one card are
+    a structural check, not a scaling number)."""
+    return ("4 thread ranks sharing the card: a structural check" if P > 1
+            else "NCCL, world size 1")
+
+
+def hier13(p, meshes, flat_losses, device, timer):
+    """Phase 13 (a), (b): ``make_partitioned_trainer(hier=("slice",
+    "chip"))`` with phase 12 (c)'s model, key and seeds, on (2, 2) thread
+    ranks (the graph at ``num_parts = 2``, the features interleaved over
+    4) and at (1, 1) over the process group: ms per step, peak device
+    memory, overflow 0; the first ``DIST_LOSS_STEPS`` losses within
+    ``DIST_LOSS_RTOL`` of phase 12 (c)'s flat P = 4 trainer's, and (b)'s of
+    (a)'s."""
+    from tch_geometric_tpu_torch.parallel import (build_interleaved_features,
+                                                  build_partitioned_graph,
+                                                  make_partitioned_trainer)
+    from tch_geometric_tpu_torch.sampling import rng
+    n, f = p["x_table"].shape
+    cp = torch.from_numpy(p["col_ptrs"]).to(device)
+    ri = torch.from_numpy(p["row_indices"]).to(device)
+    labels = torch.from_numpy(p["data"].y).to(device)
+    seeds = torch.from_numpy(np.random.default_rng(64).integers(
+        0, n, (1 + DIST_TIMED, SEEDS_PER_REQUEST))).to(device)
+    model0 = dist_model(device, f)
+    out, losses = {}, {}
+    for part, P in (("(a)", 4), ("(b)", 1)):
+        mesh = meshes[P]
+        C = mesh.shape["chip"]
+        g = build_partitioned_graph(cp, ri, C, device=device)
+        xi = build_interleaved_features(p["x_table"], P)
+        tr = make_partitioned_trainer(copy.deepcopy(model0), FANOUTS, mesh,
+                                      learning_rate=TRAIN_LR,
+                                      capacity_factor=DIST_CF, hier=HIER)
+        box = {"state": tr.init_fn()}
+
+        def step(i):
+            box["state"], loss, _, ovf = tr.train_step(
+                box["state"], rng.key(65), g, xi, seeds[i], labels[seeds[i]])
+            return float(loss), int(ovf)
+
+        shape = tuple(mesh.shape.values())
+        ms, first, losses[P], ovf, peak = steps13(timer, step,
+                                                  f"hier {shape}")
+        out[P] = dict(shape=shape, step_ms=ms, first_ms=first,
+                      step_ms_mean=float(np.mean(ms)), overflow=ovf,
+                      peak_device_gib=peak, losses=losses[P])
+        log(f"phase 13 {part} hier {shape} ({ranks13(P)}): step ms (first "
+            f"{first:.1f}) " + ", ".join(f"{m:.1f}" for m in ms)
+            + f"; mean {out[P]['step_ms_mean']:.2f}; peak device memory "
+            f"{peak:.2f} GiB; overflow {ovf}; losses "
+            + ", ".join(f"{v:.6f}" for v in losses[P]))
+        check(ovf == 0, f"hier trainer {shape}: overflow 0")
+        del g, xi, tr, box
+        torch.cuda.empty_cache()
+    k = DIST_LOSS_STEPS
+    out["rel_vs_flat_p4"] = rel_max(losses[4][:k], flat_losses[:k])
+    out["rel_11_vs_22"] = rel_max(losses[1][:k], losses[4][:k])
+    log(f"check: phase 13 (a) hier (2, 2) losses against phase 12 (c)'s flat "
+        f"P={DIST_PARTS} over {k} steps: largest relative difference "
+        f"{out['rel_vs_flat_p4']:.3e}; (b) (1, 1) against (a): "
+        f"{out['rel_11_vs_22']:.3e} (limit {DIST_LOSS_RTOL})")
+    check(out["rel_vs_flat_p4"] <= DIST_LOSS_RTOL,
+          f"hier losses vs flat P=4: {out['rel_vs_flat_p4']:.3e}")
+    check(out["rel_11_vs_22"] <= DIST_LOSS_RTOL,
+          f"hier (1, 1) losses vs (2, 2): {out['rel_11_vs_22']:.3e}")
+    return out
+
+
+def hier_multibatch13(p, mesh, device, timer):
+    """Phase 13 (a), multibatch: phase 12 (d)'s trainer with ``hier=`` on
+    the (2, 2) thread ranks (the graph at ``num_parts = 2``, the features
+    interleaved over 4): ms per minibatch, overflow 0."""
+    from tch_geometric_tpu_torch.parallel import (build_interleaved_features,
+                                                  build_partitioned_graph)
+    g = build_partitioned_graph(torch.from_numpy(p["col_ptrs"]).to(device),
+                                torch.from_numpy(p["row_indices"]).to(device),
+                                mesh.shape["chip"], device=device)
+    return dist_multibatch(p, g, build_interleaved_features(p["x_table"],
+                                                            mesh.size),
+                           mesh, device, timer, hier=HIER,
+                           what="phase 13 (a)", seed=76)
+
+
+def block_shares(blocks, whole, D):
+    """Each data rank's share of its tree slots (nodes, validity, edge
+    pointers and edge validity) equal to the whole batch's matching
+    slots."""
+    nb, eb = whole.node_base, whole.edge_base
+    lb, leb = blocks.node_base, blocks.edge_base
+    shares = []
+    for d in range(D):
+        eq = tot = 0
+        for base, wbase, fields in ((lb, nb, ("nodes", "node_valid")),
+                                    (leb, eb, ("eptr", "edge_valid"))):
+            for i in range(len(base) - 1):
+                m = base[i + 1] - base[i]
+                for fld in fields:
+                    a = getattr(blocks, fld)[d, base[i]: base[i + 1]]
+                    b = getattr(whole, fld)[wbase[i] + d * m:
+                                            wbase[i] + (d + 1) * m]
+                    eq += int((a == b).sum())
+                    tot += m
+        shares.append(eq / tot)
+    return shares
+
+
+def dptp13(p, meshes, device, timer):
+    """Phase 13 (c): ``make_gnn_trainer(mesh=)`` with phase 7 (a)'s SAGE
+    (hidden 256, 3 layers, 47 classes, dropout 0.5; the hidden layers'
+    kernels split over ``model``, the 47-class head replicated), key and
+    seeds, on the (2, 2) thread ranks and the (1, 1) NCCL mesh: ms per
+    step, peak device memory; the first ``DIST_LOSS_STEPS`` losses within
+    ``DIST_LOSS_RTOL`` of phase 7 (a)'s one-device trainer from the same
+    parameters; each data rank's 512-seed tree against the whole
+    1,024-seed batch's: the share of equal slots must be 1.0."""
+    from tch_geometric_tpu_torch.parallel import make_gnn_trainer
+    from tch_geometric_tpu_torch.sampling import rng
+    graph, x_table = p["graph"], p["x_table"]
+    n, f = x_table.shape
+    labels = torch.from_numpy(p["data"].y).to(device)
+    gen = torch.Generator().manual_seed(DPTP_SEEDS)
+    seeds = [torch.randint(0, n, (SEEDS_PER_REQUEST,), generator=gen).to(
+        device) for _ in range(1 + DIST_TIMED)]
+    key = rng.key(DPTP_KEY)
+    model0 = train_model("sage", f, device)
+    one = make_gnn_trainer(copy.deepcopy(model0), FANOUTS,
+                           learning_rate=TRAIN_LR)
+    st, ref = one.init_fn(), []
+    for s in seeds[:DIST_LOSS_STEPS]:
+        st, loss, _ = one.train_step(st, key, graph, x_table, s, labels[s])
+        ref.append(float(loss))
+    whole, _ = one.sample_and_gather(key, graph, x_table, seeds[0])
+    out = {"one_device_losses": ref}
+    for P in (4, 1):
+        mesh = meshes[P]
+        shape = tuple(mesh.shape.values())
+        tr = make_gnn_trainer(copy.deepcopy(model0), FANOUTS,
+                              learning_rate=TRAIN_LR, mesh=mesh)
+        box = {"state": tr.init_fn()}
+
+        def step(i):
+            box["state"], loss, _ = tr.train_step(
+                box["state"], key, graph, x_table, seeds[i],
+                labels[seeds[i]])
+            return float(loss), 0
+
+        ms, first, losses, _, peak = steps13(timer, step, f"DP+TP {shape}")
+        rel = rel_max(losses[:DIST_LOSS_STEPS], ref)
+        blocks, _ = tr.sample_and_gather(key, graph, x_table, seeds[0])
+        shares = block_shares(blocks, whole, mesh.shape["data"])
+        out[P] = dict(shape=shape, step_ms=ms, first_ms=first,
+                      step_ms_mean=float(np.mean(ms)), peak_device_gib=peak,
+                      losses=losses, max_rel_loss_diff=rel,
+                      equal_slot_shares=shares)
+        log(f"phase 13 (c) DP+TP {shape} ({ranks13(P)}): "
+            f"step ms (first {first:.1f}) "
+            + ", ".join(f"{m:.1f}" for m in ms)
+            + f"; mean {out[P]['step_ms_mean']:.2f}; peak device memory "
+            f"{peak:.2f} GiB; losses " + ", ".join(f"{v:.6f}" for v in losses)
+            + f"; against the one-device trainer over {DIST_LOSS_STEPS} steps "
+            f"(dropout {TRAIN_DROPOUT}) {rel:.3e} (limit {DIST_LOSS_RTOL}); "
+            f"share of each data rank's tree slots equal to the whole "
+            f"batch's: " + ", ".join(f"{v:.6f}" for v in shares))
+        check(rel <= DIST_LOSS_RTOL, f"DP+TP {shape} losses: {rel:.3e}")
+        check(all(v == 1.0 for v in shares),
+              f"DP+TP {shape}: every data rank's tree is the whole batch's")
+        del tr, box, blocks
+        torch.cuda.empty_cache()
+    return out
+
+
+def card_vs_cpu13(data, sg, device):
+    """Phase 13 (d): on phase 3's 5% cut, card against CPU, same
+    parameters, keys and seeds: ``DIST_LOSS_STEPS`` steps of (a)'s hier
+    trainer at (2, 2) and of (c)'s DP+TP trainer at (2, 2), each of
+    ``DIST_CUT_SEEDS`` seeds; losses within ``DIST_LOSS_RTOL``."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.parallel import (build_interleaved_features,
+                                                  build_partitioned_graph,
+                                                  make_gnn_trainer, make_mesh,
+                                                  make_partitioned_trainer)
+    from tch_geometric_tpu_torch.parallel.mesh import ThreadComm
+    from tch_geometric_tpu_torch.sampling import rng
+    cpu = torch.device("cpu")
+    ns, f = sg["ns"], data.x.shape[1]
+    seeds = np.random.default_rng(73).integers(
+        0, ns, (DIST_LOSS_STEPS, DIST_CUT_SEEDS))
+    ys = torch.from_numpy(data.y[sg["keep"]])
+    hier_model, dptp_model = dist_model(cpu, f), train_model("sage", f, cpu)
+    res = {}
+    for side, dev in (("card", device), ("cpu", cpu)):
+        t = time.perf_counter()
+        y = ys.to(dev)
+        mesh = make_mesh(MESH2, HIER, device=dev, comm=ThreadComm(4))
+        g = build_partitioned_graph(sg["cp"], sg["ri"], MESH2[1], device=dev)
+        xi = build_interleaved_features(sg["xs"].to(dev), 4)
+        tr = make_partitioned_trainer(copy.deepcopy(hier_model).to(dev),
+                                      FANOUTS, mesh, learning_rate=TRAIN_LR,
+                                      capacity_factor=DIST_CF, hier=HIER)
+        st, hl = tr.init_fn(), []
+        for i in range(DIST_LOSS_STEPS):
+            sd = torch.from_numpy(seeds[i]).to(dev)
+            st, loss, _, o = tr.train_step(st, rng.key(CUT_HIER_KEY), g, xi,
+                                           sd, y[sd])
+            check(int(o) == 0, f"(d) {side}: hier overflow 0")
+            hl.append(float(loss))
+        cg = (sg["g"] if side == "card" else
+              make_graph(sg["cp"], sg["ri"], num_src=ns, num_dst=ns,
+                         device=cpu))
+        dm = make_mesh(MESH2, device=dev, comm=ThreadComm(4))
+        tr = make_gnn_trainer(copy.deepcopy(dptp_model).to(dev), FANOUTS,
+                              learning_rate=TRAIN_LR, mesh=dm)
+        st, dl, xs = tr.init_fn(), [], sg["xs"].to(dev)
+        for i in range(DIST_LOSS_STEPS):
+            sd = torch.from_numpy(seeds[i]).to(dev)
+            st, loss, _ = tr.train_step(st, rng.key(CUT_DPTP_KEY), cg, xs,
+                                        sd, y[sd])
+            dl.append(float(loss))
+        res[side] = (hl, dl, time.perf_counter() - t)
+    (hc, dc, tc), (hh, dh, th) = res["card"], res["cpu"]
+    rh, rd = rel_max(hc, hh), rel_max(dc, dh)
+    log(f"check: phase 13 (d) card vs CPU on the {ns}-node cut, "
+        f"{DIST_LOSS_STEPS} steps of {DIST_CUT_SEEDS} seeds at (2, 2): hier "
+        f"losses card {hc}, CPU {hh}, largest relative difference {rh:.3e}; "
+        f"DP+TP (dropout {TRAIN_DROPOUT}) card {dc}, CPU {dh}, {rd:.3e} "
+        f"(limit {DIST_LOSS_RTOL}); card {tc:.1f} s, CPU {th:.1f} s")
+    check(rh <= DIST_LOSS_RTOL, f"(d) hier card vs CPU: {rh:.3e}")
+    check(rd <= DIST_LOSS_RTOL, f"(d) DP+TP card vs CPU: {rd:.3e}")
+    return dict(hier_losses_card=hc, hier_losses_cpu=hh, hier_max_rel=rh,
+                dptp_losses_card=dc, dptp_losses_cpu=dh, dptp_max_rel=rd,
+                card_s=tc, cpu_s=th)
+
+
+def phase13(p, sg, dist_res, device, timer):
+    """Phase 13: (a)-(d), each part's wall seconds logged; returns its
+    numbers.  Tears the process group down at the end."""
+    from tch_geometric_tpu_torch.parallel import multihost
+    t0 = time.perf_counter()
+    res, secs = {}, {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t
+        log(f"phase 13 {name}: {secs[name]:.1f}s")
+        return out
+
+    meshes = meshes13(device)
+    flat = dist_res["train"][DIST_PARTS]["losses"]
+    res["hier"] = part("(a), (b)", lambda: hier13(p, meshes["hier"], flat,
+                                                  device, timer))
+    res["hier_multibatch"] = part("(a) multibatch", lambda: hier_multibatch13(
+        p, meshes["hier"][4], device, timer))
+    res["dptp"] = part("(c)", lambda: dptp13(p, meshes["dptp"], device,
+                                             timer))
+    res["card_vs_cpu"] = part("(d)", lambda: card_vs_cpu13(p["data"], sg,
+                                                           device))
+    multihost.shutdown()
+    res["part_s"] = secs
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 13 wall time {res['wall_s']:.1f}s")
     return res
 
 
@@ -4286,6 +4636,16 @@ def main(argv=None) -> int:
         f"{dist_launches}")
     check(not any(dist_launches.values()),
           "no kernel of B1-B11 ran in phase 12")
+    torch.cuda.empty_cache()
+
+    for fn in wrappers:
+        fn.launches = 0
+    mesh_res = phase13(p, sg, dist_res, device, timer)
+    mesh_launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"phase 13 launches (no kernel of B1-B11 lies on it): "
+        f"{mesh_launches}")
+    check(not any(mesh_launches.values()),
+          "no kernel of B1-B11 ran in phase 13")
 
     summary = dict(
         card=card, scale=args.scale, nodes=n, edges=p["graph"].num_edges,
@@ -4311,6 +4671,7 @@ def main(argv=None) -> int:
         attend_peak_device_gib=attend_peak_gb,
         train=train_res, profile=prof, sampling=sampling_res,
         parity=parity_res, models=models_res, dist=dist_res,
+        mesh2=mesh_res,
         total_s=time.perf_counter() - t_all, **sub)
     log("serving: " + json.dumps(summary))
     if args.scale == 1.0:

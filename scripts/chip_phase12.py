@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s phase 12 alone on one GPU, after its host prep.
+"""Run ``chip_smoke.py``'s phases 12 and 13 alone on one GPU, after their
+host prep.
 
 Phase 12 drives the partitioned graph, the owner-routed exchanges and the
-flat partitioned SAGE trainers and needs no CUDA kernel of the port, so
-this skips the kernel build and phases 1-11: it builds chip_smoke's
-products graph (``host_prep``) and its 5% subgraph, then runs
-``chip_smoke.phase12``.  From the root of a checkout:
+flat partitioned SAGE trainers, phase 13 the 2-axis mesh (the ``hier``
+trainers and the DP+TP trainer, held against phase 12's losses); neither
+needs a CUDA kernel of the port, so this skips the kernel build and
+phases 1-11: it builds chip_smoke's products graph (``host_prep``) and
+its 5% subgraph, then runs ``chip_smoke.phase12`` and
+``chip_smoke.phase13``, which needs phase 12's losses.  From the root of a
+checkout:
 
     python3 scripts/chip_phase12.py [--out build/phase12.json]
 
-Prints phase 12's lines and the card's name and power limit; writes the
-phase's numbers as JSON to ``--out`` when given.
+Prints the phases' lines and the card's name and power limit; writes
+their numbers as JSON to ``--out`` when given.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import chip_smoke as cs  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", help="write the phase's numbers here as JSON")
+    ap.add_argument("--out", help="write the phases' numbers here as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_phase12: CUDA is not available", file=sys.stderr)
@@ -53,11 +57,12 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    res = cs.phase12(p, sg, dev, timer)
+    res = dict(card=card, phase12=cs.phase12(p, sg, dev, timer))
+    res["phase13"] = cs.phase13(p, sg, res["phase12"], dev, timer)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(card=card, phase12=res), f, default=str)
+            json.dump(res, f, default=str)
     print(card, flush=True)
     return 0
 

@@ -6,22 +6,50 @@ values by ``1 / (1 - rate)`` and zero the rest.  ``u`` comes from
 ``h``'s device and gives the same bits on any device, so one key gives one
 mask on the CPU and on the card.  The bits are not flax's (flax folds the
 module path into its dropout key), only the law is.
+
+A data-parallel rank's tree (``NeighborSample.seed_block``) holds, in each
+depth segment, one contiguous block of the whole batch's segment; ``rows``
+names those blocks (:func:`tree_rows`) and the mask takes the whole
+batch's mask rows there (``rng``'s block draws), so the ranks together
+drop exactly what one device dropping over the whole batch drops.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..sampling import rng
+from ..sampling.neighbor import NeighborSample, _layer_layout
+
+Rows = Optional[Sequence[Tuple[int, int]]]
+
+
+def tree_rows(sample: NeighborSample, depths: int) -> Rows:
+    """The rows, in the whole batch's tree, of the tree's depth segments
+    ``0..depths-1`` laid end to end: ``[(first row, count), ...]`` a
+    segment; None for a whole batch's tree (its rows are its own)."""
+    if sample.seed_block is None:
+        return None
+    first, total = sample.seed_block
+    whole, _ = _layer_layout(total, sample.fanouts)
+    out: List[Tuple[int, int]] = []
+    per = 1
+    for d in range(depths):
+        n = sample.node_base[d + 1] - sample.node_base[d]
+        out.append((whole[d] + first * per, n))
+        if d < len(sample.fanouts):
+            per *= sample.fanouts[d]
+    return out
 
 
 def keyed_dropout(h: torch.Tensor, key: Optional[torch.Tensor], rate: float,
-                  layer: int, *, deterministic: bool = False
-                  ) -> torch.Tensor:
+                  layer: int, *, deterministic: bool = False,
+                  rows: Rows = None) -> torch.Tensor:
     """Dropout of ``h`` at ``rate`` with the mask of ``fold(key, layer)``;
     the identity when ``deterministic`` or ``rate <= 0``.  Raises if dropout
-    is on and ``key`` is None."""
+    is on and ``key`` is None.  ``rows`` (:func:`tree_rows`): ``h``'s rows
+    are those of a larger ``h``, whose mask rows they take."""
     if deterministic or rate <= 0.0:
         return h
     if key is None:
@@ -30,6 +58,12 @@ def keyed_dropout(h: torch.Tensor, key: Optional[torch.Tensor], rate: float,
     if rate >= 1.0:
         return torch.zeros_like(h)
     keep = 1.0 - rate
-    u = rng.uniform(rng.fold(key, layer), h.shape, device=h.device)
+    lkey = rng.fold(key, layer)
+    if rows is None:
+        u = rng.uniform(lkey, h.shape, device=h.device)
+    else:
+        u = torch.cat([rng.uniform(lkey, (n,) + tuple(h.shape[1:]),
+                                   device=h.device, row0=first)
+                       for first, n in rows])
     return torch.where(u < keep, h / keep,
                        torch.zeros((), dtype=h.dtype, device=h.device))

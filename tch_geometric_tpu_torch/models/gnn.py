@@ -15,10 +15,16 @@ an explicit CPU ``torch.Generator`` and is then copied to ``device``.
 ``dtype=None`` computes in float32; a dtype casts each linear's input and
 parameters to it.  Dropout between layers (``deterministic=False``) is
 :func:`~.dropout.keyed_dropout` under the ``dropout_key`` the caller passes.
+
+Every linear of these models and GraphSAGE runs through :func:`_linear`,
+and GAT's tree attention reads ``a_src``/``a_dst`` through :func:`_whole`:
+a data- and tensor-parallel train step (``parallel.train``) sets this
+thread's :data:`PARAM_HOOKS` to run them on the rank's parameter slices.
 """
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -30,7 +36,7 @@ from ..ops.attention_blocked import gat_attend_blocked_packed_cuda
 from ..ops.segment import csr_row_ids, segment_softmax, segment_sum
 from ..ops.spmm import spmm
 from ..sampling.neighbor import NeighborSample
-from .dropout import keyed_dropout
+from .dropout import Rows, keyed_dropout, tree_rows
 
 # flax's truncated normal: N(0, 1) cut at +-2, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -52,16 +58,39 @@ def _lecun_normal_(p: torch.Tensor, generator) -> None:
                                   generator=generator))
 
 
-def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    """``lin(x)`` as flax's ``nn.Dense(dtype=dtype)``: input and parameters
-    cast to ``dtype``, or with None promoted to their common type (bfloat16
-    rows into a float32 layer give float32)."""
+class _ParamHooks(threading.local):
+    """This thread's tensor-parallel hooks, None outside a DP+TP step:
+    ``linear(lin, x, dtype)`` runs each linear, ``whole(p)`` gives a
+    parameter whole."""
+    linear = None
+    whole = None
+
+
+PARAM_HOOKS = _ParamHooks()
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """``x @ weight.T + bias`` as flax's ``nn.Dense(dtype=dtype)``: input
+    and parameters cast to ``dtype``, or with None promoted to their common
+    type (bfloat16 rows into a float32 layer give float32)."""
     if dtype is None:
-        dtype = torch.promote_types(x.dtype, lin.weight.dtype)
-        if x.dtype == dtype == lin.weight.dtype:
-            return lin(x)
-    bias = None if lin.bias is None else lin.bias.to(dtype)
-    return nnf.linear(x.to(dtype), lin.weight.to(dtype), bias)
+        dtype = torch.promote_types(x.dtype, weight.dtype)
+    return nnf.linear(x.to(dtype), weight.to(dtype),
+                      None if bias is None else bias.to(dtype))
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``lin(x)`` by :func:`dense`, or by this thread's tensor-parallel
+    hook."""
+    if PARAM_HOOKS.linear is not None:
+        return PARAM_HOOKS.linear(lin, x, dtype)
+    return dense(x, lin.weight, lin.bias, dtype)
+
+
+def _whole(p: torch.Tensor) -> torch.Tensor:
+    """``p``, or this thread's tensor-parallel hook's whole of it."""
+    return p if PARAM_HOOKS.whole is None else PARAM_HOOKS.whole(p)
 
 
 def _tree_child_sums(h: torch.Tensor, sample: NeighborSample,
@@ -196,9 +225,9 @@ class GATConv(nn.Module):
 
         if sample is not None:
             hf = h.reshape(-1, self.features)
+            a_src, a_dst = _whole(self.a_src), _whole(self.a_dst)
             return torch.cat([self.tree_attention(hf, sample.node_valid,
-                                                  sample, dd, self.a_src,
-                                                  self.a_dst)
+                                                  sample, dd, a_src, a_dst)
                               for dd in range(keep_depths)], dim=0)
 
         if blocked is not None:
@@ -294,11 +323,11 @@ class _Stack(nn.Module):
             conv.reset_parameters(generator)
 
     def _act(self, h: torch.Tensor, i: int, deterministic: bool,
-             dropout_key: Optional[torch.Tensor] = None):
+             dropout_key: Optional[torch.Tensor] = None, rows: Rows = None):
         if i < self.num_layers - 1:
             h = self.act(h)
             h = keyed_dropout(h, dropout_key, self.dropout, i,
-                              deterministic=deterministic)
+                              deterministic=deterministic, rows=rows)
         return h
 
     def forward(self, x: torch.Tensor, graph: SparseGraph, *,
@@ -322,8 +351,10 @@ class _Stack(nn.Module):
         kw = self._tree_kwargs(sample)
         h = x
         for j, conv in enumerate(self.convs):
-            h = conv(h, sample=sample, keep_depths=sample.num_hops - j, **kw)
-            h = self._act(h, j, deterministic, dropout_key)
+            keep_depths = sample.num_hops - j
+            h = conv(h, sample=sample, keep_depths=keep_depths, **kw)
+            h = self._act(h, j, deterministic, dropout_key,
+                          tree_rows(sample, keep_depths))
         return h[: sample.node_base[1]]
 
     def _tree_kwargs(self, sample: NeighborSample) -> dict:

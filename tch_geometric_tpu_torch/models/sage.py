@@ -29,7 +29,7 @@ from torch import nn
 from ..data.graph import SparseGraph
 from ..ops.spmm import spmm
 from ..sampling.neighbor import NeighborSample
-from .dropout import keyed_dropout
+from .dropout import Rows, keyed_dropout, tree_rows
 from .gnn import _linear
 
 
@@ -100,11 +100,11 @@ class GraphSAGE(nn.Module):
             conv.reset_parameters(generator)
 
     def _act(self, h: torch.Tensor, i: int, deterministic: bool,
-             dropout_key: Optional[torch.Tensor] = None):
+             dropout_key: Optional[torch.Tensor] = None, rows: Rows = None):
         if i < self.num_layers - 1:
             h = torch.relu(h)
             h = keyed_dropout(h, dropout_key, self.dropout, i,
-                              deterministic=deterministic)
+                              deterministic=deterministic, rows=rows)
         return h
 
     def forward(self, x: torch.Tensor, graph: SparseGraph, *,
@@ -167,6 +167,7 @@ class GraphSAGE(nn.Module):
                               for d in range(keep_depths)], dim=0)
             n_keep = sample.node_base[keep_depths]
             h = conv(h[:n_keep], aggs)
-            h = self._act(h, j, deterministic, dropout_key)
+            h = self._act(h, j, deterministic, dropout_key,
+                          tree_rows(sample, keep_depths))
         return h[: sample.node_base[1]]
 

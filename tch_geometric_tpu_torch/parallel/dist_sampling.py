@@ -24,8 +24,13 @@ The trainers (``make_partitioned_trainer``,
 ``make_partitioned_multibatch_trainer``) shard everything graph-sized: per
 step, distributed sampling (two ``all_to_all`` a hop), the distributed
 feature fetch (two more), the local tree forward and backward, and the
-gradient ``pmean``.  The hierarchical plan (``hier=``) is not ported yet
-(``ROADMAP.md``).
+gradient ``pmean``.  Under the hierarchical plan (``hier=(slice_axis,
+chip_axis)``, a 2-axis mesh of S slices of C chips) the topology is split
+over the chip axis and replicated over slices, so the sampling exchanges
+span one slice's chips; the feature table stays split over all S*C ranks
+and is fetched by :func:`_hier_feature_gather` (one slice-axis
+``all_gather`` of the rank's shard, then a routed fetch over the chip
+axis); gradients, loss and accuracy are reduced over both axes.
 """
 from __future__ import annotations
 
@@ -43,11 +48,12 @@ from ..sampling.neighbor import (NeighborSample, _filter_mask_from_ts,
                                  split_sample_batches)
 from ..utils.adam import LearningRate, gradients, own_params
 from ..utils.config import TEMPORAL_SAMPLE_DYNAMIC, TemporalEdgeFilter
-from .mesh import (LocalShard, Mesh, all_to_all, axis_index, pmean, psum,
-                   spmd, _tree_map)
-from .multihost import put_partitioned
+from .mesh import (Axes, LocalShard, Mesh, Spec, all_gather, all_to_all,
+                   along, axis_index, pmean, psum, spmd, _tree_map)
+from .multihost import placed
 from .sharded_features import (DistTrainer, feature_capacity, halo_gather,
-                               loss_and_acc, replica_init_fn, replica_update)
+                               loss_and_acc, replica_init_fn, replica_update,
+                               routed_row_fetch)
 from .train import MultibatchTrainer, TrainState
 
 NEG_INF = float("-inf")
@@ -656,7 +662,9 @@ def dist_sample_neighbors(key, graph: PartitionedGraph, seeds, fanouts,
     ``seeds (B,)`` is the global seed batch (B divisible by the axis); the
     result's tensors have a leading rank axis, ``nodes (P, L)`` etc., rank
     d's block the tree of seeds ``[d*B/P, (d+1)*B/P)`` (under a process
-    group, ``(1, L)``: this process's block).  Concatenating the blocks
+    group, ``(1, L)``: this process's block).  On a mesh of more axes,
+    ``axis`` may be any one of them (or a tuple): the graph and seeds split
+    over it and replicate over the others.  Concatenating the blocks
     layer by layer gives the P = 1 tree bit-exactly.  Returns ``(sample,
     overflow (P,))``.
 
@@ -694,33 +702,91 @@ def dist_sample_neighbors(key, graph: PartitionedGraph, seeds, fanouts,
             filter_static=filter_static, seed_state=state_local,
             window=int(window), num_rounds=num_rounds)
 
-    return spmd(mesh, body, put_partitioned(graph, mesh),
-                put_partitioned(seeds, mesh),
-                put_partitioned(seed_state, mesh))
+    on = (axis,)
+    return along(mesh, axis, spmd(
+        mesh, body, placed(graph, mesh, on), placed(seeds, mesh, on),
+        placed(seed_state, mesh, on)))
 
 
 # ---------------------------------------------------------------------------
 # Fully partitioned training: topology and features both sharded
 # ---------------------------------------------------------------------------
 
-def _no_hier(hier):
-    if hier is not None:
-        raise NotImplementedError(
-            "hier= (the multislice plan) is not ported yet: ROADMAP.md, "
-            "queue A item 7")
+class _Plan(NamedTuple):
+    """Where a partitioned trainer's values live and what its collectives
+    span: the flat plan over ``axis``, or the hierarchical one."""
+    num_parts: int          # feature-table partitions (seed-batch blocks)
+    samp_axis: Axes         # the sampling exchanges and the graph's split
+    samp_parts: int
+    reduce_axes: Axes       # gradients, loss, accuracy, overflow
+    shard: Spec             # seeds, labels and features
+    graph_spec: Spec
+    hier: Optional[Tuple[str, str]]
+
+    def dev(self) -> int:
+        """This rank's block of the global seed batch (inside ``spmd``):
+        ``slice_index * C + chip_index`` under ``hier``."""
+        return axis_index(self.reduce_axes)
 
 
-def _fetch(x_shard, sample, *, axis, num_parts, capacity_factor, num_rounds,
+def _plan(mesh: Mesh, axis: str, hier) -> _Plan:
+    if hier is None:
+        n = mesh.axis_size(axis)
+        return _Plan(n, axis, n, axis, (axis,), (axis,), None)
+    ax_slice, ax_chip = hier
+    both = mesh.axes((ax_slice, ax_chip))
+    chips = mesh.axis_size(ax_chip)
+    return _Plan(mesh.axis_size(both), ax_chip, chips, both, (both,),
+                 (ax_chip,), (ax_slice, ax_chip))
+
+
+def _hier_feature_gather(x_shard, ids, *, ax_slice: str, ax_chip: str,
+                         num_slices: int, chips_per_slice: int,
+                         capacity: int, valid=None, num_rounds: int = 1):
+    """The hierarchical feature fetch (inside ``spmd``): an ``all_gather``
+    of this rank's shard over the slice axis, then a routed fetch over the
+    chip axis.
+
+    ``x_shard (Np, F)``: the rank's shard of the table interleaved over
+    all P = S*C ranks (rank ``s*C + c`` owns the rows ``i % P == s*C +
+    c``).  The gathered ``(S*Np, F)`` table holds every row whose owner
+    has this rank's chip index, so a request for ``id`` goes to chip ``id %
+    C`` and reads local row ``((id % P) // C) * Np + id // P`` there.
+    Returns ``((L, F) rows, overflow)``, the rows bit-identical to the flat
+    :func:`~.sharded_features.halo_gather` of the same ids."""
+    S, C = num_slices, chips_per_slice
+    P = S * C
+    Np = x_shard.shape[0]
+    if valid is None:
+        valid = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+    table = all_gather(x_shard, ax_slice).reshape(S * Np, x_shard.shape[-1])
+    ids = ids.long()
+    owner_chip = ids % C
+    local = torch.div(ids % P, C, rounding_mode="floor") * Np \
+        + torch.div(ids, P, rounding_mode="floor")
+    return routed_row_fetch(table, owner_chip, local, valid, axis=ax_chip,
+                            num_parts=C, capacity=capacity,
+                            num_rounds=num_rounds)
+
+
+def _fetch(x_shard, sample, plan: _Plan, *, capacity_factor, num_rounds,
            exchange_dtype):
-    """The tree's feature rows by the owner-routed fetch: (x, overflow).
-    With ``exchange_dtype`` the rows travel, and reach the model, in that
-    dtype."""
-    n_rows = x_shard.shape[0] * num_parts
+    """The tree's feature rows by the owner-routed fetch (flat or
+    hierarchical): (x, overflow).  With ``exchange_dtype`` the rows
+    travel, and reach the model, in that dtype."""
+    n_rows = x_shard.shape[0] * plan.num_parts
     ids = sample.nodes.clamp(0, n_rows - 1)
     table = x_shard if exchange_dtype is None else x_shard.to(exchange_dtype)
-    return halo_gather(
-        table, ids, axis=axis, num_parts=num_parts,
-        capacity=feature_capacity(capacity_factor, ids.shape[0], num_parts),
+    cap = feature_capacity(capacity_factor, ids.shape[0], plan.samp_parts)
+    if plan.hier is None:
+        return halo_gather(table, ids, axis=plan.samp_axis,
+                           num_parts=plan.num_parts, capacity=cap,
+                           valid=sample.node_valid, num_rounds=num_rounds)
+    ax_slice, ax_chip = plan.hier
+    return _hier_feature_gather(
+        table, ids, ax_slice=ax_slice, ax_chip=ax_chip,
+        num_slices=plan.num_parts // plan.samp_parts,
+        chips_per_slice=plan.samp_parts, capacity=cap,
         valid=sample.node_valid, num_rounds=num_rounds)
 
 
@@ -762,24 +828,32 @@ def make_partitioned_trainer(
     omitted).  ``exchange_dtype`` (e.g. ``torch.bfloat16``): the feature
     rows travel in it and the model takes them so, promoting per op as jnp
     does (a float32 model averages the children in bfloat16 and runs its
-    linears in float32).  ``hier=`` raises: not ported yet."""
-    _no_hier(hier)
+    linears in float32).
+
+    ``hier=(slice_axis, chip_axis)`` (in mesh order) runs the hierarchical
+    plan (module doc): build the graph with ``num_parts = C`` (the chip
+    axis' size; it is split over the chip axis and replicated over
+    slices) and the features interleaved over all S*C ranks; seeds,
+    labels and features split over ``(slice_axis, chip_axis)``, rank
+    ``s*C + c`` holding block ``s*C + c``.  The trees, the fetched rows and
+    so the losses are those of the flat plan over S*C ranks."""
     fanouts = tuple(int(k) for k in fanouts)
-    num_parts = mesh.axis_size(axis)
-    num_rounds = resolve_num_rounds(num_rounds, num_parts)
+    plan = _plan(mesh, axis, hier)
+    num_rounds = resolve_num_rounds(num_rounds, plan.num_parts)
     filter_static = None if filter is None else _filter_static(filter)
+    red = plan.reduce_axes
 
     def logits_of(key, gshard, x_shard, seeds_local, ts_local,
                   deterministic):
         sample, s_ovf = _dist_sample_device(
-            key, gshard, seeds_local, dev=axis_index(axis), fanouts=fanouts,
-            axis=axis, num_parts=num_parts,
-            total_seeds=seeds_local.shape[0] * num_parts,
+            key, gshard, seeds_local, dev=plan.dev(), fanouts=fanouts,
+            axis=plan.samp_axis, num_parts=plan.samp_parts,
+            total_seeds=seeds_local.shape[0] * plan.num_parts,
             capacity_factor=capacity_factor,
             with_replacement=with_replacement, weighted=weighted,
             filter_static=filter_static, seed_state=ts_local, window=window,
             num_rounds=num_rounds)
-        x, f_ovf = _fetch(x_shard, sample, axis=axis, num_parts=num_parts,
+        x, f_ovf = _fetch(x_shard, sample, plan,
                           capacity_factor=capacity_factor,
                           num_rounds=num_rounds,
                           exchange_dtype=exchange_dtype)
@@ -788,12 +862,14 @@ def make_partitioned_trainer(
             dropout_key=rng.fold(key, rng.DROPOUT_STREAM))
         return logits, s_ovf + f_ovf
 
-    def placed(graph, x_sharded, seeds, labels, seed_ts):
-        _check_graph(graph, num_parts, weighted, filter_static is not None)
+    def arguments(graph, x_sharded, seeds, labels, seed_ts):
+        _check_graph(graph, plan.samp_parts, weighted,
+                     filter_static is not None)
         if seed_ts is None:
             seed_ts = torch.zeros(np.shape(seeds), dtype=torch.int32)
-        return [put_partitioned(v, mesh) for v in
-                (graph, x_sharded, seeds, labels, seed_ts)]
+        return ([placed(graph, mesh, plan.graph_spec)]
+                + [placed(v, mesh, plan.shard)
+                   for v in (x_sharded, seeds, labels, seed_ts)])
 
     def train_step(state: TrainState, key, graph, x_sharded, seeds, labels,
                    seed_ts=None):
@@ -806,11 +882,11 @@ def make_partitioned_trainer(
                                          seeds_local, ts_local, False)
             loss, acc = loss_and_acc(logits, labels_local)
             grads = gradients(loss, state.params)
-            replica_update(state.params, grads, holder, learning_rate, axis)
-            return (pmean(loss.detach(), axis), pmean(acc, axis),
-                    psum(overflow, axis))
+            replica_update(state.params, grads, holder, learning_rate, red)
+            return (pmean(loss.detach(), red), pmean(acc, red),
+                    psum(overflow, red))
 
-        loss, acc, overflow = spmd(mesh, body, *placed(
+        loss, acc, overflow = spmd(mesh, body, *arguments(
             graph, x_sharded, seeds, labels, seed_ts))
         return (TrainState(state.params, holder["opt"], state.step + 1),
                 loss[0], acc[0], overflow[0])
@@ -825,10 +901,10 @@ def make_partitioned_trainer(
             logits, _ = logits_of(k, gshard, x_shard, seeds_local, ts_local,
                                   True)
             loss, acc = loss_and_acc(logits, labels_local)
-            return pmean(loss, axis), pmean(acc, axis)
+            return pmean(loss, red), pmean(acc, red)
 
-        loss, acc = spmd(mesh, body, *placed(graph, x_sharded, seeds,
-                                             labels, seed_ts))
+        loss, acc = spmd(mesh, body, *arguments(graph, x_sharded, seeds,
+                                                labels, seed_ts))
         return loss[0], acc[0]
 
     return DistTrainer(replica_init_fn(mesh, model), train_step, eval_step)
@@ -871,35 +947,37 @@ def make_partitioned_multibatch_trainer(
     (M, B/P) stripes, split into M per-batch trees
     (``split_sample_batches``), then M forward/backward/Adam updates in
     turn, each with its gradient ``pmean`` and dropout key ``fold(step_key,
-    m, DROPOUT_STREAM)``.  ``exchange_dtype`` as in
-    :func:`make_partitioned_trainer`.  ``hier=`` raises: not ported yet."""
-    _no_hier(hier)
+    m, DROPOUT_STREAM)``.  ``exchange_dtype`` and ``hier`` as in
+    :func:`make_partitioned_trainer`; under ``hier`` the stripes are
+    rank-major over both axes (``P(None, (slice, chip))``), ``d = s*C +
+    c``."""
     fanouts = tuple(int(k) for k in fanouts)
-    num_parts = mesh.axis_size(axis)
+    plan = _plan(mesh, axis, hier)
+    num_parts = plan.num_parts
     num_rounds = resolve_num_rounds(num_rounds, num_parts)
+    red = plan.reduce_axes
 
     def train_step(state: TrainState, key, graph, x_sharded, seeds, labels):
         own_params(model, state.params)
-        _check_graph(graph, num_parts, False, False)
+        _check_graph(graph, plan.samp_parts, False, False)
         step_key = rng.fold(key, state.step)
         holder = {"opt": state.opt_state}
 
         def body(gshard, x_shard, seeds_local, labels_local):
             M, Bp = seeds_local.shape
-            dev = axis_index(axis)
+            dev = plan.dev()
             gidx = (torch.arange(M, device=seeds_local.device)[:, None]
                     * (Bp * num_parts) + dev * Bp
                     + torch.arange(Bp, device=seeds_local.device)[None, :]
                     ).reshape(-1)
             sample, s_ovf = _dist_sample_device(
                 step_key, gshard, seeds_local.reshape(-1), dev=dev,
-                fanouts=fanouts, axis=axis, num_parts=num_parts,
-                total_seeds=M * Bp * num_parts,
+                fanouts=fanouts, axis=plan.samp_axis,
+                num_parts=plan.samp_parts, total_seeds=M * Bp * num_parts,
                 capacity_factor=capacity_factor,
                 with_replacement=with_replacement, window=window,
                 num_rounds=num_rounds, seed_gidx=gidx)
-            x, f_ovf = _fetch(x_shard, sample, axis=axis,
-                              num_parts=num_parts,
+            x, f_ovf = _fetch(x_shard, sample, plan,
                               capacity_factor=capacity_factor,
                               num_rounds=num_rounds,
                               exchange_dtype=exchange_dtype)
@@ -913,17 +991,17 @@ def make_partitioned_multibatch_trainer(
                 loss, acc = loss_and_acc(logits, labels_local[m])
                 grads = gradients(loss, state.params)
                 replica_update(state.params, grads, holder, learning_rate,
-                               axis)
-                losses.append(pmean(loss.detach(), axis))
-                accs.append(pmean(acc, axis))
+                               red)
+                losses.append(pmean(loss.detach(), red))
+                accs.append(pmean(acc, red))
             return (torch.stack(losses), torch.stack(accs),
-                    psum(s_ovf + f_ovf, axis))
+                    psum(s_ovf + f_ovf, red))
 
         losses, accs, overflow = spmd(
-            mesh, body, put_partitioned(graph, mesh),
-            put_partitioned(x_sharded, mesh),
-            put_partitioned(_rank_major(seeds, num_parts), mesh),
-            put_partitioned(_rank_major(labels, num_parts), mesh))
+            mesh, body, placed(graph, mesh, plan.graph_spec),
+            placed(x_sharded, mesh, plan.shard),
+            placed(_rank_major(seeds, num_parts), mesh, plan.shard),
+            placed(_rank_major(labels, num_parts), mesh, plan.shard))
         return (TrainState(state.params, holder["opt"], state.step + 1),
                 losses[0], accs[0], overflow[0])
 

@@ -32,34 +32,54 @@ Two backends:
   threads issuing small torch ops at once pass the GIL back and forth and
   run several times slower than the same ops in turn.  Every rank issues
   its kernels on the device's one current stream, so the host order the
-  barrier imposes is the device order too.
+  barrier imposes is the device order too, and each rank runs its
+  backward passes on its own thread (no autograd device threads), so a
+  collective inside a backward meets the other ranks' as in a forward.
+
+Collectives by axis.  A mesh names its axes (row-major over the ranks).
+A collective over an axis, or over a tuple of axes in mesh order (their
+product, as ``psum(x, (a, b))`` and ``P((a, b))`` mean in JAX), spans the
+ranks that share every other coordinate with the caller: its group.  The
+tuple of all the axes is the whole mesh, the backend itself.  Any other
+axis set's groups are
+
+* under a process group, ``dist.new_group``s, one a group, which every
+  process creates in the same order once, when the mesh is built
+  (:func:`make_mesh`);
+* on a thread mesh, a :class:`ThreadGroup` view: every rank of an SPMD
+  body calls the same collectives in the same order, so each collective
+  stays one rendezvous of the whole mesh in which each rank reads only its
+  group's slots, under the same baton and the same barrier.
 
 :func:`spmd` plays ``shard_map``: ``spmd(mesh, fn, *sharded, **replicated)``
-gives each rank the leading-dim block of every ``sharded`` argument (a
-tensor, or a dataclass, tuple, list or dict of them) and every
-``replicated`` keyword as it is, runs ``fn`` on each rank and stacks the
-ranks' results, JAX's ``(P, ...)`` outputs.  Under a process group it runs
-``fn`` on this process's block and returns ``(1, ...)``, as a process's
-addressable shard is in JAX multihost.  Inside ``fn`` the module functions
-:func:`axis_index`, :func:`all_to_all`, :func:`psum`, :func:`pmean`,
-:func:`all_gather` and :func:`ppermute` reach the running mesh's
-collectives by axis name, as ``jax.lax``'s do inside ``shard_map``.
-
-The collectives span every rank of the mesh, so a distributed function
-takes an axis whose size is the mesh's; the ``model`` axis of a
-``('data', 'model')`` mesh only places parameters (:func:`shard_params`).
+gives each rank its block of every ``sharded`` argument (a tensor, or a
+dataclass, tuple, list or dict of them) and every ``replicated`` keyword as
+it is, runs ``fn`` on each rank and stacks the ranks' results, JAX's
+``(P, ...)`` outputs.  A bare argument splits its leading dim over every
+rank; :class:`Split` gives an argument a ``PartitionSpec``-like spec, e.g.
+``Split(graph, ("chip",))`` (split over ``chip``, replicated over the
+other axes) or ``Split(x, (("slice", "chip"),))``.  Under a process group
+it runs ``fn`` on this process's block and returns ``(1, ...)``, as a
+process's addressable shard is in JAX multihost.  Inside ``fn`` the module
+functions :func:`axis_index`, :func:`all_to_all`, :func:`psum`,
+:func:`pmean`, :func:`all_gather` and :func:`ppermute` reach the running
+mesh's collectives by axis name, as ``jax.lax``'s do inside ``shard_map``.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
 DEFAULT_TIMEOUT_S = 300.0
+
+Axes = Union[str, Tuple[str, ...]]
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +125,24 @@ def _check_op(op: str) -> None:
 
 def _mean(total: torch.Tensor, n: int) -> torch.Tensor:
     return total / n if total.is_floating_point() else total // n
+
+
+def _slot_all_to_all(vals: list, me: int) -> torch.Tensor:
+    return torch.stack([v[me] for v in vals])
+
+
+def _slot_reduce(vals: list, op: str) -> torch.Tensor:
+    _check_op(op)
+    total = vals[0].clone()
+    for v in vals[1:]:
+        total = total + v
+    return _mean(total, len(vals)) if op == "mean" else total
+
+
+def _slot_permute(vals: list, me: int, perm, like: torch.Tensor
+                  ) -> torch.Tensor:
+    src = [s for s, d in perm if d == me]
+    return vals[src[0]].clone() if src else torch.zeros_like(like)
 
 
 class _Barrier:
@@ -185,33 +223,25 @@ class ThreadComm(Comm):
             finally:
                 self._baton.acquire()
 
-    def _exchange(self, value) -> list:
+    def _exchange(self, value, rank: Optional[int] = None) -> list:
         """Every rank's ``value``, in rank order."""
-        self._slots[self.rank()] = value
+        self._slots[self.rank() if rank is None else rank] = value
         self._wait()
         vals = list(self._slots)
         self._wait()            # no rank refills a slot before all read
         return vals
 
     def all_to_all(self, x):
-        r = self.rank()
-        return torch.stack([v[r] for v in self._exchange(x)])
+        return _slot_all_to_all(self._exchange(x), self.rank())
 
     def all_reduce(self, x, op="sum"):
-        _check_op(op)
-        vals = self._exchange(x)
-        total = vals[0].clone()
-        for v in vals[1:]:
-            total = total + v
-        return _mean(total, self.size) if op == "mean" else total
+        return _slot_reduce(self._exchange(x), op)
 
     def all_gather(self, x):
         return torch.stack(self._exchange(x))
 
     def ppermute(self, x, perm):
-        vals = self._exchange(x)
-        src = [s for s, d in perm if d == self.rank()]
-        return vals[src[0]].clone() if src else torch.zeros_like(x)
+        return _slot_permute(self._exchange(x), self.rank(), perm, x)
 
     def barrier(self):
         self._wait()
@@ -239,7 +269,10 @@ class ThreadComm(Comm):
             try:
                 if cuda_dev is not None:
                     torch.cuda.set_device(cuda_dev)
-                with torch.set_grad_enabled(grad):
+                # backward on this thread: a collective in a backward pass
+                # must run on its rank's thread, not a shared device thread
+                with torch.set_grad_enabled(grad), \
+                        torch.autograd.set_multithreading_enabled(False):
                     results[r] = fn(r)
             except BaseException as e:   # noqa: BLE001  (re-raised below)
                 errors[r] = e
@@ -264,11 +297,53 @@ class ThreadComm(Comm):
         return results
 
 
+class ThreadGroup(Comm):
+    """The ranks ``ranks`` (in group order) of a :class:`ThreadComm`, as
+    the communicator of rank ``me``'s group along some axes.  Each
+    collective is a rendezvous of the whole mesh (every rank of the body
+    calls it) in which ``me`` reads its group's slots; the replica stays
+    the mesh's one."""
+
+    def __init__(self, comm: ThreadComm, ranks: Sequence[int], me: int):
+        self.comm = comm
+        self.ranks = tuple(int(r) for r in ranks)
+        self.me = int(me)
+        self.size = len(self.ranks)
+
+    def rank(self) -> int:
+        return self.ranks.index(self.me)
+
+    def update_replica(self, fn):
+        self.comm.update_replica(fn)
+
+    def _vals(self, x) -> list:
+        vals = self.comm._exchange(x, self.me)
+        return [vals[r] for r in self.ranks]
+
+    def all_to_all(self, x):
+        return _slot_all_to_all(self._vals(x), self.rank())
+
+    def all_reduce(self, x, op="sum"):
+        return _slot_reduce(self._vals(x), op)
+
+    def all_gather(self, x):
+        return torch.stack(self._vals(x))
+
+    def ppermute(self, x, perm):
+        return _slot_permute(self._vals(x), self.rank(), perm, x)
+
+    def barrier(self):
+        self.comm.barrier()
+
+
 class ProcessGroupComm(Comm):
     """One rank per process over a ``torch.distributed`` group: NCCL for a
-    CUDA mesh, gloo for a CPU one (the group's backend must be that one)."""
+    CUDA mesh, gloo for a CPU one (the group's backend must be that one).
+    ``group`` None is the world; a sub-group names its global ``ranks`` in
+    group order."""
 
-    def __init__(self, device, group=None):
+    def __init__(self, device, group=None,
+                 ranks: Optional[Sequence[int]] = None):
         import torch.distributed as dist
         if not dist.is_initialized():
             raise RuntimeError("torch.distributed is not initialized: call "
@@ -282,6 +357,7 @@ class ProcessGroupComm(Comm):
                                f"process group, not {backend}")
         self.size = dist.get_world_size(group)
         self._rank = dist.get_rank(group)
+        self._peers = None if ranks is None else [int(r) for r in ranks]
 
     def rank(self) -> int:
         return self._rank
@@ -320,13 +396,19 @@ class ProcessGroupComm(Comm):
             if s == me and d == me:
                 out.copy_(src)
             elif s == me:
-                ops.append(dist.P2POp(dist.isend, src, d, self.group))
+                ops.append(dist.P2POp(dist.isend, src, self._global(d),
+                                      self.group))
             elif d == me:
-                ops.append(dist.P2POp(dist.irecv, out, s, self.group))
+                ops.append(dist.P2POp(dist.irecv, out, self._global(s),
+                                      self.group))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return out
+
+    def _global(self, r: int) -> int:
+        """The global rank of group rank ``r`` (P2P peers are global)."""
+        return r if self._peers is None else self._peers[r]
 
     def barrier(self):
         self.all_reduce(torch.ones((1,), device=self.device))
@@ -339,25 +421,39 @@ class ProcessGroupComm(Comm):
 @dataclasses.dataclass
 class Mesh:
     """Named axes over the ranks of ``comm`` on ``device``; ``shape`` maps
-    each axis name to its size (row-major over the ranks)."""
+    each axis name to its size (row-major over the ranks).  ``groups``:
+    under a process group, this process's communicator for each axis set
+    other than the whole mesh (:func:`make_mesh` creates them)."""
 
     comm: Comm
     device: torch.device
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
+    groups: Dict[Tuple[str, ...], Comm] = dataclasses.field(
+        default_factory=dict, repr=False)
 
     @property
     def size(self) -> int:
         return self.comm.size
 
-    def axis_size(self, axis: str) -> int:
-        """``mesh.shape[axis]``, checked to span every rank (the
-        collectives do)."""
-        n = self.shape[axis]
-        if n != self.comm.size:
-            raise ValueError(f"axis {axis!r} has {n} of the mesh's "
-                             f"{self.comm.size} ranks; the collectives "
-                             f"span every rank")
+    def axes(self, axis: Axes) -> Tuple[str, ...]:
+        """``axis`` as a tuple of the mesh's axis names, in mesh order."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        for a in axes:
+            if a not in self.shape:
+                raise ValueError(f"no axis {a!r} in the mesh's "
+                                 f"{self.axis_names}")
+        if list(axes) != sorted(axes, key=self.axis_names.index) or \
+                len(set(axes)) != len(axes):
+            raise ValueError(f"axes {axes} must be distinct and in the "
+                             f"mesh's order {self.axis_names}")
+        return axes
+
+    def axis_size(self, axis: Axes) -> int:
+        """The size of ``axis``: the product of the named axes' sizes."""
+        n = 1
+        for a in self.axes(axis):
+            n *= self.shape[a]
         return n
 
     def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
@@ -369,15 +465,78 @@ class Mesh:
             r //= self.shape[name]
         return {n: out[n] for n in self.axis_names}
 
+    def axis_index(self, axis: Axes, rank: Optional[int] = None) -> int:
+        """The rank's index along ``axis`` (row-major over a tuple)."""
+        c = self.coords(rank)
+        i = 0
+        for a in self.axes(axis):
+            i = i * self.shape[a] + c[a]
+        return i
+
+    def group_ranks(self, axis: Axes, rank: Optional[int] = None
+                    ) -> Tuple[int, ...]:
+        """The ranks of ``rank``'s group along ``axis`` (those sharing its
+        other coordinates), in ``axis_index`` order, which is rank order."""
+        axes = self.axes(axis)
+        c = self.coords(rank)
+        out = []
+        for idx in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c.update(zip(axes, idx))
+            r = 0
+            for n in self.axis_names:
+                r = r * self.shape[n] + c[n]
+            out.append(r)
+        return tuple(out)
+
+    def axis_comm(self, axis: Axes) -> Comm:
+        """The communicator of this rank's group along ``axis``: the
+        backend itself for the whole mesh's axes (and, on a thread mesh,
+        for any group of every rank)."""
+        axes = self.axes(axis)
+        if set(axes) == set(self.axis_names):
+            return self.comm
+        if isinstance(self.comm, ThreadComm):
+            if self.axis_size(axes) == self.size:
+                return self.comm
+            me = self.comm.rank()
+            return ThreadGroup(self.comm, self.group_ranks(axes, me), me)
+        return self.groups[axes]
+
+
+def _axis_sets(names: Tuple[str, ...]):
+    """Every axis set but the whole mesh's, in one fixed order."""
+    for k in range(1, len(names)):
+        yield from itertools.combinations(names, k)
+
+
+def _process_groups(mesh: Mesh) -> None:
+    """One ``dist.new_group`` per group of every axis set but the whole
+    mesh's, created by every process in the same order; keeps this
+    process's."""
+    import torch.distributed as dist
+    me = mesh.comm.rank()
+    for axes in _axis_sets(mesh.axis_names):
+        seen = []
+        for r in range(mesh.size):
+            ranks = mesh.group_ranks(axes, r)
+            if ranks in seen:
+                continue
+            seen.append(ranks)
+            pg = dist.new_group(list(ranks))
+            if me in ranks:
+                mesh.groups[axes] = ProcessGroupComm(mesh.device, pg, ranks)
+
 
 def make_mesh(shape: Optional[Tuple[int, ...]] = None,
               names: Tuple[str, ...] = ("data", "model"), *,
               device="cuda", comm: Optional[Comm] = None,
               timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
-    """A ``('data', 'model')`` mesh.  ``comm`` None: the process group when
-    ``torch.distributed`` is initialized (P = its world size), else a
-    :class:`ThreadComm` of ``prod(shape)`` ranks (1 when ``shape`` is None).
-    ``shape`` None: all ranks on the first axis."""
+    """A mesh, by default ``('data', 'model')``.  ``comm`` None: the
+    process group when ``torch.distributed`` is initialized (P = its world
+    size), else a :class:`ThreadComm` of ``prod(shape)`` ranks (1 when
+    ``shape`` is None).  ``shape`` None: all ranks on the first axis.  Over
+    a process group, every process must build the same meshes in the same
+    order (each creates its sub-axis groups)."""
     device = torch.device(device)
     if comm is None:
         import torch.distributed as dist
@@ -400,27 +559,43 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
     if n != comm.size or len(shape) != len(names):
         raise ValueError(f"mesh shape {shape} over axes {names} does not "
                          f"hold the {comm.size} ranks of {comm}")
-    return Mesh(comm, device, names, dict(zip(names, shape)))
+    mesh = Mesh(comm, device, names, dict(zip(names, shape)))
+    if isinstance(comm, ProcessGroupComm):
+        _process_groups(mesh)
+    return mesh
+
+
+Spec = Tuple[Optional[Axes], ...]
+
+
+def local_block(x: torch.Tensor, mesh: Mesh, spec: Spec,
+                rank: Optional[int] = None) -> torch.Tensor:
+    """The block of ``x`` that ``rank`` (this rank) holds under ``spec``:
+    per dimension None (whole), an axis name or a tuple of names (split
+    over their product, row-major)."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n = mesh.axis_size(entry)
+        if x.dim() <= dim or x.shape[dim] % n:
+            raise ValueError(f"an argument of shape {tuple(x.shape)} does "
+                             f"not split into {n} blocks on dim {dim}")
+        step = x.shape[dim] // n
+        x = x.narrow(dim, mesh.axis_index(entry, rank) * step, step)
+    return x
 
 
 class Placement(NamedTuple):
     """Where a value lives on a mesh: ``spec`` names, per dimension, the
-    axis it is split over (None: whole), ``PartitionSpec``'s meaning; ``()``
-    is replicated."""
+    axis (or tuple of axes) it is split over (None: whole),
+    ``PartitionSpec``'s meaning; ``()`` is replicated."""
     mesh: Mesh
-    spec: Tuple[Optional[str], ...]
+    spec: Spec
 
     def local(self, x: torch.Tensor, rank: Optional[int] = None
               ) -> torch.Tensor:
         """The block of ``x`` that ``rank`` (this rank) holds."""
-        coords = self.mesh.coords(rank)
-        for dim, axis in enumerate(self.spec):
-            if axis is None:
-                continue
-            n = self.mesh.shape[axis]
-            step = x.shape[dim] // n
-            x = x.narrow(dim, coords[axis] * step, step)
-        return x
+        return local_block(x, self.mesh, self.spec, rank)
 
 
 def data_sharding(mesh: Mesh) -> Placement:
@@ -504,27 +679,31 @@ def _tree_stack(trees: list):
     return first
 
 
-def _block(x: torch.Tensor, rank: int, size: int) -> torch.Tensor:
-    if x.dim() == 0 or x.shape[0] % size:
-        raise ValueError(f"a sharded argument of shape {tuple(x.shape)} "
-                         f"does not split into {size} blocks")
-    n = x.shape[0] // size
-    return x.narrow(0, rank * n, n)
+class Split(NamedTuple):
+    """An argument of :func:`spmd` split by ``spec`` (see
+    :func:`local_block`) and replicated over the axes ``spec`` leaves out;
+    ``value`` may be a :class:`LocalShard` (this process's block)."""
+    value: Any
+    spec: Spec
 
 
 def spmd(mesh: Mesh, fn: Callable, *sharded, **replicated_kw):
     """Run ``fn(*blocks, **replicated_kw)`` on every rank of ``mesh`` and
     stack the results (see module doc)."""
     comm = mesh.comm
+    every = (mesh.axis_names,)
 
     def on_rank(r):
         def take(arg):
+            spec = every
+            if isinstance(arg, Split):
+                arg, spec = arg.value, tuple(arg.spec)
             if isinstance(arg, LocalShard):
                 if isinstance(comm, ThreadComm):
                     raise ValueError("a LocalShard is one process's block; "
                                      "a thread mesh takes the whole value")
                 return arg.value
-            return _tree_map(lambda x: _block(x, r, comm.size), arg)
+            return _tree_map(lambda x: local_block(x, mesh, spec, r), arg)
 
         blocks = [take(a) for a in sharded]
         prev = getattr(_CTX, "mesh", None)
@@ -539,6 +718,17 @@ def spmd(mesh: Mesh, fn: Callable, *sharded, **replicated_kw):
     return _tree_stack([on_rank(comm.rank())])
 
 
+def along(mesh: Mesh, axis: Axes, stacked):
+    """Of a stacked :func:`spmd` result, the ranks' results along ``axis``
+    (the group of rank 0), JAX's ``out_specs=P(axis)`` of values that are
+    replicated over the other axes; under a process group the process's
+    own ``(1, ...)`` as it is."""
+    if not isinstance(mesh.comm, ThreadComm):
+        return stacked
+    idx = torch.tensor(mesh.group_ranks(axis, 0))
+    return _tree_map(lambda x: x[idx.to(x.device)], stacked)
+
+
 def current_mesh() -> Mesh:
     mesh = getattr(_CTX, "mesh", None)
     if mesh is None:
@@ -546,35 +736,33 @@ def current_mesh() -> Mesh:
     return mesh
 
 
-def axis_comm(axis: str) -> Comm:
-    """The running mesh's communicator, for a collective over ``axis``."""
-    mesh = current_mesh()
-    mesh.axis_size(axis)
-    return mesh.comm
+def axis_comm(axis: Axes) -> Comm:
+    """The running mesh's communicator for a collective over ``axis``."""
+    return current_mesh().axis_comm(axis)
 
 
-def axis_index(axis: str) -> int:
+def axis_index(axis: Axes) -> int:
     """``lax.axis_index``: this rank's index along ``axis``."""
-    return current_mesh().coords()[axis]
+    return current_mesh().axis_index(axis)
 
 
-def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, axis: Axes) -> torch.Tensor:
     """``lax.all_to_all(x, axis, 0, 0)``."""
     return axis_comm(axis).all_to_all(x)
 
 
-def psum(x: torch.Tensor, axis: str) -> torch.Tensor:
+def psum(x: torch.Tensor, axis: Axes) -> torch.Tensor:
     return axis_comm(axis).all_reduce(x, "sum")
 
 
-def pmean(x: torch.Tensor, axis: str) -> torch.Tensor:
+def pmean(x: torch.Tensor, axis: Axes) -> torch.Tensor:
     return axis_comm(axis).all_reduce(x, "mean")
 
 
-def all_gather(x: torch.Tensor, axis: str) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axis: Axes) -> torch.Tensor:
     return axis_comm(axis).all_gather(x)
 
 
-def ppermute(x: torch.Tensor, axis: str,
+def ppermute(x: torch.Tensor, axis: Axes,
              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     return axis_comm(axis).ppermute(x, perm)

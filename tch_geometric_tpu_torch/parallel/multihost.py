@@ -10,11 +10,13 @@ unchanged on one process of P thread ranks or on P processes.
   the world size and rank, or from the usual environment variables
   (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``); idempotent.
 * :func:`make_mesh` — a mesh over every process of the group (one rank per
-  process); without a group, a thread mesh of ``ici_shape``'s ranks.
+  process, ``ici_shape`` tiling each host's processes and the DCN axis
+  striding over hosts, as JAX's); without a group, a thread mesh of
+  ``ici_shape``'s ranks.
 * :func:`global_from_local`, :func:`replicated`, :func:`local_seed_shard`,
-  :func:`put_partitioned` — per-process data: each process materialises
-  only its block of a sharded value and hands it to :func:`.mesh.spmd` as a
-  :class:`~.mesh.LocalShard`.
+  :func:`put_partitioned`, :func:`placed` — per-process data: each process
+  materialises only its block of a sharded value under its spec and hands
+  it to :func:`.mesh.spmd` as a :class:`~.mesh.LocalShard`.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .mesh import LocalShard, Mesh, ProcessGroupComm, _tree_map
+from .mesh import (LocalShard, Mesh, ProcessGroupComm, Split, _tree_map,
+                   local_block)
 from .mesh import make_mesh as _mesh_of
 
 
@@ -94,16 +97,35 @@ def make_mesh(axis_names: Sequence[str] = ("data",),
     """A mesh over every rank.
 
     One process (no group): a thread mesh of ``ici_shape`` (default one
-    rank).  A process group: one rank per process on ``dcn_axis`` (default
-    the first axis name), every other axis of size 1 — each process drives
-    one device, so there is no intra-process axis to tile."""
+    rank).  A process group (one rank a process, each driving one device):
+    ``ici_shape`` None puts every process on ``dcn_axis`` (default the
+    first axis name), every other axis of size 1.  Else a host is
+    ``prod(ici_shape)`` consecutive processes tiled by ``ici_shape``, and
+    ``dcn_axis`` strides over the hosts (its size times the host count),
+    JAX's hybrid layout with processes for devices; the ranks stay
+    row-major, so no axis before ``dcn_axis`` may tile a host."""
     axis_names = tuple(axis_names)
     if not is_initialized():
         shape = tuple(ici_shape) if ici_shape else (1,)
         return _mesh_of(shape, axis_names, device=device)
     dcn_axis = dcn_axis or axis_names[0]
-    shape = tuple(process_count() if n == dcn_axis else 1
-                  for n in axis_names)
+    di = axis_names.index(dcn_axis)
+    n_proc = process_count()
+    if ici_shape is None:
+        shape = tuple(n_proc if n == dcn_axis else 1 for n in axis_names)
+    else:
+        ici = list(ici_shape)
+        ici = [1] * (len(axis_names) - len(ici)) + ici
+        per_host = int(np.prod(ici))
+        if n_proc % per_host:
+            raise ValueError(f"ici_shape {tuple(ici)} does not tile "
+                             f"{n_proc} processes")
+        hosts = n_proc // per_host
+        if hosts > 1 and int(np.prod(ici[:di])) > 1:
+            raise ValueError(f"axes before the DCN axis {dcn_axis!r} tile "
+                             f"a host: put {dcn_axis!r} first")
+        ici[di] *= hosts
+        shape = tuple(ici)
     return _mesh_of(shape, axis_names, device=device,
                     comm=ProcessGroupComm(device))
 
@@ -114,12 +136,16 @@ def _as_tensor(x, device) -> torch.Tensor:
 
 
 def global_from_local(local, mesh: Mesh, spec: Tuple = ("data",)):
-    """The value whose block this process holds (per-process data
-    loading: no process holds the whole).  Under a process group, a
-    :class:`~.mesh.LocalShard` of ``local`` on the mesh's device; on a
-    thread mesh (one process holds every block) ``local`` itself."""
+    """The value whose block under ``spec`` this process holds (per-process
+    data loading: no process holds the whole).  Under a process group, a
+    :class:`~.mesh.LocalShard` of ``local`` on the mesh's device (checked
+    against the spec's axes); with an empty spec, or on a thread mesh (one
+    process holds every block), ``local`` itself."""
     t = _as_tensor(local, mesh.device)
     if isinstance(mesh.comm, ProcessGroupComm) and tuple(spec):
+        for entry in spec:
+            if entry is not None:
+                mesh.axes(entry)
         return LocalShard(t)
     return t
 
@@ -140,21 +166,26 @@ def local_seed_shard(total: int, *, batch: Optional[int] = None
 
 def put_partitioned(tree, mesh: Mesh, spec: Tuple = ("data",)):
     """Move a host-replicated tree (every process holds the same copy) to
-    the mesh's device, split on its leading axis over ``spec``: on a
-    thread mesh the whole tree (:func:`~.mesh.spmd` splits it), under a
-    process group only this process's block of each array, as a
+    the mesh's device, split by ``spec`` (:func:`~.mesh.local_block`;
+    ``()`` replicated): on a thread mesh the whole tree (:func:`~.mesh.spmd`
+    splits it, given ``Split(tree, spec)``), under a process group only
+    this process's block of each array (0-d arrays whole), as a
     :class:`~.mesh.LocalShard`."""
     if isinstance(tree, LocalShard):
         return tree
     if not isinstance(mesh.comm, ProcessGroupComm) or not tuple(spec):
         return _tree_map(lambda x: x.to(mesh.device), tree)
-    n, i = mesh.comm.size, mesh.comm.rank()
 
     def local(x):
         if x.dim() == 0:
             return x.to(mesh.device)
-        per = x.shape[0] // n
-        return x[i * per: (i + 1) * per].to(mesh.device)
+        return local_block(x, mesh, tuple(spec)).to(mesh.device)
 
     return LocalShard(_tree_map(local, tree))
 
+
+
+def placed(tree, mesh: Mesh, spec: Tuple = ("data",)) -> Split:
+    """:func:`put_partitioned`'s result as an argument of
+    :func:`~.mesh.spmd`, split by the same ``spec``."""
+    return Split(put_partitioned(tree, mesh, spec), tuple(spec))

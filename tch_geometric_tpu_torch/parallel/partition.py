@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .mesh import Mesh, all_to_all, axis_index, ppermute, spmd
+from .mesh import Mesh, Split, all_to_all, along, axis_index, ppermute, spmd
 
 
 class RingShards(NamedTuple):
@@ -99,8 +99,10 @@ def ring_spmm(shards: RingShards, x: torch.Tensor, mesh: Mesh, *,
             h = ppermute(h, axis, ring)
         return acc
 
-    out = spmd(mesh, run, shards.src_local, shards.dst_local, shards.valid,
-               x)
+    on = (axis,)
+    out = along(mesh, axis, spmd(
+        mesh, run, Split(shards.src_local, on), Split(shards.dst_local, on),
+        Split(shards.valid, on), Split(x, on)))
     return out.reshape((-1, out.shape[-1]))
 
 
@@ -111,11 +113,12 @@ def alltoall_gather(x: torch.Tensor, halo_req: torch.Tensor, mesh: Mesh, *,
     ``halo_req`` (P, P, R): ``halo_req[d, s]`` the block-local row ids rank
     d needs from owner s (pad with 0; the caller masks).  Returns (P, P, R,
     F): rank d's block holds its (P, R, F) rows."""
-    mesh.axis_size(axis)
+    on = (axis,)
 
     def run(req, x_shard):
         owner_req = all_to_all(req[0], axis)            # (P, R) asked of me
         rows = x_shard[owner_req.long()]                 # (P, R, F)
         return all_to_all(rows, axis)                    # (P, R, F) mine
 
-    return spmd(mesh, run, halo_req, x)
+    return along(mesh, axis, spmd(mesh, run, Split(halo_req, on),
+                                  Split(x, on)))

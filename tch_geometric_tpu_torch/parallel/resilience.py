@@ -4,7 +4,9 @@ Counterpart of ``tch_geometric_tpu/parallel/resilience.py``: a mesh-wide
 barrier with a host-side timeout for failure detection (checkpoint-restart,
 ``utils/checkpoint.py``, is the recovery unit), per-shard checksums, and a
 fault-injection hook for the data-exchange step so tests can exercise
-corruption detection.
+corruption detection.  Each takes any one axis, or tuple of axes, of a
+multi-axis mesh: the values split over ``axis`` and replicate over the
+other axes, as ``P(axis)`` places them in JAX.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import concurrent.futures
 
 import torch
 
-from .mesh import Mesh, axis_index, psum, spmd
+from .mesh import Mesh, Split, along, axis_index, psum, spmd
 
 
 def barrier(mesh: Mesh, *, axis: str = "data",
@@ -24,7 +26,8 @@ def barrier(mesh: Mesh, *, axis: str = "data",
     ones = torch.ones((n,), dtype=torch.int32, device=mesh.device)
 
     def total():
-        out = spmd(mesh, lambda x: psum(x.sum(), axis), ones)
+        out = spmd(mesh, lambda x: psum(x.sum(), axis),
+                   Split(ones, (axis,)))
         return int(out[0])
 
     ex = concurrent.futures.ThreadPoolExecutor(1)
@@ -41,8 +44,8 @@ def shard_checksums(x: torch.Tensor, mesh: Mesh, *,
     """One float32 checksum per shard, ``sum |x|`` over its block:
     comparing vectors across runs, or before and after an exchange, finds
     a corrupted shard."""
-    mesh.axis_size(axis)
-    return spmd(mesh, lambda xs: xs.float().abs().sum(), x)
+    return along(mesh, axis, spmd(mesh, lambda xs: xs.float().abs().sum(),
+                                  Split(x, (axis,))))
 
 
 def inject_shard_fault(x: torch.Tensor, device_index: int, mesh: Mesh, *,
@@ -59,6 +62,5 @@ def inject_shard_fault(x: torch.Tensor, device_index: int, mesh: Mesh, *,
             return xs.clone()
         return torch.zeros_like(xs) if mode == "zero" else -xs
 
-    mesh.axis_size(axis)
-    out = spmd(mesh, corrupt, x)
+    out = along(mesh, axis, spmd(mesh, corrupt, Split(x, (axis,))))
     return out.reshape((-1,) + tuple(out.shape[2:]))

@@ -12,6 +12,10 @@ locally, rows route back.
 Static shapes: the per-owner request capacity is ``capacity_factor *
 ceil(L / P)``; requests past it get zero rows and are counted in the
 returned overflow (``num_rounds > 1`` retries them first).
+
+``axis`` may be one axis, or a tuple of axes, of a larger mesh: P
+(``num_parts``) is then that axis' size, the exchanges span the caller's
+group along it, and the table is interleaved over that group's ranks.
 """
 from __future__ import annotations
 
@@ -26,9 +30,9 @@ from ..sampling import rng
 from ..sampling.neighbor import _sample_neighbors_impl
 from ..utils.adam import (LearningRate, Params, adam_update,
                           gradients, init_state, own_params)
-from .mesh import (Mesh, ProcessGroupComm, all_to_all, axis_comm,
-                   axis_index, pmean, psum, spmd)
-from .multihost import put_partitioned
+from .mesh import (Axes, Mesh, ProcessGroupComm, all_to_all, axis_index,
+                   current_mesh, pmean, psum, spmd)
+from .multihost import placed
 from .train import TrainState
 
 
@@ -50,7 +54,7 @@ def build_interleaved_features(x, num_parts: int):
         x.reshape(npp, num_parts, f).transpose(1, 0, 2).reshape(-1, f))
 
 
-def halo_gather(x_shard: torch.Tensor, ids: torch.Tensor, *, axis: str,
+def halo_gather(x_shard: torch.Tensor, ids: torch.Tensor, *, axis: Axes,
                 num_parts: int, capacity: int, valid=None,
                 num_rounds: int = 1):
     """Fetch rows of the interleave-sharded table (inside ``spmd``).
@@ -70,7 +74,7 @@ def halo_gather(x_shard: torch.Tensor, ids: torch.Tensor, *, axis: str,
                             num_rounds=num_rounds)
 
 
-def routed_row_fetch(table: torch.Tensor, owner, local, valid, *, axis: str,
+def routed_row_fetch(table: torch.Tensor, owner, local, valid, *, axis: Axes,
                      num_parts: int, capacity: int, num_rounds: int = 1):
     """Owner-routed row fetch with explicit (owner, local) addressing
     (inside ``spmd``): requests route to ``owner``, owners read
@@ -106,7 +110,7 @@ def feature_capacity(capacity_factor: float, L: int, num_parts: int) -> int:
 # The trainers' shared step
 # ---------------------------------------------------------------------------
 
-def pmean_tree(tree: Dict[str, torch.Tensor], axis: str
+def pmean_tree(tree: Dict[str, torch.Tensor], axis: Axes
                ) -> Dict[str, torch.Tensor]:
     """``pmean`` of every tensor of ``tree``, one collective per dtype."""
     out = {}
@@ -121,19 +125,24 @@ def pmean_tree(tree: Dict[str, torch.Tensor], axis: str
     return out
 
 
-def replica_update(params: Params, grads: Params, holder: dict,
-                   learning_rate: LearningRate, axis: str) -> None:
-    """Average ``grads`` over ``axis`` and take one Adam step of the
-    replica's parameters (in place), once per replica: every process of a
-    group, one thread of a thread mesh (its ranks share the parameters);
-    ``holder['opt']`` carries the Adam state."""
-    grads = pmean_tree(grads, axis)
-
+def replica_adam(params: Params, grads: Params, holder: dict,
+                 learning_rate: LearningRate) -> None:
+    """Take one Adam step of the replica's parameters (in place) with
+    ``grads``, once per replica: every process of a group, one thread of
+    a thread mesh (all its ranks share the parameters, whatever axes the
+    gradients were reduced over); ``holder['opt']`` carries the Adam
+    state."""
     def update():
         holder["opt"] = adam_update(params, grads, holder["opt"],
                                     learning_rate)
 
-    axis_comm(axis).update_replica(update)
+    current_mesh().comm.update_replica(update)
+
+
+def replica_update(params: Params, grads: Params, holder: dict,
+                   learning_rate: LearningRate, axis: Axes) -> None:
+    """Average ``grads`` over ``axis``, then :func:`replica_adam`."""
+    replica_adam(params, pmean_tree(grads, axis), holder, learning_rate)
 
 
 def loss_and_acc(logits: torch.Tensor, labels: torch.Tensor):
@@ -237,8 +246,9 @@ def make_sharded_feature_trainer(
             return (pmean(loss.detach(), axis), pmean(acc, axis),
                     psum(overflow, axis))
 
-        loss, acc, overflow = spmd(mesh, body, *_placed(
-            mesh, x_sharded, seeds, labels), graph=graph)
+        loss, acc, overflow = spmd(mesh, body, *(
+            placed(v, mesh, (axis,)) for v in (x_sharded, seeds, labels)),
+            graph=graph)
         return (TrainState(state.params, holder["opt"], state.step + 1),
                 loss[0], acc[0], overflow[0])
 
@@ -253,14 +263,9 @@ def make_sharded_feature_trainer(
             loss, acc = loss_and_acc(logits, labels_local)
             return pmean(loss, axis), pmean(acc, axis)
 
-        loss, acc = spmd(mesh, body, *_placed(mesh, x_sharded, seeds,
-                                              labels), graph=graph)
+        loss, acc = spmd(mesh, body, *(
+            placed(v, mesh, (axis,)) for v in (x_sharded, seeds, labels)),
+            graph=graph)
         return loss[0], acc[0]
 
     return DistTrainer(replica_init_fn(mesh, model), train_step, eval_step)
-
-
-def _placed(mesh: Mesh, *values):
-    """Each value on the mesh's device, split over the data axis (a
-    process's block under a process group)."""
-    return [put_partitioned(v, mesh) for v in values]

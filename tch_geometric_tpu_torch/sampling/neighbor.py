@@ -43,7 +43,11 @@ class NeighborSample:
 
     ``nodes[:num_seeds]`` are the seeds; hop ``l`` occupies the slot range
     ``[node_base[l+1], node_base[l+2])``.  ``rows``/``cols`` are local slot
-    indices, ``eptr`` the global sorted-CSC edge pointer.
+    indices, ``eptr`` the global sorted-CSC edge pointer.  ``seed_block``
+    ``(first, total)``: the tree of the seeds ``[first, first + num_seeds)``
+    of a ``total``-seed batch, drawn as that block of the whole batch's
+    tree (a data-parallel rank's; dropout over it takes the same block,
+    ``models.dropout.tree_rows``); None for a whole batch.
     """
 
     nodes: torch.Tensor        # (N_total,) int64 node ids (garbage if invalid)
@@ -56,6 +60,7 @@ class NeighborSample:
     node_base: Tuple[int, ...]
     edge_base: Tuple[int, ...]
     fanouts: Tuple[int, ...]
+    seed_block: Optional[Tuple[int, int]] = None
 
     @property
     def num_hops(self) -> int:
@@ -138,7 +143,7 @@ def sample_edges_uniform(key, graph: CscGraph, frontier, frontier_valid,
 
 def _ell_values_sample(key, graph: CscGraph, starts, degs, frontier_state,
                        k: int, with_replacement: bool, log_weights,
-                       filter_cfg, timestamps):
+                       filter_cfg, timestamps, row0: int = 0):
     """The windowed-values engine of ELL graphs: each node's P =
     ``max_degree`` lane values by one gather, then a Gumbel top-k over the
     (B, P) keys, or ``k`` argmaxes over (B, k, P) with replacement.
@@ -158,13 +163,14 @@ def _ell_values_sample(key, graph: CscGraph, starts, degs, frontier_state,
     logits = torch.where(lane_ok, logits, primitives.NEG_INF)
     finite = torch.isfinite(logits)
     if with_replacement:
-        noise = rng.gumbel(key, degs.shape + (k, P), device=degs.device)
+        noise = rng.gumbel(key, degs.shape + (k, P), device=degs.device,
+                           row0=row0)
         total = torch.where(finite[..., None, :], logits[..., None, :] + noise,
                             primitives.NEG_INF)
         pos = primitives.argmax(total)
         valid = torch.isfinite(total.amax(dim=-1))
     else:
-        noise = rng.gumbel(key, logits.shape, device=degs.device)
+        noise = rng.gumbel(key, logits.shape, device=degs.device, row0=row0)
         keys_ = torch.where(finite, logits + noise, primitives.NEG_INF)
         # k > P: JAX's lax.top_k refuses; the slots past P are invalid, as
         # the window engines leave them
@@ -175,11 +181,13 @@ def _ell_values_sample(key, graph: CscGraph, starts, degs, frontier_state,
 def _sample_one_hop(key, graph: CscGraph, frontier, frontier_valid,
                     frontier_state, k: int, *, with_replacement: bool,
                     log_weights=None, filter_cfg=None, timestamps=None,
-                    window: int = 256):
+                    window: int = 256, row0: int = 0):
     """Sample <= k in-edges of each frontier node.  ``log_weights`` (E,)
     float32 and ``timestamps`` (E,) int32 are by sorted edge position;
-    ``filter_cfg`` a ``TemporalEdgeFilter`` or None.  Returns ``(eptr
-    (B,k), neighbor (B,k), valid (B,k), state (B,k))``."""
+    ``filter_cfg`` a ``TemporalEdgeFilter`` or None; ``row0`` the
+    frontier's first row in a larger frontier whose draws it takes a block
+    of.  Returns ``(eptr (B,k), neighbor (B,k), valid (B,k), state
+    (B,k))``."""
     node = frontier.clamp(0, graph.num_ptr_nodes - 1)
     ell_lanes = None
     if graph.ell is not None:
@@ -193,16 +201,16 @@ def _sample_one_hop(key, graph: CscGraph, frontier, frontier_valid,
     tvals = None
     if filter_cfg is None and log_weights is None:
         if with_replacement:
-            pos, valid = primitives.replacement_positions(key, degs, k)
+            pos, valid = primitives.replacement_positions(key, degs, k, row0)
         elif ell_lanes is not None:
             pos, valid = primitives.uniform_lane_topk(
-                key, degs, ell_lanes.shape[-1], k)
+                key, degs, ell_lanes.shape[-1], k, row0)
         else:
-            pos, valid = primitives.floyd_sample(key, degs, k)
+            pos, valid = primitives.floyd_sample(key, degs, k, row0)
     elif ell_lanes is not None:
         pos, valid, tvals = _ell_values_sample(
             key, graph, starts, degs, frontier_state, k, with_replacement,
-            log_weights, filter_cfg, timestamps)
+            log_weights, filter_cfg, timestamps, row0)
     else:
         engine = (primitives.window_choice_sample if with_replacement
                   else primitives.window_topk_sample)
@@ -212,7 +220,7 @@ def _sample_one_hop(key, graph: CscGraph, frontier, frontier_valid,
         pos, valid = engine(key, starts, degs, k,
                             max_degree=graph.max_degree,
                             num_edges=graph.num_edges, logw_at=logw_at,
-                            mask_at=mask_at, window=window)
+                            mask_at=mask_at, window=window, row0=row0)
 
     eptr = (starts[..., None] + pos).clamp(0, max(graph.num_edges - 1, 0))
     if ell_lanes is not None:
@@ -240,7 +248,14 @@ def _sample_neighbors_impl(key, graph: CscGraph, inputs: torch.Tensor,
                            fanouts: Tuple[int, ...],
                            with_replacement: bool, log_weights=None,
                            filter_cfg=None, timestamps=None,
-                           window: int = 256) -> NeighborSample:
+                           window: int = 256,
+                           seed_block: Optional[Tuple[int, int]] = None
+                           ) -> NeighborSample:
+    """The padded tree of ``inputs``; with ``seed_block`` ``(first,
+    total)``, the block of a ``total``-seed batch's tree that the seeds
+    ``[first, first + len(inputs))`` span: each hop draws its frontier's
+    rows of the whole batch's draw (frontier row ``first * prod(fanouts[:l])``
+    on at hop ``l``), so the block equals those slots of the whole tree."""
     num_seeds = inputs.shape[0]
     device = inputs.device
     node_base, edge_base = _layer_layout(num_seeds, fanouts)
@@ -249,6 +264,7 @@ def _sample_neighbors_impl(key, graph: CscGraph, inputs: torch.Tensor,
     valids = [torch.ones((num_seeds,), dtype=torch.bool, device=device)]
     states = [input_state.int()]
     rows, cols, eptrs, evalids = [], [], [], []
+    row0 = 0 if seed_block is None else int(seed_block[0])
 
     for ell, k in enumerate(fanouts):
         frontier, fvalid, fstate = nodes[ell], valids[ell], states[ell]
@@ -256,7 +272,9 @@ def _sample_neighbors_impl(key, graph: CscGraph, inputs: torch.Tensor,
         eptr, neighbor, valid, new_state = _sample_one_hop(
             rng.fold(key, ell), graph, frontier, fvalid, fstate, k,
             with_replacement=with_replacement, log_weights=log_weights,
-            filter_cfg=filter_cfg, timestamps=timestamps, window=window)
+            filter_cfg=filter_cfg, timestamps=timestamps, window=window,
+            row0=row0)
+        row0 *= k
         slot = node_base[ell + 1] + (
             torch.arange(B, device=device)[:, None] * k
             + torch.arange(k, device=device)[None, :])
@@ -286,6 +304,8 @@ def _sample_neighbors_impl(key, graph: CscGraph, inputs: torch.Tensor,
         node_base=node_base,
         edge_base=edge_base,
         fanouts=tuple(fanouts),
+        seed_block=None if seed_block is None else (int(seed_block[0]),
+                                                    int(seed_block[1])),
     )
 
 

@@ -18,7 +18,10 @@ up to the last ulp of ``log``):
 * :func:`masked_gumbel_topk` — Gumbel top-k over a dense logit table.
 
 Ties follow lax: in :func:`top_k` the lower index wins, in
-:func:`argmax` the first maximum.
+:func:`argmax` the first maximum.  ``row0`` (the engines of the neighbor
+sampler): the rows are a block, from row ``row0``, of a larger frontier,
+and each draw takes that block of the larger frontier's draw
+(``rng``'s block draws).
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def floyd_sample(key: torch.Tensor, deg: torch.Tensor, k: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def floyd_sample(key: torch.Tensor, deg: torch.Tensor, k: int,
+                 row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact uniform sample of ``min(k, deg)`` distinct positions in
     ``[0, deg)`` per element of ``deg``.
 
@@ -51,7 +54,7 @@ def floyd_sample(key: torch.Tensor, deg: torch.Tensor, k: int
         j = deg - (k - i)                  # may be < 0 when deg < k
         hi = torch.clamp(j + 1, min=1)
         t = rng.randint(rng.fold_in(key, i), deg.shape, 0, hi,
-                        device=deg.device)
+                        device=deg.device, row0=row0)
         hit = (chosen == t[..., None]).any(dim=-1)
         chosen[..., i] = torch.where(hit, j, t)
 
@@ -71,14 +74,16 @@ def top_k(vals: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def uniform_lane_topk(key: torch.Tensor, deg: torch.Tensor, num_lanes: int,
-                      k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      k: int, row0: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact uniform k-subset of ``[0, deg)`` when ``deg <= num_lanes``:
     rank every lane by one uniform draw, take the top ``k`` lanes
     ``< deg``.  Valid slots are the first ``min(deg, k)``; invalid slots
     hold position 0."""
     deg = deg.long()
     lane = torch.arange(num_lanes, device=deg.device)
-    r = rng.uniform(key, deg.shape + (num_lanes,), device=deg.device)
+    r = rng.uniform(key, deg.shape + (num_lanes,), device=deg.device,
+                    row0=row0)
     vals = torch.where(lane < deg[..., None], r, NEG_INF)
     return topk_slots(vals, k)
 
@@ -98,13 +103,15 @@ def topk_slots(keys_: torch.Tensor, k: int
     return torch.where(valid, pos, 0), valid
 
 
-def replacement_positions(key: torch.Tensor, deg: torch.Tensor, k: int
+def replacement_positions(key: torch.Tensor, deg: torch.Tensor, k: int,
+                          row0: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``k`` independent uniform positions in ``[0, deg)`` per node.
     Empty rows -> invalid."""
     deg = deg.long()
     hi = torch.clamp(deg, min=1)[..., None]
-    positions = rng.randint(key, deg.shape + (k,), 0, hi, device=deg.device)
+    positions = rng.randint(key, deg.shape + (k,), 0, hi, device=deg.device,
+                            row0=row0)
     valid = (deg > 0)[..., None].expand(positions.shape)
     return torch.where(valid, positions, 0), valid
 
@@ -143,8 +150,8 @@ def _window_chunk_logits(chunk: int, starts: torch.Tensor,
 def window_topk_sample(key: torch.Tensor, starts: torch.Tensor,
                        degs: torch.Tensor, k: int, *, max_degree: int,
                        num_edges: int, logw_at: EdgeFn = None,
-                       mask_at: EdgeFn = None, window: int = 256
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       mask_at: EdgeFn = None, window: int = 256,
+                       row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted sample WITHOUT replacement of ``k`` window positions.
 
     ``starts``/``degs``: (B,) window start edge pointers and sizes;
@@ -161,7 +168,7 @@ def window_topk_sample(key: torch.Tensor, starts: torch.Tensor,
         pos, logits = _window_chunk_logits(c, starts, degs, window,
                                            num_edges, logw_at, mask_at)
         noise = rng.gumbel(rng.fold_in(key, c), pos.shape,
-                           device=degs.device)
+                           device=degs.device, row0=row0)
         keys_ = torch.where(torch.isfinite(logits), logits + noise, NEG_INF)
         top_vals, idx = top_k(torch.cat([top_vals, keys_], dim=1), k)
         top_pos = torch.gather(torch.cat([top_pos, pos], dim=1), 1, idx)
@@ -172,7 +179,8 @@ def window_topk_sample(key: torch.Tensor, starts: torch.Tensor,
 def window_choice_sample(key: torch.Tensor, starts: torch.Tensor,
                          degs: torch.Tensor, k: int, *, max_degree: int,
                          num_edges: int, logw_at: EdgeFn = None,
-                         mask_at: EdgeFn = None, window: int = 256
+                         mask_at: EdgeFn = None, window: int = 256,
+                         row0: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``k`` independent weighted draws (with replacement) per window:
     each draw is a Gumbel argmax over the admissible window, chunk by chunk
@@ -186,7 +194,7 @@ def window_choice_sample(key: torch.Tensor, starts: torch.Tensor,
         pos, logits = _window_chunk_logits(c, starts, degs, window,
                                            num_edges, logw_at, mask_at)
         noise = rng.gumbel(rng.fold_in(key, c), (B, k, pos.shape[-1]),
-                           device=degs.device)
+                           device=degs.device, row0=row0)
         total = torch.where(torch.isfinite(logits)[:, None, :],
                             logits[:, None, :] + noise, NEG_INF)
         chunk_best = total.amax(dim=-1)

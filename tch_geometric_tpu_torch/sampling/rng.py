@@ -16,6 +16,13 @@ The construction follows jax 0.9.0 with ``jax_threefry_partitionable=True``:
 * ``uniform`` / ``randint`` / ``gumbel`` — exactly as ``jax.random`` builds
   them from those bits (mantissa fill, two-draw range folding, -log(-log u)).
 
+Block draws: since element ``i``'s bits depend only on ``i``, a draw of
+``shape`` with ``row0=r`` gives rows ``[r, r + shape[0])`` of the same
+draw over more rows (the counters start at ``r * prod(shape[1:])``).  A
+data-parallel rank draws its block of a batch so, and gets exactly the
+whole-batch draw's rows, as a rank's shard of a ``jax.random`` draw under
+``jax_threefry_partitionable=True`` is.
+
 uint32 arithmetic runs in int64 with ``& 0xFFFFFFFF`` masks: torch on the
 CPU has no uint32 ``<<``.  Products of two 32-bit words are split into
 16-bit halves so no intermediate leaves the int64 range.
@@ -65,12 +72,19 @@ def key(seed: int) -> torch.Tensor:
     return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64)
 
 
-def _hash_counters(key: torch.Tensor, n: int, device: DeviceLike
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Threefry over the partitionable counters ``0..n-1``."""
+def _hash_counters(key: torch.Tensor, n: int, device: DeviceLike,
+                   offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Threefry over the partitionable counters ``offset..offset+n-1``."""
     k0, k1 = _words(key)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return threefry2x32(k0, k1, idx >> 32, idx & MASK32)
+
+
+def _numel(shape: Sequence[int]) -> int:
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -88,20 +102,21 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int],
-                device: DeviceLike = "cuda") -> torch.Tensor:
-    """32 random bits per element as int64 values in ``[0, 2**32)``."""
+                device: DeviceLike = "cuda", row0: int = 0) -> torch.Tensor:
+    """32 random bits per element as int64 values in ``[0, 2**32)``;
+    ``row0`` the block's first row in a larger draw (module doc)."""
     shape = tuple(int(s) for s in shape)
-    n = 1
-    for s in shape:
-        n *= s
-    b0, b1 = _hash_counters(key, n, device)
+    b0, b1 = _hash_counters(key, _numel(shape), device,
+                            int(row0) * _numel(shape[1:]))
     return (b0 ^ b1).reshape(shape)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0, device: DeviceLike = "cuda") -> torch.Tensor:
-    """``jax.random.uniform`` in float32."""
-    return _uniform_from_bits(random_bits(key, shape, device), minval, maxval)
+            maxval: float = 1.0, device: DeviceLike = "cuda",
+            row0: int = 0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32 (``row0``: a block draw)."""
+    return _uniform_from_bits(random_bits(key, shape, device, row0), minval,
+                              maxval)
 
 
 def _uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float
@@ -126,16 +141,17 @@ def _mulmod32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval, maxval,
-            device: DeviceLike = "cuda") -> torch.Tensor:
+            device: DeviceLike = "cuda", row0: int = 0) -> torch.Tensor:
     """``jax.random.randint`` for int32 ranges; returns int64 values.
 
     ``minval``/``maxval`` are ints or int tensors broadcastable to
     ``shape``.  Two 32-bit draws are folded into the span as jax does,
     including its uint32 wraparound of the ``2**32 % span`` multiplier.
+    ``row0``: a block draw (module doc).
     """
     k = split(key)
-    return _randint_from_bits(random_bits(k[0], shape, device),
-                              random_bits(k[1], shape, device), minval,
+    return _randint_from_bits(random_bits(k[0], shape, device, row0),
+                              random_bits(k[1], shape, device, row0), minval,
                               maxval)
 
 
@@ -157,10 +173,11 @@ _TINY32 = float(torch.finfo(torch.float32).tiny)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int],
-           device: DeviceLike = "cuda") -> torch.Tensor:
+           device: DeviceLike = "cuda", row0: int = 0) -> torch.Tensor:
     """``jax.random.gumbel`` (low mode) in float32: -log(-log(u)),
-    u ~ U[tiny, 1).  Equal to jax up to the last ulp of ``log``."""
-    u = uniform(key, shape, _TINY32, 1.0, device)
+    u ~ U[tiny, 1).  Equal to jax up to the last ulp of ``log``.  ``row0``:
+    a block draw (module doc)."""
+    u = uniform(key, shape, _TINY32, 1.0, device, row0)
     return -torch.log(-torch.log(u))
 
 
@@ -200,10 +217,7 @@ def random_bits_each(keys: torch.Tensor, shape: Sequence[int]
                      ) -> torch.Tensor:
     """``(B,) + shape`` bits, row ``b`` under key ``b``."""
     shape = tuple(int(s) for s in shape)
-    n = 1
-    for s in shape:
-        n *= s
-    b0, b1 = _hash_counters_each(keys, n)
+    b0, b1 = _hash_counters_each(keys, _numel(shape))
     return (b0 ^ b1).reshape((keys.shape[0],) + shape)
 
 

@@ -13,7 +13,7 @@ the CPU: flax parameters carried in, dropout 0, float32, the JAX side on
   (1e-5; averaging those rows in float32 misses by about 4e-4);
 * ``make_sharded_feature_trainer`` against JAX's (1e-5);
 * karate trains to the JAX tests' accuracy through the partitioned
-  trainer with dropout on; ``hier=`` raises and names the roadmap.
+  trainer with dropout on.  ``hier=`` is held in ``test_torch_hier.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -344,9 +344,3 @@ def test_partitioned_trainer_learns_karate_with_dropout():
     loss, acc = tr.eval_step(st, rng.key(0), g, xi, seeds, labels)
     assert float(acc) >= 0.85, (float(loss), float(acc))
 
-
-def test_hier_plan_raises():
-    for make in (make_partitioned_trainer,
-                 make_partitioned_multibatch_trainer):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make(_model(), FANOUTS, _tmesh(1), hier=("slice", "chip"))
