@@ -247,6 +247,30 @@ prints no result line):
    (d) card against CPU on phase 3's 5% subgraph: 3 steps of (a) and of
    (c) at (2, 2), 256 seeds, losses within 1e-5.  The thread meshes are
    structural checks, as in phase 12.
+14. distributed walks, distributed negatives and the partitioned link
+   trainer (no kernel of B1-B11 lies on them; their launch counts must
+   stay 0), at P = 1 over a process group of world size 1 (NCCL) and P =
+   4 thread ranks, on the products out-edge CSR (no ELL table: the window
+   engines) and in-edge adjacency (ELL) partitioned with effective edge
+   timestamps in [0, 1000): (a) ``dist_random_walk``, 2,560 starts of 40
+   at (p, q) = (1, 1) and (1, 1.5); (b) ``dist_tempo_random_walk`` (window
+   (0, 400)) and ``dist_biased_tempo_random_walk`` (uniform, linear,
+   exponential; forward, retry 10; at P = 4 the exponential only) on the
+   in-edge ELL, and one tempo call of 256 starts of 5 on the out-edge
+   CSR; (c) ``dist_negative_sample`` (65,536 inputs, 5 negatives, 5
+   tries, outbound and inbound) and ``dist_negative_sample_hetero`` on the
+   mag shape (1,024 papers and authors): ms per call, overflow 0, the two
+   P bit-equal, every step an edge, temporal windows and CTDNE time order
+   held, no accepted negative an edge or a self-loop; (d)
+   ``make_partitioned_link_trainer`` with phase 11 (c)'s SAGE (dropout
+   0.5), 1 negative of 8 tries, 1,024 edges a step: ms per step and peak
+   device memory (P = 1: one warm-up then 5; P = 4: the cross-P steps),
+   3 dropout-0 losses within 1e-5 across P (with dropout on each rank
+   masks its own tree, so those losses depend on P); (e) card against
+   CPU at P = 4 on phase 3's 5% cut: node2vec and the negatives equal,
+   tempo and CTDNE walks within 1e-3 of the walks, 3 link steps of 256
+   edges (dropout 0) within 1e-5.  Each part's wall time and the phase's
+   are printed.
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -3715,22 +3739,22 @@ DIST_STORE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "dist_store")
 
 
-def dist_meshes(device):
+def dist_meshes(device, store=DIST_STORE, what="phase 12"):
     """P = 1 over a real process group of world size 1 (NCCL on the card,
-    a ``file://`` store under ``build/``) and P = ``DIST_PARTS`` thread
-    ranks on the same device."""
+    a fresh ``file://`` store under ``build/``) and P = ``DIST_PARTS``
+    thread ranks on the same device."""
     from tch_geometric_tpu_torch.parallel import make_mesh, multihost
     from tch_geometric_tpu_torch.parallel.mesh import (ProcessGroupComm,
                                                        ThreadComm)
-    os.makedirs(os.path.dirname(DIST_STORE), exist_ok=True)
-    if os.path.exists(DIST_STORE):
-        os.remove(DIST_STORE)
-    multihost.initialize("file://" + DIST_STORE, 1, 0, device=device)
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    multihost.initialize("file://" + store, 1, 0, device=device)
     one = multihost.make_mesh(("data",), device=device)
     check(isinstance(one.comm, ProcessGroupComm) and one.size == 1,
           "P = 1 runs over the process group")
     import torch.distributed as dist
-    log(f"phase 12: process group backend {dist.get_backend()}, world "
+    log(f"{what}: process group backend {dist.get_backend()}, world "
         f"size {dist.get_world_size()}; {DIST_PARTS} thread ranks on "
         f"{device}")
     return {1: one, DIST_PARTS: make_mesh((DIST_PARTS, 1), device=device,
@@ -4401,6 +4425,472 @@ def phase13(p, sg, dist_res, device, timer):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: distributed walks, distributed negatives, partitioned link
+# ---------------------------------------------------------------------------
+
+DIST_STORE14 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "dist_store14")
+OUT_TEMPO_STARTS, OUT_TEMPO_LENGTH = 256, 5   # (b)'s window-engine call
+CUT14_WALKS, CUT14_LENGTH = 1024, 12          # (e)'s walks on the 5% cut
+CUT14_NEG_INPUTS = 4096
+# the P = 4 thread runs cut to fit the phase's time: CTDNE's other biases
+# run the same owner engine (each bias 12-18 s at P = 4 on the card)
+CTDNE_P4_BIASES = ("exponential",)
+
+
+def timed_ts(indices, n, seed):
+    """Effective edge timestamps of an adjacency's edges (``indices``):
+    edge and node timestamps in ``[0, TIME_RANGE)`` from ``seed``."""
+    from tch_geometric_tpu_torch.parallel import effective_edge_ts
+    r = np.random.default_rng(seed)
+    return effective_edge_ts(indices, r.integers(0, TIME_RANGE, len(indices)),
+                             r.integers(0, TIME_RANGE, n))
+
+
+def graphs14(p, csr, device, timer):
+    """The partitioned products graphs at P = 1 and ``DIST_PARTS``: the
+    out-edge CSR (no ELL table: max degree 113,135; the window engines)
+    and the in-edge adjacency (the CSC read as the reversed graph's CSR,
+    max degree 56: the ELL table), each with effective edge timestamps;
+    and the out-edge CSR as a device graph for the edge checks."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.parallel import build_partitioned_graph
+    n = p["data"].num_nodes
+    arrays = {"out": (csr, 140),
+              "in": ((p["col_ptrs"], p["row_indices"]), 141)}
+    graphs, out = {}, {}
+    for k, ((ptr, ind), seed) in arrays.items():
+        ts = timed_ts(ind, n, seed)
+        ptr_d = torch.from_numpy(ptr).to(device)
+        ind_d = torch.from_numpy(ind).to(device)
+        for P in (1, DIST_PARTS):
+            g, ms = timer(lambda: build_partitioned_graph(
+                ptr_d, ind_d, P, edge_timestamps=ts, device=device))
+            graphs[k, P] = g
+            out[f"{k} P={P}"] = dict(build_ms=ms,
+                                     device_gib=g.nbytes() / 2**30,
+                                     ell=g.ell is not None,
+                                     max_degree=g.max_degree)
+            log(f"phase 14 partitioned {k}-edge graph P={P}: {ms:.1f} ms, "
+                f"{g.nbytes() / 2**30:.3f} GiB, ELL "
+                f"{'yes' if g.ell is not None else 'no'}, max degree "
+                f"{g.max_degree}")
+    out_g = make_graph(*csr, num_src=n, num_dst=n, device=device)
+    return graphs, out_g, out
+
+
+def _blocks(a):
+    """(P, B/P, ...) rank blocks -> the one-device (B, ...) layout."""
+    return a.reshape((-1,) + tuple(a.shape[2:]))
+
+
+def walks14(p, graphs, out_g, meshes, device, timer):
+    """Phase 14 (a), (b): ``dist_random_walk`` (OGB's products node2vec
+    request, ``WALK_STARTS`` starts of ``WALK_LENGTH``, ``WALK_PQ``) on the
+    out-edge CSR, the tempo and CTDNE walks (``WALK_BIASES``, forward,
+    ``WALK_RETRIES``; window ``TEMPORAL_WINDOW``) on the in-edge ELL
+    adjacency, and one tempo call of ``OUT_TEMPO_STARTS`` starts of
+    ``OUT_TEMPO_LENGTH`` on the out-edge CSR (the window engines), at P =
+    1 and ``DIST_PARTS`` (CTDNE at ``DIST_PARTS`` in
+    ``CTDNE_P4_BIASES`` only): ms per call, overflow 0, the two P
+    bit-equal, every step an edge (or -1, or a temporal restart), temporal
+    steps in the window, CTDNE timestamps never decreasing."""
+    from tch_geometric_tpu_torch.parallel import (
+        dist_biased_tempo_random_walk, dist_random_walk,
+        dist_tempo_random_walk)
+    from tch_geometric_tpu_torch.sampling import rng
+    n = p["data"].num_nodes
+    in_g = p["graph"]
+    r = np.random.default_rng(142)
+    starts = r.integers(0, n, WALK_STARTS)
+    start_ts = r.integers(0, TIME_RANGE, WALK_STARTS)
+    start_ts_d = torch.from_numpy(start_ts).to(device)
+    res = {}
+
+    def both(name, fn, parts=(1, DIST_PARTS)):
+        """``fn(P)`` -> outputs (the last the overflow) at each of
+        ``parts``, timed; the outputs but the overflow equal across P."""
+        outs, ms = {}, {}
+        for P in parts:
+            outs[P], ms[P] = timer(lambda: fn(P))
+            check(int(outs[P][-1].sum()) == 0, f"{name} P={P}: overflow 0")
+        same = all(torch.equal(_blocks(a), _blocks(b)) for P in parts[1:]
+                   for a, b in zip(outs[1][:-1], outs[P][:-1]))
+        log(f"phase 14 {name}: " + ", ".join(
+            f"P={P} {ms[P]:.1f} ms" for P in parts) + " a call; overflow 0"
+            + ("; the two P " + ("bit-equal" if same else "DIFFER")
+               if len(parts) > 1 else ""))
+        check(same, f"{name}: P=1 and P={DIST_PARTS} bit-equal")
+        res[name] = dict(ms={str(k): v for k, v in ms.items()})
+        return [_blocks(a) for a in outs[1][:-1]]
+
+    with torch.no_grad():
+        for pq in WALK_PQ:
+            (w,) = both(f"(a) dist_random_walk p,q={pq}",
+                        lambda P: dist_random_walk(
+                            rng.key(143), graphs["out", P], starts,
+                            WALK_LENGTH, meshes[P], p=pq[0], q=pq[1],
+                            capacity_factor=DIST_CF))
+            check(w.shape == (WALK_STARTS, WALK_LENGTH + 1)
+                  and _walk_edges_ok(out_g, w.long()),
+                  f"dist node2vec {pq}: every step an edge or -1")
+        w, ts = both("(b) dist_tempo_random_walk in-edge ELL",
+                     lambda P: dist_tempo_random_walk(
+                         rng.key(144), graphs["in", P], starts, start_ts,
+                         WALK_LENGTH, TEMPORAL_WINDOW, meshes[P],
+                         capacity_factor=DIST_CF))
+        res["(b) dist_tempo_random_walk in-edge ELL"]["restarted_steps"] = \
+            _tempo_walks_ok("dist tempo in-edge", in_g, w.long(), ts.long(),
+                            start_ts_d)
+        for bias in WALK_BIASES:
+            name = f"(b) dist_biased_tempo_random_walk {bias}"
+            w, ts = both(name, lambda P: dist_biased_tempo_random_walk(
+                rng.key(145), graphs["in", P], starts, start_ts, WALK_LENGTH,
+                bias, meshes[P], forward=True, retry_count=WALK_RETRIES,
+                capacity_factor=DIST_CF),
+                parts=(1, DIST_PARTS) if bias in CTDNE_P4_BIASES else (1,))
+            w, ts = w.long(), ts.long()
+            live = w[:, 1:] >= 0
+            check(_walk_edges_ok(in_g, w), f"dist ctdne {bias}: every step "
+                  "an edge")
+            check(bool(((ts[:, 1:] >= ts[:, :-1]) | ~live).all()),
+                  f"dist ctdne {bias}: timestamps never decrease")
+            res[name]["complete_walks"] = int(live.all(dim=1).sum())
+        few = starts[:OUT_TEMPO_STARTS]
+        w, ts = both("(b) dist_tempo_random_walk out-edge CSR, "
+                     f"{OUT_TEMPO_STARTS} starts, length {OUT_TEMPO_LENGTH}",
+                     lambda P: dist_tempo_random_walk(
+                         rng.key(146), graphs["out", P], few,
+                         start_ts[:OUT_TEMPO_STARTS], OUT_TEMPO_LENGTH,
+                         TEMPORAL_WINDOW, meshes[P], capacity_factor=DIST_CF))
+        _tempo_walks_ok("dist tempo out-edge", out_g, w.long(), ts.long(),
+                        start_ts_d[:OUT_TEMPO_STARTS])
+    return res
+
+
+def _hetero_not_edges(what, w, acc, rc, inputs, type_rels, graphs, inbound):
+    """No accepted typed negative is an edge of its chosen relation in the
+    probe's direction (inbound: only candidates that are rows of the
+    relation's CSR) or a self-loop."""
+    checked = 0
+    for t, v in inputs.items():
+        wt, at, rt = (_blocks(d[t]).long() for d in (w, acc, rc))
+        u = torch.as_tensor(v, device=wt.device)[:, None].expand_as(wt)
+        for ri, (k, _dst) in enumerate(type_rels[t]):
+            m = at.bool() & (rt == ri)
+            a, b = u[m], wt[m]
+            g = graphs[k]
+            if inbound:
+                keep = b < g.num_ptr_nodes
+                a, b = b[keep], a[keep]
+            _assert_not_edges(f"{what} {k}", g, a, b)
+            checked += int(m.sum())
+    return checked
+
+
+def negatives14(p, graphs, out_g, mag, meshes, device, timer):
+    """Phase 14 (c): ``dist_negative_sample`` on the out-edge CSR
+    (``NEG_INPUTS`` inputs, ``NEG_NUM`` negatives of ``NEG_TRIES`` tries,
+    inbound False and True) and ``dist_negative_sample_hetero`` on the
+    mag shape (``HETERO_NEG_INPUTS`` papers and authors, each relation's
+    CSR partitioned), at P = 1 and ``DIST_PARTS``: ms per call, overflow
+    0, the two P bit-equal, no accepted negative an edge (in the probe's
+    direction) or a self-loop."""
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.parallel import (build_partitioned_graph,
+                                                  dist_negative_sample,
+                                                  dist_negative_sample_hetero)
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.utils.types import rel_key
+    n = p["data"].num_nodes
+    r = np.random.default_rng(147)
+    inputs = r.integers(0, n, NEG_INPUTS)
+    u = torch.from_numpy(inputs).to(device)[:, None].expand(-1, NEG_NUM)
+    res = {}
+    with torch.no_grad():
+        for inbound in (False, True):
+            outs, ms = {}, {}
+            for P in (1, DIST_PARTS):
+                outs[P], ms[P] = timer(lambda: dist_negative_sample(
+                    rng.key(148), graphs["out", P], inputs, NEG_NUM,
+                    NEG_TRIES, meshes[P], inbound=inbound,
+                    capacity_factor=DIST_CF))
+                check(int(outs[P][2].sum()) == 0, "dist negatives overflow 0")
+            w, acc = (_blocks(a) for a in outs[1][:2])
+            same = all(torch.equal(_blocks(a), b) for a, b in
+                       zip(outs[DIST_PARTS][:2], (w, acc)))
+            check(same, f"dist negatives inbound {inbound}: P equal")
+            a, b = u[acc], w[acc].long()
+            _assert_not_edges(f"dist negatives inbound {inbound}", out_g,
+                              b if inbound else a, a if inbound else b)
+            share = float(acc.float().mean())
+            res[f"homogeneous inbound {inbound}"] = dict(
+                ms={str(k): v for k, v in ms.items()}, accepted_share=share)
+            log(f"phase 14 (c) dist_negative_sample inbound {inbound}, "
+                f"{NEG_INPUTS} inputs: P=1 {ms[1]:.1f} ms, P={DIST_PARTS} "
+                f"{ms[DIST_PARTS]:.1f} ms; accepted share {share:.4f}; the "
+                "two P bit-equal; none an edge or a self-loop")
+
+        counts, edge_types, csc = mag
+        csr_m, sizes = mag_csr(counts, edge_types, csc)
+        rels = {P: {k: build_partitioned_graph(*v, P, device=device)
+                    for k, v in csr_m.items()} for P in (1, DIST_PARTS)}
+        checks = {k: make_graph(*v, num_src=sizes[k][0], num_dst=sizes[k][1],
+                                ell_table=False, window_table=False,
+                                device=device) for k, v in csr_m.items()}
+        type_rels = {}
+        for e in edge_types:
+            type_rels.setdefault(e[0], []).append((rel_key(e), e[2]))
+        hin = {"paper": r.integers(0, counts["paper"], HETERO_NEG_INPUTS),
+               "author": r.integers(0, counts["author"], HETERO_NEG_INPUTS)}
+        for inbound in (False, True):
+            outs, ms = {}, {}
+            for P in (1, DIST_PARTS):
+                outs[P], ms[P] = timer(lambda: dist_negative_sample_hetero(
+                    rng.key(149), rels[P], edge_types, hin, NEG_NUM,
+                    NEG_TRIES, meshes[P], node_counts=counts,
+                    inbound=inbound, capacity_factor=DIST_CF))
+                check(int(outs[P][3].sum()) == 0, "typed negatives overflow 0")
+            same = all(torch.equal(_blocks(outs[1][i][t]),
+                                   _blocks(outs[DIST_PARTS][i][t]))
+                       for i in range(3) for t in outs[1][i])
+            check(same, f"typed negatives inbound {inbound}: P equal")
+            checked = _hetero_not_edges(
+                f"dist typed negatives inbound {inbound}", *outs[1][:3], hin,
+                type_rels, checks, inbound)
+            res[f"hetero inbound {inbound}"] = dict(
+                ms={str(k): v for k, v in ms.items()}, accepted=checked)
+            log(f"phase 14 (c) dist_negative_sample_hetero inbound "
+                f"{inbound}, {HETERO_NEG_INPUTS} papers and authors: P=1 "
+                f"{ms[1]:.1f} ms, P={DIST_PARTS} {ms[DIST_PARTS]:.1f} ms; "
+                f"{checked} accepted negatives checked; the two P bit-equal")
+    return res
+
+
+def link14_trainer(model, mesh):
+    from tch_geometric_tpu_torch.parallel import make_partitioned_link_trainer
+    return make_partitioned_link_trainer(
+        model, FANOUTS, mesh, num_neg=LINK_NEG, try_count=LINK_TRIES,
+        learning_rate=TRAIN_LR, capacity_factor=DIST_CF)
+
+
+def link14(p, graphs, meshes, device, timer):
+    """Phase 14 (d): ``make_partitioned_link_trainer`` with phase 11 (c)'s
+    ``GraphSAGE(100, 256, 256, 3 layers, dropout 0.5)``, ``FANOUTS``,
+    ``LINK_NEG`` negative of ``LINK_TRIES`` tries, Adam at ``TRAIN_LR``,
+    ``LINK_EDGES`` positive edges a step, on the out-edge CSR with the
+    features interleaved: at P = 1 one warm-up and ``TIMED_STEPS`` steps,
+    ms per step, peak device memory, overflow 0.  With dropout on each
+    rank masks its own tree under the shared key (as a ``shard_map`` body
+    does), so the losses depend on P; ``DIST_LOSS_STEPS`` steps at dropout
+    0 from the same parameters at P = 1 and ``DIST_PARTS`` give losses
+    within ``DIST_LOSS_RTOL``; at ``DIST_PARTS`` those steps are the timed
+    ones (the first a warm-up), with the peak device memory."""
+    from tch_geometric_tpu_torch.parallel import build_interleaved_features
+    from tch_geometric_tpu_torch.sampling import rng
+    x = p["x_table"]
+    model0 = link_model(x.shape[1], device)
+    r = np.random.default_rng(150)
+    edges = [tuple(torch.from_numpy(a).to(device) for a in link_edges(
+        p["col_ptrs"], p["row_indices"], LINK_EDGES, r))
+        for _ in range(1 + TIMED_STEPS)]
+    out, flat = {}, {}
+
+    def run(P, dropout, steps, what):
+        """``steps`` timed steps at P from ``model0``'s parameters."""
+        m = copy.deepcopy(model0)
+        m.dropout = dropout
+        tr = link14_trainer(m, meshes[P])
+        xi = build_interleaved_features(x, P)
+        box = {"state": tr.init_fn()}
+
+        def step(i):
+            box["state"], loss, ovf = tr.train_step(
+                box["state"], rng.key(151), graphs["out", P], xi, *edges[i])
+            return float(loss), int(ovf)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses, ovf = [], [], 0
+        for i in range(steps):
+            (loss, o), t = timer(lambda: step(i))
+            ms.append(t)
+            losses.append(loss)
+            ovf += o
+            check(np.isfinite(loss), f"partitioned link P={P}: loss finite")
+        check(ovf == 0, f"partitioned link P={P}: overflow 0")
+        res = dict(step_ms=ms[1:], first_ms=ms[0],
+                   step_ms_mean=float(np.mean(ms[1:])),
+                   peak_device_gib=peak_gib(), losses=losses)
+        log(f"phase 14 (d) make_partitioned_link_trainer P={P}, dropout "
+            f"{dropout}, {LINK_EDGES} edges a step ({what}): step ms (first "
+            f"{ms[0]:.1f}) " + ", ".join(f"{m:.1f}" for m in ms[1:])
+            + f"; mean {res['step_ms_mean']:.2f}; peak device memory "
+            f"{res['peak_device_gib']:.2f} GiB; overflow 0; losses "
+            + ", ".join(f"{v:.6f}" for v in losses))
+        del xi, tr, box
+        torch.cuda.empty_cache()
+        return res
+
+    out[1] = run(1, model0.dropout, 1 + TIMED_STEPS, "timed")
+    flat[1] = run(1, 0.0, DIST_LOSS_STEPS, "the cross-P check")["losses"]
+    out[DIST_PARTS] = run(DIST_PARTS, 0.0, DIST_LOSS_STEPS,
+                          "the cross-P check, timed")
+    flat[DIST_PARTS] = out[DIST_PARTS]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(flat[DIST_PARTS], flat[1]))
+    log(f"check: phase 14 (d) dropout-0 losses P={DIST_PARTS} against P=1 "
+        f"over {DIST_LOSS_STEPS} steps: {flat[DIST_PARTS]} vs {flat[1]}, "
+        f"largest relative difference {rel:.3e} (limit {DIST_LOSS_RTOL})")
+    check(rel <= DIST_LOSS_RTOL,
+          f"partitioned link losses across P: {rel:.3e}")
+    out["dropout0_losses"] = {str(k): v for k, v in flat.items()}
+    out["max_rel_loss_diff"] = rel
+    return out
+
+
+def card_vs_cpu14(sg, device):
+    """Phase 14 (e): on phase 3's 5% cut, card against CPU, same keys and
+    inputs, the card at P = ``DIST_PARTS`` thread ranks and the CPU at P =
+    1 (the walks and negatives do not depend on P): ``CUT14_WALKS``
+    node2vec walks of ``CUT14_LENGTH`` at (1, 1.5) on the cut's out-edge
+    CSR differ in 0 steps; the negatives (``CUT14_NEG_INPUTS`` inputs,
+    outbound and inbound) are equal; the tempo and CTDNE walks (the
+    in-edge ELL adjacency; CTDNE in ``CTDNE_P4_BIASES``) differ in at most
+    ``CUT_DIFF_LIMIT`` of the walks (the last ulp of ``log`` may move a
+    Gumbel argmax); ``CUT_STEPS`` steps of (d)'s link trainer at P = 1 on
+    both, on ``LINK_CUT_EDGES`` edges, give losses within
+    ``DIST_LOSS_RTOL``.  Those steps run at dropout 0: the masks' threefry
+    took most of the CPU's 50 s here, and phases 7, 11 and 13 already hold
+    dropout masks card against CPU; what (e) adds is the partitioned
+    link path (owner-probed negatives, three segments, the global
+    loss)."""
+    from tch_geometric_tpu_torch.data.storage import to_csr
+    from tch_geometric_tpu_torch.parallel import (
+        build_partitioned_graph, dist_biased_tempo_random_walk,
+        dist_negative_sample, dist_random_walk, dist_tempo_random_walk,
+        make_mesh)
+    from tch_geometric_tpu_torch.parallel.mesh import ThreadComm
+    from tch_geometric_tpu_torch.sampling import rng
+    cpu = torch.device("cpu")
+    ns = sg["ns"]
+    out_csr = to_csr(sg["ei"], ns)[:2]
+    r = np.random.default_rng(152)
+    starts = r.integers(0, ns, CUT14_WALKS)
+    start_ts = r.integers(0, TIME_RANGE, CUT14_WALKS)
+    neg_in = r.integers(0, ns, CUT14_NEG_INPUTS)
+    edges = [link_edges(sg["cp"], sg["ri"], LINK_CUT_EDGES, r)
+             for _ in range(CUT_STEPS)]
+    model = link_model(sg["xs"].shape[1], cpu)
+    res, secs = {}, {}
+    for side, dev, P in (("card", device, DIST_PARTS), ("cpu", cpu, 1)):
+        t = time.perf_counter()
+        mesh = make_mesh((P, 1), device=dev, comm=ThreadComm(P))
+        g_out = build_partitioned_graph(
+            *out_csr, P, edge_timestamps=timed_ts(out_csr[1], ns, 153),
+            device=dev)
+        g_in = build_partitioned_graph(
+            sg["cp"], sg["ri"], P, edge_timestamps=timed_ts(sg["ri"], ns, 154),
+            device=dev)
+        o = {}
+        with torch.no_grad():
+            o["node2vec"] = dist_random_walk(
+                rng.key(155), g_out, starts, CUT14_LENGTH, mesh, p=1.0,
+                q=1.5, capacity_factor=DIST_CF)
+            for inbound in (False, True):
+                o[f"negatives {inbound}"] = dist_negative_sample(
+                    rng.key(156), g_out, neg_in, NEG_NUM, NEG_TRIES, mesh,
+                    inbound=inbound, capacity_factor=DIST_CF)
+            o["tempo"] = dist_tempo_random_walk(
+                rng.key(157), g_in, starts, start_ts, CUT14_LENGTH,
+                TEMPORAL_WINDOW, mesh, capacity_factor=DIST_CF)
+            for bias in CTDNE_P4_BIASES:
+                o[f"ctdne {bias}"] = dist_biased_tempo_random_walk(
+                    rng.key(158), g_in, starts, start_ts, CUT14_LENGTH, bias,
+                    mesh, retry_count=WALK_RETRIES, capacity_factor=DIST_CF)
+        for k, v in o.items():
+            check(int(v[-1].sum()) == 0, f"(e) {side} {k}: overflow 0")
+            o[k] = [_blocks(a).cpu() for a in v[:-1]]
+        walk_s = time.perf_counter() - t
+        one = make_mesh((1, 1), device=dev, comm=ThreadComm(1))
+        g1 = g_out if P == 1 else build_partitioned_graph(*out_csr, 1,
+                                                          device=dev)
+        m = copy.deepcopy(model).to(dev)
+        m.dropout = 0.0
+        tr = link14_trainer(m, one)
+        st, losses, xs = tr.init_fn(), [], sg["xs"].to(dev)
+        for src, dst in edges:
+            st, loss, ovf = tr.train_step(st, rng.key(159), g1, xs, src,
+                                          dst)
+            check(int(ovf) == 0, f"(e) {side} link: overflow 0")
+            losses.append(float(loss))
+        o["link"] = losses
+        res[side] = o
+        secs[side] = (walk_s, time.perf_counter() - t - walk_s)
+    card, host = res["card"], res["cpu"]
+    n2v = int((card["node2vec"][0] != host["node2vec"][0]).sum())
+    neg = {k: sum(int((a != b).sum()) for a, b in zip(card[k], host[k]))
+           for k in card if k.startswith("negatives")}
+    walk_diff = {k: int(((card[k][0] != host[k][0]).any(1)
+                         | (card[k][1] != host[k][1]).any(1)).sum())
+                 for k in card if k == "tempo" or k.startswith("ctdne")}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["link"], host["link"]))
+    log(f"check: phase 14 (e) card vs CPU on the {ns}-node cut (card "
+        f"P={DIST_PARTS} threads, CPU P=1; the link steps at P=1 on both, "
+        "dropout 0): "
+        f"node2vec (1, 1.5) {CUT14_WALKS} x {CUT14_LENGTH} differ "
+        f"in {n2v} steps; negatives differing slots {neg}; walks differing "
+        f"(of {CUT14_WALKS}) {walk_diff}; link losses card {card['link']}, "
+        f"CPU {host['link']}, largest relative difference {rel:.3e}; "
+        "seconds (walks and negatives, link) card "
+        f"{secs['card'][0]:.1f}, {secs['card'][1]:.1f}, CPU "
+        f"{secs['cpu'][0]:.1f}, {secs['cpu'][1]:.1f}")
+    check(n2v == 0, "(e) node2vec card and CPU equal")
+    check(not any(neg.values()), "(e) negatives card and CPU equal")
+    for k, v in walk_diff.items():
+        check(v <= CUT_DIFF_LIMIT * CUT14_WALKS, f"(e) {k}: {v} walks differ")
+    check(rel <= DIST_LOSS_RTOL, f"(e) link card vs CPU: {rel:.3e}")
+    return dict(node2vec_differing_steps=n2v, negatives_differing=neg,
+                walks_differing=walk_diff, link_losses_card=card["link"],
+                link_losses_cpu=host["link"], link_max_rel_diff=rel,
+                card_s=secs["card"], cpu_s=secs["cpu"])
+
+
+def phase14(p, csr, mag, sg, device, timer):
+    """Phase 14: (a)-(e), each part's wall seconds logged; returns its
+    numbers.  Tears the process group down at the end."""
+    from tch_geometric_tpu_torch.parallel import multihost
+    t0 = time.perf_counter()
+    res, secs = {}, {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t
+        log(f"phase 14 {name}: {secs[name]:.1f}s")
+        return out
+
+    meshes = dist_meshes(device, DIST_STORE14, "phase 14")
+    graphs, out_g, res["graphs"] = part(
+        "graphs", lambda: graphs14(p, csr, device, timer))
+    res["walks"] = part("(a), (b)", lambda: walks14(p, graphs, out_g, meshes,
+                                                    device, timer))
+    res["negatives"] = part("(c)", lambda: negatives14(
+        p, graphs, out_g, mag, meshes, device, timer))
+    del out_g
+    res["link"] = part("(d)", lambda: link14(p, graphs, meshes, device,
+                                             timer))
+    del graphs
+    torch.cuda.empty_cache()
+    res["card_vs_cpu"] = part("(e)", lambda: card_vs_cpu14(sg, device))
+    multihost.shutdown()
+    res["part_s"] = secs
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 14 wall time {res['wall_s']:.1f}s")
+    return res
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4625,7 +5115,6 @@ def main(argv=None) -> int:
         f"{models_launches}")
     check(not any(models_launches.values()),
           "no kernel of B1-B11 ran in phase 11")
-    del mag, csr
     torch.cuda.empty_cache()
 
     for fn in wrappers:
@@ -4646,6 +5135,17 @@ def main(argv=None) -> int:
         f"{mesh_launches}")
     check(not any(mesh_launches.values()),
           "no kernel of B1-B11 ran in phase 13")
+    torch.cuda.empty_cache()
+
+    for fn in wrappers:
+        fn.launches = 0
+    walk_res = phase14(p, csr, mag, sg, device, timer)
+    walk_launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"phase 14 launches (no kernel of B1-B11 lies on it): "
+        f"{walk_launches}")
+    check(not any(walk_launches.values()),
+          "no kernel of B1-B11 ran in phase 14")
+    del mag, csr
 
     summary = dict(
         card=card, scale=args.scale, nodes=n, edges=p["graph"].num_edges,
@@ -4671,7 +5171,7 @@ def main(argv=None) -> int:
         attend_peak_device_gib=attend_peak_gb,
         train=train_res, profile=prof, sampling=sampling_res,
         parity=parity_res, models=models_res, dist=dist_res,
-        mesh2=mesh_res,
+        mesh2=mesh_res, dist_walks=walk_res,
         total_s=time.perf_counter() - t_all, **sub)
     log("serving: " + json.dumps(summary))
     if args.scale == 1.0:

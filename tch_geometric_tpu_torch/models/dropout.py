@@ -1,11 +1,16 @@
-"""Keyed dropout: flax ``nn.Dropout`` semantics on the port's threefry.
+"""Keyed dropout: flax ``nn.Dropout``'s masks on the port's threefry.
 
 Keep where ``u < 1 - rate`` for ``u`` uniform in [0, 1), scale the kept
-values by ``1 / (1 - rate)`` and zero the rest.  ``u`` comes from
-``rng.uniform(rng.fold(key, layer), h.shape)``: the threefry is computed on
-``h``'s device and gives the same bits on any device, so one key gives one
-mask on the CPU and on the card.  The bits are not flax's (flax folds the
-module path into its dropout key), only the law is.
+values by ``1 / (1 - rate)`` and zero the rest.  The key is flax's: every
+model calls one ``nn.Dropout`` named ``drop`` once per hidden layer, and
+flax keys the n-th call (1-based) of a module ``drop`` in one ``apply`` by
+``fold_in(rngs["dropout"], sha1(b"drop" + n)[:4])``, the call count as
+big-endian bytes and the digest's first four bytes a big-endian uint32
+(``flax.core.scope._fold_in_static`` with the scope's per-name counter).
+So layer ``i`` draws under ``fold_in(key, flax_drop_tag(i + 1))``, the
+hash taken once per call count on the host.  The threefry is computed on
+``h``'s device and gives the same bits on any device: one key gives one
+mask on the CPU, on the card and in flax.
 
 A data-parallel rank's tree (``NeighborSample.seed_block``) holds, in each
 depth segment, one contiguous block of the whole batch's segment; ``rows``
@@ -15,6 +20,8 @@ drop exactly what one device dropping over the whole batch drops.
 """
 from __future__ import annotations
 
+import functools
+import hashlib
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -43,10 +50,20 @@ def tree_rows(sample: NeighborSample, depths: int) -> Rows:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def flax_drop_tag(n: int) -> int:
+    """The uint32 flax folds into the dropout key at the n-th call
+    (1-based) of a module named ``drop``: the first four bytes, big-endian,
+    of ``sha1(b"drop" + n.to_bytes(...))``."""
+    data = b"drop" + n.to_bytes((n.bit_length() + 7) // 8, "big")
+    return int.from_bytes(hashlib.sha1(data).digest()[:4], "big")
+
+
 def keyed_dropout(h: torch.Tensor, key: Optional[torch.Tensor], rate: float,
                   layer: int, *, deterministic: bool = False,
                   rows: Rows = None) -> torch.Tensor:
-    """Dropout of ``h`` at ``rate`` with the mask of ``fold(key, layer)``;
+    """Dropout of ``h`` at ``rate`` with flax's mask of hidden layer
+    ``layer`` (the ``layer + 1``-th dropout call, module doc);
     the identity when ``deterministic`` or ``rate <= 0``.  Raises if dropout
     is on and ``key`` is None.  ``rows`` (:func:`tree_rows`): ``h``'s rows
     are those of a larger ``h``, whose mask rows they take."""
@@ -58,7 +75,7 @@ def keyed_dropout(h: torch.Tensor, key: Optional[torch.Tensor], rate: float,
     if rate >= 1.0:
         return torch.zeros_like(h)
     keep = 1.0 - rate
-    lkey = rng.fold(key, layer)
+    lkey = rng.fold_in(key, flax_drop_tag(layer + 1))
     if rows is None:
         u = rng.uniform(lkey, h.shape, device=h.device)
     else:

@@ -49,7 +49,7 @@ from ..sampling.neighbor import (NeighborSample, _filter_mask_from_ts,
 from ..utils.adam import LearningRate, gradients, own_params
 from ..utils.config import TEMPORAL_SAMPLE_DYNAMIC, TemporalEdgeFilter
 from .mesh import (Axes, LocalShard, Mesh, Spec, all_gather, all_to_all,
-                   along, axis_index, pmean, psum, spmd, _tree_map)
+                   along, any_rank, axis_index, pmean, psum, spmd, _tree_map)
 from .multihost import placed
 from .sharded_features import (DistTrainer, feature_capacity, halo_gather,
                                loss_and_acc, replica_init_fn, replica_update,
@@ -314,9 +314,11 @@ def exchange_rounds(payload: torch.Tensor, owner, valid, owner_fn, *,
     ``payload (L, Q) int32`` goes to each request's owner;
     ``owner_fn(recv (P, C, Q)) -> (P, C, ret_cols) int32`` runs there.
     Round ``r`` carries the per-owner ranks ``[r*C, (r+1)*C)``, one request
-    and one response ``all_to_all`` each.  Returns ``(result (L, ret_cols)
-    int32, got (L,) bool, overflow)``, ``overflow`` the valid requests no
-    round carried."""
+    and one response ``all_to_all`` each; a round after the first runs only
+    if some rank of the mesh still has a request to carry
+    (:func:`~.mesh.any_rank`), since an empty round changes nothing.  Returns
+    ``(result (L, ret_cols) int32, got (L,) bool, overflow)``, ``overflow``
+    the valid requests no round carried."""
     L = payload.shape[0]
     router = _route_to_owners(owner, valid, num_parts, capacity)
     rounds = (num_rounds if router.max_rounds is None
@@ -324,6 +326,8 @@ def exchange_rounds(payload: torch.Tensor, owner, valid, owner_fn, *,
     out = torch.zeros((L, ret_cols), dtype=torch.int32, device=payload.device)
     got = torch.zeros((L,), dtype=torch.bool, device=payload.device)
     for rnd in range(rounds):
+        if rnd and not any_rank((valid & ~got).sum()):
+            break
         in_round = router.in_round(rnd)
         req = router.scatter(payload, rnd)                    # (P, C, Q)
         res = owner_fn(all_to_all(req, axis))                 # (P, C, R)

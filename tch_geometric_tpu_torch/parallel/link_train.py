@@ -1,21 +1,31 @@
 """Link-prediction training with negative sampling on the device.
 
-Counterpart of ``tch_geometric_tpu/parallel/link_train.py``'s
-single-device ``make_link_trainer``: sample trees for the batch edges'
+Counterpart of ``tch_geometric_tpu/parallel/link_train.py``.
+
+``make_link_trainer`` (one device): sample trees for the batch edges'
 endpoints and their negatives in one sampler call, encode them with any
 ``tree_forward`` model, score positives ``<h_u, h_v>`` and corrupt
 destinations, binary cross entropy on the positives and the accepted
-negatives.
-
-Orientation: the sampler needs the CSC (rows are in-neighbors), so the
+negatives.  The sampler needs the CSC (rows are in-neighbors), so the
 probe of a corrupt edge ``src -> cand`` searches cand's CSC row for src,
 ``has_edge(cand, src)``.  A candidate is rejected if it is an edge or
-equals either endpoint.  The partitioned trainer is not ported.
+equals either endpoint.
+
+``make_partitioned_link_trainer``: the same step over a partitioned
+graph, adjacency and features sharded.  The negatives are drawn and
+probed through the owner-routed exchange (``dist_negative``), the trees
+of src, dst and the negatives are sampled by three distributed sampler
+calls, each keyed by its own segment's uids, the features fetched by the
+owner-routed gather.  The loss is a global masked mean (numerator and
+denominator ``psum``'d) plus the ``pmean`` of the positives' loss, and
+each step takes the gradient of that global loss, as ``shard_map``
+differentiates it, then one Adam step per replica.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch.nn import functional as nnf
 
@@ -25,6 +35,12 @@ from ..sampling.neighbor import _sample_neighbors_impl
 from ..utils.adam import (LearningRate, adam_update, gradients, init_state,
                           own_params)
 from ..utils.metrics import trace_span
+from .dist_negative import _dist_negative_device
+from .dist_sampling import (_check_graph, _dist_sample_device, _fetch,
+                            _filter_static, _plan, resolve_num_rounds)
+from .mesh import Mesh, axis_index, pmean, psum, spmd
+from .multihost import placed
+from .sharded_features import DistTrainer, replica_init_fn, replica_update
 from .train import TrainState
 
 
@@ -141,3 +157,133 @@ def make_link_trainer(model, fanouts: Sequence[int], *, num_neg: int = 1,
         return loss_fn(key, graph, x_table, src, dst, True)
 
     return LinkTrainer(init_fn, train_step, eval_step, negatives)
+
+
+def make_partitioned_link_trainer(model, fanouts: Sequence[int], mesh: Mesh,
+                                  *, axis: str = "data", num_neg: int = 1,
+                                  try_count: int = 8,
+                                  learning_rate: LearningRate = 1e-3,
+                                  weighted: bool = False,
+                                  filter: Optional[tuple] = None,
+                                  window: int = 256,
+                                  capacity_factor: float = 1.3,
+                                  num_rounds: Optional[int] = None
+                                  ) -> DistTrainer:
+    """Link prediction over a partitioned graph (module doc).
+
+    ``graph``: a :class:`~.dist_sampling.PartitionedGraph` of the **CSR**
+    (rows are out-neighbors, the probe's direction); ``x_sharded`` the
+    interleaved features (``build_interleaved_features``); ``src``, ``dst``
+    and the optional ``edge_ts`` (B,) split over ``axis``.
+
+    ``init_fn(key, graph, x_sharded, src, dst, edge_ts=None)``: the model's
+    own parameters (made equal across processes) and a fresh Adam state.
+    ``train_step(state, key, graph, x_sharded, src, dst, edge_ts=None) ->
+    (state, loss, overflow)``: step key ``k = fold(key, step)``; negatives
+    ``fold(k, 3)``, each the first of ``try_count`` candidates that is no
+    edge from src and neither endpoint; the trees of src, dst and the
+    negatives ``fold(k, 4)``, ``fold(k, 5)``, ``fold(k, 6)``, dropout keyed
+    ``fold(segment key, DROPOUT_STREAM)``; ``overflow`` the (negative,
+    sampling and feature) requests no round carried, summed over ranks.
+    ``eval_step(...) -> (loss, rank)`` with dropout off and ``k = fold(key,
+    2**20)``; ``rank`` the share of accepted negatives scoring below their
+    positive.  ``weighted`` and ``filter=((lo, hi), forward, mode)`` as in
+    :func:`~.dist_sampling.make_partitioned_trainer`; ``edge_ts`` seeds the
+    root state of all three segments."""
+    fanouts = tuple(int(k) for k in fanouts)
+    plan = _plan(mesh, axis, None)
+    Pn = plan.num_parts
+    num_rounds = resolve_num_rounds(num_rounds, Pn)
+    filter_static = None if filter is None else _filter_static(filter)
+
+    def encode(key, gshard, x_shard, seeds_local, seed_state,
+               deterministic):
+        sample, s_ovf = _dist_sample_device(
+            key, gshard, seeds_local, dev=axis_index(axis), fanouts=fanouts,
+            axis=axis, num_parts=Pn, total_seeds=seeds_local.shape[0] * Pn,
+            capacity_factor=capacity_factor, with_replacement=False,
+            weighted=weighted, filter_static=filter_static,
+            seed_state=seed_state, window=window, num_rounds=num_rounds)
+        x, f_ovf = _fetch(x_shard, sample, plan,
+                          capacity_factor=capacity_factor,
+                          num_rounds=num_rounds, exchange_dtype=None)
+        h = model.tree_forward(sample, x, deterministic=deterministic,
+                               dropout_key=rng.fold(key,
+                                                    rng.DROPOUT_STREAM))
+        return h, s_ovf + f_ovf
+
+    def loss_terms(key, gshard, x_shard, src, dst, ts, deterministic):
+        """This rank's share of the global loss, whose gradients summed
+        over ranks are the global loss's, and the loss, rank and overflow
+        (all reduced over ``axis``)."""
+        L = src.shape[0]
+        neg, neg_ok, n_ovf = _dist_negative_device(
+            rng.fold(key, 3), gshard, src, dev=axis_index(axis),
+            num_neg=num_neg, try_count=try_count, inbound=False, axis=axis,
+            num_parts=Pn, capacity_factor=capacity_factor,
+            num_rounds=num_rounds, exclude=dst)
+        h_src, o1 = encode(rng.fold(key, 4), gshard, x_shard, src, ts,
+                           deterministic)
+        h_dst, o2 = encode(rng.fold(key, 5), gshard, x_shard, dst, ts,
+                           deterministic)
+        neg_ts = ts[:, None].expand(L, num_neg).reshape(-1)
+        h_neg, o3 = encode(rng.fold(key, 6), gshard, x_shard,
+                           neg.reshape(-1), neg_ts, deterministic)
+        h_neg = h_neg.reshape(L, num_neg, -1)
+        pos = (h_src * h_dst).sum(-1)
+        negs = (h_src[:, None, :] * h_neg).sum(-1)
+        pos_loss = _sigmoid_bce(pos, 1.0).mean()
+        num = (_sigmoid_bce(negs, 0.0) * neg_ok).sum()
+        den = psum(neg_ok.sum(), axis).clamp(min=1)
+        value = (pmean(pos_loss.detach(), axis)
+                 + psum(num.detach(), axis) / den)
+        rank = psum(((pos[:, None] > negs) * neg_ok).sum(), axis) / den
+        # d value / d params = sum over ranks of d share / d params: the
+        # pmean of P times the share
+        share = pos_loss + num * (Pn / den)
+        return share, value, rank.detach(), n_ovf + o1 + o2 + o3
+
+    def arguments(graph, x_sharded, src, dst, edge_ts):
+        _check_graph(graph, Pn, weighted, filter_static is not None)
+        if edge_ts is None:
+            edge_ts = torch.zeros(np.shape(src), dtype=torch.int32)
+        on = (axis,)
+        as_int = lambda a: torch.as_tensor(   # noqa: E731
+            a if torch.is_tensor(a) else np.asarray(a)).to(torch.int32)
+        return ([placed(graph, mesh, on), placed(x_sharded, mesh, on)]
+                + [placed(as_int(v), mesh, on) for v in (src, dst, edge_ts)])
+
+    def train_step(state: TrainState, key, graph, x_sharded, src, dst,
+                   edge_ts=None):
+        own_params(model, state.params)
+        step_key = rng.fold(key, state.step)
+        holder = {"opt": state.opt_state}
+
+        def body(gshard, x_shard, src_l, dst_l, ts_l):
+            share, value, _rank, overflow = loss_terms(
+                step_key, gshard, x_shard, src_l, dst_l, ts_l, False)
+            grads = gradients(share, state.params)
+            replica_update(state.params, grads, holder, learning_rate, axis)
+            return value, psum(overflow, axis)
+
+        loss, overflow = spmd(mesh, body, *arguments(graph, x_sharded, src,
+                                                     dst, edge_ts))
+        return (TrainState(state.params, holder["opt"], state.step + 1),
+                loss[0], overflow[0])
+
+    @torch.no_grad()
+    def eval_step(state, key, graph, x_sharded, src, dst, edge_ts=None):
+        if isinstance(state, TrainState):
+            own_params(model, state.params)
+        k = rng.fold(key, 1 << 20)
+
+        def body(gshard, x_shard, src_l, dst_l, ts_l):
+            _share, value, rank, _ovf = loss_terms(
+                k, gshard, x_shard, src_l, dst_l, ts_l, True)
+            return value, rank
+
+        loss, rank = spmd(mesh, body, *arguments(graph, x_sharded, src, dst,
+                                                 edge_ts))
+        return loss[0], rank[0]
+
+    return DistTrainer(replica_init_fn(mesh, model), train_step, eval_step)

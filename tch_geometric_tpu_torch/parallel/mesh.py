@@ -759,6 +759,16 @@ def pmean(x: torch.Tensor, axis: Axes) -> torch.Tensor:
     return axis_comm(axis).all_reduce(x, "mean")
 
 
+def any_rank(count: torch.Tensor) -> bool:
+    """Whether ``count`` summed over every rank of the running mesh is
+    positive (one host read).  Control flow that depends on data around
+    collectives asks the whole mesh, not its own axis' group: on a thread
+    mesh each collective is one rendezvous of all the ranks, so every rank
+    must take the same branch."""
+    mesh = current_mesh()
+    return int(psum(count.to(mesh.device), mesh.axis_names)) > 0
+
+
 def all_gather(x: torch.Tensor, axis: Axes) -> torch.Tensor:
     return axis_comm(axis).all_gather(x)
 

@@ -30,8 +30,8 @@ from ..sampling import rng
 from ..sampling.neighbor import _sample_neighbors_impl
 from ..utils.adam import (LearningRate, Params, adam_update,
                           gradients, init_state, own_params)
-from .mesh import (Axes, Mesh, ProcessGroupComm, all_to_all, axis_index,
-                   current_mesh, pmean, psum, spmd)
+from .mesh import (Axes, Mesh, ProcessGroupComm, all_to_all, any_rank,
+                   axis_index, current_mesh, pmean, psum, spmd)
 from .multihost import placed
 from .train import TrainState
 
@@ -79,7 +79,8 @@ def routed_row_fetch(table: torch.Tensor, owner, local, valid, *, axis: Axes,
     """Owner-routed row fetch with explicit (owner, local) addressing
     (inside ``spmd``): requests route to ``owner``, owners read
     ``table[local]`` from their own table, rows route back.  Returns ((L,
-    F) rows, overflow count of the valid requests no round carried)."""
+    F) rows, overflow count of the valid requests no round carried).  A
+    round after the first runs only if some rank still has a request."""
     from .dist_sampling import _route_to_owners
     L = owner.shape[0]
     router = _route_to_owners(owner, valid, num_parts, capacity)
@@ -90,6 +91,8 @@ def routed_row_fetch(table: torch.Tensor, owner, local, valid, *, axis: Axes,
     got = torch.zeros((L,), dtype=torch.bool, device=table.device)
     local = local.to(torch.int32)
     for rnd in range(rounds):
+        if rnd and not any_rank((valid & ~got).sum()):
+            break               # no rank has a request left to carry
         in_round = router.in_round(rnd)
         req = router.scatter(local, rnd)                  # (P, C)
         peer_req = all_to_all(req, axis)                  # (P, C) of me

@@ -233,6 +233,12 @@ def uniform_each(keys: torch.Tensor, shape: Sequence[int],
     return _uniform_from_bits(random_bits_each(keys, shape), minval, maxval)
 
 
+def gumbel_each(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``vmap(lambda k: gumbel(k, shape))(keys)``: -log(-log(u)), u ~
+    U[tiny, 1) under each row's key."""
+    return -torch.log(-torch.log(uniform_each(keys, shape, _TINY32, 1.0)))
+
+
 def randint_each(keys: torch.Tensor, shape: Sequence[int], minval, maxval
                  ) -> torch.Tensor:
     """``vmap(lambda k, lo, hi: randint(k, shape, lo, hi))``: ``minval`` /

@@ -61,6 +61,17 @@ def _clip_edge(graph: CsrGraph, eptr: torch.Tensor) -> torch.Tensor:
 # node2vec
 # ---------------------------------------------------------------------------
 
+def node2vec_probs(p: float, q: float) -> Tuple[float, float, float]:
+    """The accept probabilities of a step back to the previous node, to a
+    neighbor of it and farther, computed in float32 from ``float32(p)``
+    and ``float32(q)`` as the JAX package computes them."""
+    inv_p = 1.0 / torch.tensor(p, dtype=torch.float32)
+    inv_q = 1.0 / torch.tensor(q, dtype=torch.float32)
+    max_prob = torch.maximum(torch.maximum(inv_p, torch.ones(())), inv_q)
+    return (float(inv_p / max_prob), float(1.0 / max_prob),
+            float(inv_q / max_prob))
+
+
 def _random_walk_impl(key, graph: CsrGraph, start: torch.Tensor,
                       walk_length: int, p: float, q: float,
                       num_trials: int) -> torch.Tensor:
@@ -69,13 +80,7 @@ def _random_walk_impl(key, graph: CsrGraph, start: torch.Tensor,
     device = graph.device
     B = start.shape[0]
     start = start.long()
-    p32 = torch.tensor(p, dtype=torch.float32)
-    q32 = torch.tensor(q, dtype=torch.float32)
-    inv_p, inv_q = 1.0 / p32, 1.0 / q32
-    max_prob = torch.maximum(torch.maximum(inv_p, torch.ones(())), inv_q)
-    prob0 = float(inv_p / max_prob)       # back to the previous node
-    prob1 = float(1.0 / max_prob)         # a neighbor of the previous node
-    prob2 = float(inv_q / max_prob)       # farther
+    prob0, prob1, prob2 = node2vec_probs(p, q)
 
     use_ell = graph.ell is not None
     prev = torch.full((B,), -1, dtype=torch.long, device=device)

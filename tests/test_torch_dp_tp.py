@@ -13,9 +13,8 @@ package, on the CPU (karate's topology with seeded dense features).
   mesh with ``shard_params`` (``dryrun_multichip``'s setup; one compile,
   which both shapes read) and against the port's one-device trainer:
   three steps' losses within 1e-5 relative, dropout 0.  With dropout 0.5 the port's
-  DP+TP losses are held against its one-device trainer (1e-5): the port's
-  keyed dropout draws other bits than flax's (``models/dropout.py``), so
-  no dropout-on loss compares with JAX's;
+  DP+TP losses are held against its one-device trainer (1e-5), and in
+  ``test_torch_flax_dropout.py`` against JAX's;
 * GCN, GIN and GAT at (2, 2), two steps each, against JAX's DP+TP step;
 * ``make_multibatch_sage_trainer(mesh=)`` at (2, 2) against JAX's on the
   same mesh (dropout 0) and against the port's one-device trainer

@@ -12,10 +12,9 @@ package's, on the CPU, with flax parameters carried in:
   lr a step) on both sides;
 * ``make_link_trainer`` with a 2-layer SAGE at dropout 0.5 on
   fakedataset's CSC: K = 4 steps (same limits; rank accuracies at 1e-7)
-  and an ``eval_step``.  The flax SAGE of the JAX side draws its dropout
-  masks by the port's keyed law (``uniform(fold(key, layer)) < 1 -
-  rate``) from the key the JAX trainer passes, so the keyed masks, and the
-  trainer's key for them, are held too;
+  and an ``eval_step``.  The port draws flax's own dropout masks
+  (``models/dropout.py``), so the JAX side is the plain flax GraphSAGE
+  and the masks, and the trainer's key for them, are held too;
 * the link trainer on a complete graph, where every candidate is
   rejected: the loss is the positives' alone, equal to JAX's, and
   ``first_accepted`` equals ``jnp.argmax`` of bool rows, all-False ones
@@ -30,7 +29,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax import linen as nn
 
 from tch_geometric_tpu.data.graph import make_graph as jmake_graph
 from tch_geometric_tpu.models.hgt import HGT as JHGT
@@ -205,22 +203,6 @@ def test_hgt_checkpoint_round_trip(hetero, tmp_path):
         assert torch.equal(resumed.state_dict()[k], p), k
 
 
-class KeyedSAGE(JSAGE):
-    """The JAX GraphSAGE with the port's keyed dropout law: the mask of
-    layer i is ``uniform(fold_in(key, i)) < 1 - rate``, ``key`` the dropout
-    rng the trainer passes to ``apply``."""
-
-    def _act(self, h, i, deterministic):
-        if i < self.num_layers - 1:
-            h = nn.relu(h)
-            if self.dropout > 0.0 and not deterministic:
-                key = self.scope.rngs["dropout"].as_jax_rng()
-                keep = 1.0 - self.dropout
-                u = jax.random.uniform(jax.random.fold_in(key, i), h.shape)
-                h = jnp.where(u < keep, h / keep, 0.0)
-        return h
-
-
 def _link_graphs(x, ei):
     n = x.shape[0]
     cp, ri, _ = to_csc(ei, n)
@@ -230,7 +212,7 @@ def _link_graphs(x, ei):
 
 def _link_run(x, ei, src, dst, *, dropout, steps=K, **kw):
     g, jg = _link_graphs(x, ei)
-    jm = KeyedSAGE(hidden=HIDDEN, out=HIDDEN, num_layers=2, dropout=dropout)
+    jm = JSAGE(hidden=HIDDEN, out=HIDDEN, num_layers=2, dropout=dropout)
     jinit, jstep, jeval = jlink_trainer(jm, [3, 2], **kw)
     xj, xt = jnp.asarray(x), torch.from_numpy(x)
     js = jinit(jax.random.key(0), jg, xj, jnp.asarray(src[0]),

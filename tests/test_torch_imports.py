@@ -45,7 +45,9 @@ MODULES = ["tch_geometric_tpu_torch.data.dataset",
            "tch_geometric_tpu_torch.ops.segment",
            "tch_geometric_tpu_torch.ops.spmm",
            "tch_geometric_tpu_torch.ops.spmm_kernels",
+           "tch_geometric_tpu_torch.parallel.dist_negative",
            "tch_geometric_tpu_torch.parallel.dist_sampling",
+           "tch_geometric_tpu_torch.parallel.dist_walks",
            "tch_geometric_tpu_torch.parallel.hgt_train",
            "tch_geometric_tpu_torch.parallel.link_train",
            "tch_geometric_tpu_torch.parallel.mesh",
@@ -88,8 +90,8 @@ def test_module_import_loads_no_jax(module):
     """Each module of the GAT/GCN/GIN, attention, training and sampling
     slices, of the data layer, walks, HGT, budget and negative samplers,
     transforms and loader, of the HGT and node2vec models and their
-    trainers, and of the mesh, the partitioned graph, its exchanges and
-    trainers, imported alone in a fresh interpreter, loads no JAX and
+    trainers, and of the mesh, the partitioned graph, its exchanges,
+    trainers, walks and negative samplers, imported alone in a fresh interpreter, loads no JAX and
     nothing of the JAX package."""
     code = ("import sys, importlib\n"
             f"bad = lambda: {{m for m in sys.modules if m.split('.')[0] in "
@@ -122,7 +124,11 @@ EXPORTS = {
         "inject_shard_fault", "build_interleaved_features", "halo_gather",
         "make_sharded_feature_trainer", "PartitionedGraph",
         "build_partitioned_graph", "dist_sample_neighbors",
-        "make_partitioned_trainer", "make_partitioned_multibatch_trainer"],
+        "make_partitioned_trainer", "make_partitioned_multibatch_trainer",
+        "dist_random_walk", "dist_tempo_random_walk",
+        "dist_biased_tempo_random_walk", "effective_edge_ts",
+        "dist_negative_sample", "dist_negative_sample_hetero",
+        "make_partitioned_link_trainer"],
     "tch_geometric_tpu_torch.parallel.multihost": [
         "initialize", "make_mesh", "global_from_local", "replicated",
         "local_seed_shard", "put_partitioned"],
@@ -176,7 +182,8 @@ def test_ported_names_exported(module, name):
     training slice's entry points, the sampling slices' samplers, data and
     ops, the transforms and the loader, the HGT and node2vec models, the
     HGT and link trainers, and the mesh, multihost, partitioned graph,
-    exchange and partitioned-trainer names are public names of the port; each
+    exchange, partitioned-trainer, distributed walk and negative sampler
+    names are public names of the port; each
     ``_cuda`` wrapper carries a launch count."""
     import importlib
     obj = getattr(importlib.import_module(module), name)
@@ -230,16 +237,13 @@ def test_layer_and_model_devices_default_to_the_card():
 # takes its names off this list
 DISTRIBUTED = {
     # modules
-    "dist_walks", "dist_budget", "dist_hgt", "dist_hetero", "dist_negative",
+    "dist_budget", "dist_hgt", "dist_hetero",
     # the partitioned HGT trainer
     "make_partitioned_hgt_trainer",
     # the dist_* samplers and their graph layouts
-    "dist_random_walk", "dist_tempo_random_walk",
-    "dist_biased_tempo_random_walk", "effective_edge_ts",
     "dist_budget_sample", "dist_budget_sample_hetero", "StackedRels",
     "build_partitioned_hetero", "dist_hgt_sample", "put_stacked_rels",
     "stack_partitioned_rels", "dist_hetero_neighbor_sample",
-    "dist_negative_sample", "dist_negative_sample_hetero",
 }
 
 
