@@ -271,6 +271,40 @@ prints no result line):
    tempo and CTDNE walks within 1e-3 of the walks, 3 link steps of 256
    edges (dropout 0) within 1e-5.  Each part's wall time and the phase's
    are printed.
+15. distributed budget sampling, typed distributed neighbor sampling and
+   the partitioned heterogeneous layouts (no kernel of B1-B11 lies on
+   them; their launch counts must stay 0), at P = 1 over a process group
+   of world size 1 (NCCL) and, one configuration a sampler, at P = 4
+   thread ranks: (a) ``dist_budget_sample`` at
+   ``scripts/bench_partitioned_products.py``'s configuration (512 seeds,
+   [15, 10, 5], capacity factor 1.3) on the products CSC (the ELL table:
+   lane top-k fills) and its out-edge CSR (max degree 113,135: Floyd's
+   fills), and with the temporal filter on the CSC (edge timestamps and
+   seed states in [0, 1000) from a seed, window (0, 400), forward,
+   ``relative`` False and True), each at the default rounds at P = 1, and
+   the CSC at one round at P = 4: ms per call (host clock to a
+   synchronise; at P = 1 one warm-up then one, at P = 4 one call), the
+   overflow rate, the valid share per hop; every valid edge real and in
+   its parent's window, a parent's picks distinct, every edge through the
+   filter against its parent's state, a child's state its edge's (its
+   root's with ``relative``); (b) ``dist_budget_sample_hetero`` on phase
+   9's mag shape (1,024 papers, [15, 10] per type; no filter and the
+   temporal filter; P = 4: temporal) and (c)
+   ``dist_hetero_neighbor_sample`` there ([15, 10] per relation; uniform,
+   weighted without and with replacement, temporal DYNAMIC; P = 4:
+   DYNAMIC; the relations without an ELL table run the window engines),
+   each edge checked as phases 9 (b) and 10 (e) check theirs; (d) each
+   P = 4 sample, its rank blocks in the one-rank layout
+   (``merge_rank_blocks`` for the typed ones), equal to P = 1's on every
+   valid slot and validity bit with overflow 0 (at one round, if some
+   request overflowed, on the slots it carried), and
+   ``put_stacked_rels`` of the mag relations at P = 4: each relation's
+   slice its own graph, padded rows of degree 0; (e) card against CPU on
+   phase 3's 5% cut and the mag cut, 256 seeds or papers, each sampler's
+   P = 4 configuration at P = 4 and the others at P = 1 on both: (a)-(c)
+   equal, a Gumbel-ranked configuration within 1e-3 of the valid slots
+   (each count printed).  Each part's wall time and the phase's are
+   printed.
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -4891,6 +4925,499 @@ def phase14(p, csr, mag, sg, device, timer):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: distributed budget sampling, typed distributed neighbor sampling
+# and the partitioned heterogeneous layouts
+# ---------------------------------------------------------------------------
+
+DIST_STORE15 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "dist_store15")
+# scripts/bench_partitioned_products.py:175-214: BASELINE config 5's budget
+# sampler at products scale, B = 512, capacity factor 1.3, 1 and 2 rounds
+BUDGET15_SEEDS = 512
+CUT15_SEEDS = 256               # (e): seeds (papers) a call on the 5% cuts
+TYPED15_BUDGET = (("uniform", None), ("temporal", TEMPORAL_WINDOW))
+# with every configuration at P = 4 too the script took 1,000.4 s (phase
+# 15 100.6 s) on an H100 80GB HBM3 at 700 W, past its 1,000 s aim, so
+# P = 4 runs one configuration a sampler: the CSC at one round (its
+# overflow rate; at P = 1 one round is the default), the typed samplers'
+# temporal ones
+P4_BUDGET, P4_TYPED = ("csc", 1, None), ("temporal", "temporal_dynamic")
+
+
+def budget_layers(s):
+    """A distributed homogeneous sample's rank blocks in the one-rank
+    layout, layer by layer, rows and cols renumbered to its slots."""
+    P = s.nodes.shape[0]
+    nb, eb = s.node_base, s.edge_base
+    ar = lambda n: torch.arange(n, device=s.nodes.device)  # noqa: E731
+    gslot = torch.cat([P * nb[i] + ar(P)[:, None] * (nb[i + 1] - nb[i])
+                       + ar(nb[i + 1] - nb[i])[None, :]
+                       for i in range(len(nb) - 1)], dim=1)
+    out = {}
+    for f in ("nodes", "node_state", "node_valid", "rows", "cols", "eptr",
+              "edge_valid"):
+        a = getattr(s, f)
+        if f in ("rows", "cols"):
+            a = torch.gather(gslot, 1, a.long())
+        base = nb if f.startswith("node") else eb
+        out[f] = torch.cat([a[:, base[i]: base[i + 1]].reshape(-1)
+                            for i in range(len(base) - 1)])
+    return out
+
+
+def whole_diff(a, b):
+    """Slots in which two samples differ, every array compared whole
+    (invalid slots too): dicts of arrays, or tuples of dicts of arrays."""
+    if isinstance(a, dict):
+        return sum(whole_diff(a[k], b[k]) for k in b)
+    if isinstance(a, (tuple, list)):
+        return sum(whole_diff(x, y) for x, y in zip(a, b))
+    return int((a.cpu() != b.cpu()).sum())
+
+
+def valid_only(s):
+    """A one-rank sample with its invalid slots' ids, states and edge
+    pointers set to -1: an invalid Floyd pick's id reads the owner's edge
+    list at a row of degree 0, whose neighbor there depends on P."""
+    m = lambda ok, a: torch.where(ok, a, -1)  # noqa: E731
+    if isinstance(s, dict):
+        nv, ev = s["node_valid"], s["edge_valid"]
+        return dict(s, nodes=m(nv, s["nodes"]),
+                    node_state=m(nv, s["node_state"]),
+                    eptr=m(ev, s["eptr"]))
+    nodes, node_ts, nv, rows, cols, eptr, ev = s
+    return ({t: m(nv[t], v) for t, v in nodes.items()},
+            {t: m(nv[t], v) for t, v in node_ts.items()}, nv, rows, cols,
+            {k: m(ev[k], v) for k, v in eptr.items()}, ev)
+
+
+def carried_diff(a, ref):
+    """Valid slots of the one-round layout ``a`` that differ from the
+    default rounds' ``ref`` (id, state or edge pointer)."""
+    nv, ev = a["node_valid"], a["edge_valid"]
+    return (int((nv & ((a["nodes"] != ref["nodes"])
+                       | (a["node_state"] != ref["node_state"]))).sum())
+            + int((ev & (a["eptr"] != ref["eptr"])).sum()))
+
+
+def check_budget_layers(what, s, indptr, indices, ts, window, relative):
+    """(a)'s checks on a one-rank budget layout: every valid edge is real
+    and lies in its parent's window; a parent's valid picks are distinct
+    edges; under the filter every edge's timestamp passes the half-open
+    forward window against its parent's state, and a child's state is the
+    edge's timestamp or, with ``relative``, its parent's (so its root's).
+    Returns the valid edges."""
+    ev = s["edge_valid"]
+    e, rr, cc = s["eptr"][ev], s["rows"][ev], s["cols"][ev]
+    child, parent = s["nodes"][rr], s["nodes"][cc]
+    check(torch.equal(indices[e].long(), child)
+          and bool(((e >= indptr[parent]) & (e < indptr[parent + 1])).all()),
+          f"{what}: every valid edge is real")
+    pairs = torch.stack([cc, e], dim=1)
+    check(torch.unique(pairs, dim=0).shape[0] == pairs.shape[0],
+          f"{what}: a parent's picks are distinct edges")
+    if window is not None:
+        t, pt = ts[e].long(), s["node_state"][cc]
+        d = t - pt
+        check(bool(((d >= window[0]) & (d < window[1])).all()),
+              f"{what}: every edge passes the window")
+        check(torch.equal(s["node_state"][rr], pt if relative else t),
+              f"{what}: the child's state")
+    return int(ev.sum())
+
+
+def graphs15(p, csr, device, timer):
+    """(a)'s partitioned products graphs at P = 1 and ``DIST_PARTS``: the
+    CSC (max in-degree 56: the ELL table, lane top-k fills) with edge
+    timestamps in ``[0, TIME_RANGE)`` from a seed, and the out-edge CSR
+    (max degree 113,135, no ELL table: Floyd's fills); each build timed."""
+    from tch_geometric_tpu_torch.parallel import build_partitioned_graph
+    ts = edge_values(len(p["row_indices"]), 160, device)[1]
+    arrays = {"csc": (p["col_ptrs"], p["row_indices"], ts),
+              "csr": (csr[0], csr[1], None)}
+    graphs, out = {"ts": ts}, {}
+    for k, (ptr, ind, t) in arrays.items():
+        graphs[k] = tuple(torch.from_numpy(a).to(device) for a in (ptr, ind))
+        for P in (1, DIST_PARTS):
+            g, ms = timer(lambda: build_partitioned_graph(
+                *graphs[k], P, edge_timestamps=t, device=device))
+            graphs[k, P] = g
+            out[f"{k} P={P}"] = dict(build_ms=ms,
+                                     device_gib=g.nbytes() / 2**30)
+            log(f"phase 15 partitioned products {k} P={P}: {ms:.1f} ms, "
+                f"{g.nbytes() / 2**30:.3f} GiB, ELL "
+                f"{'yes' if g.ell is not None else 'no'}, max degree "
+                f"{g.max_degree}")
+    return graphs, out
+
+
+def calls15(timer, fn, P):
+    """At P = 1 one warm-up and one timed call of ``fn``, at P > 1 one
+    call: the last output and the times (the first a warm-up at P = 1)."""
+    ms = []
+    for _ in range(2 if P == 1 else 1):
+        out, t = timer(fn)
+        ms.append(t)
+    return out, ms
+
+
+def budget15(graphs, meshes, timer):
+    """Phase 15 (a): ``dist_budget_sample`` of ``BUDGET15_SEEDS`` seeds,
+    ``FANOUTS``, capacity factor ``DIST_CF``, default rounds, at P = 1 on
+    the CSC (lane top-k fills) and the out-edge CSR (Floyd's), and with
+    the temporal filter on the CSC (window ``TEMPORAL_WINDOW``, forward,
+    ``relative`` False and True, seed states in ``[0, TIME_RANGE)``); at
+    P = ``DIST_PARTS`` ``P4_BUDGET`` (the CSC at one round): ms per call,
+    the overflow rate (of the requests), the valid share per hop; (a)'s
+    edge checks on every sample; the P = 4 sample's carried slots equal
+    P = 1's (every valid slot when nothing overflowed)."""
+    from tch_geometric_tpu_torch.parallel import dist_budget_sample
+    from tch_geometric_tpu_torch.sampling import rng
+    n = graphs["csc"][0].shape[0] - 1
+    r = np.random.default_rng(161)
+    seeds = r.integers(0, n, BUDGET15_SEEDS)
+    seed_ts = r.integers(0, TIME_RANGE, BUDGET15_SEEDS)
+    n_req = sum(BUDGET15_SEEDS * int(np.prod(FANOUTS[:i]))
+                for i in range(len(FANOUTS)))
+    runs = [(1, "csc", None, None), (1, "csr", None, None),
+            (1, "csc", None, False), (1, "csc", None, True),
+            (DIST_PARTS,) + P4_BUDGET]
+    res, p1 = {}, {}
+    with torch.no_grad():
+        for P, k, nr, rel in runs:
+            name = (f"{k} rounds {nr or 'default'}" if rel is None
+                    else f"{k} temporal relative {rel}")
+            kw = dict(capacity_factor=DIST_CF, num_rounds=nr)
+            if rel is not None:
+                kw.update(input_timestamps=seed_ts, window=TEMPORAL_WINDOW,
+                          forward=True, relative=rel)
+            (s, o), ms = calls15(timer, lambda: dist_budget_sample(
+                rng.key(162), graphs[k, P], seeds, FANOUTS, meshes[P], **kw),
+                P)
+            out, ovf = budget_layers(s), int(o.sum())
+            edges = check_budget_layers(f"phase 15 (a) {name} P={P}", out,
+                                        *graphs[k], graphs["ts"],
+                                        kw.get("window"), rel)
+            nb = [P * b for b in s.node_base]         # the one-rank layers
+            shares = [float(out["node_valid"][nb[i]: nb[i + 1]].float()
+                            .mean()) for i in range(1, len(nb) - 1)]
+            if P == 1:
+                check(ovf == 0, f"(a) {name}: overflow 0")
+                p1.setdefault((k, rel), out)
+                across = ""
+            else:
+                ref = p1[k, rel]
+                diff = carried_diff(out, ref)
+                if ovf == 0:
+                    diff += whole_diff(valid_only(out), valid_only(ref))
+                check(diff == 0, f"(a) {name} P={P}: {diff} slots differ "
+                      "from P=1's")
+                across = ("; bit-equal to P=1" if ovf == 0 else
+                          "; the carried slots equal P=1's")
+            log(f"phase 15 (a) dist_budget_sample {name} P={P}: ms "
+                + (f"(first, warm-up) {ms[0]:.1f}, then {ms[1]:.1f}"
+                   if P == 1 else f"{ms[0]:.1f} (one call)")
+                + f"; overflow rate {ovf / n_req:.2e}; valid share per hop "
+                + ", ".join(f"{v:.4f}" for v in shares)
+                + f"; {edges} edges checked{across}")
+            res[f"{name} P={P}"] = dict(ms=ms[-1], first_ms=ms[0],
+                                        overflow_rate=ovf / n_req,
+                                        valid_share_per_hop=shares,
+                                        edges=edges)
+    return res
+
+
+def mag_rels15(counts, edge_types, csc, P, device, seed):
+    """The mag-shaped relations partitioned for P ranks: (b)'s by
+    ``build_partitioned_hetero`` with edge timestamps, (c)'s one
+    ``build_partitioned_graph`` a relation with edge weights and
+    timestamps (``edge_values``, seeded per relation); and the
+    timestamps by sorted edge."""
+    from tch_geometric_tpu_torch.parallel import (build_partitioned_graph,
+                                                  build_partitioned_hetero)
+    w, ts = {}, {}
+    for i, k in enumerate(sorted(csc)):
+        w[k], ts[k] = edge_values(len(csc[k][1]), seed + i, device)
+    cp = {k: torch.from_numpy(v[0]).to(device) for k, v in csc.items()}
+    ri = {k: torch.from_numpy(v[1]).to(device) for k, v in csc.items()}
+    budget = build_partitioned_hetero(cp, ri, edge_types, P,
+                                      edge_timestamps=ts, node_counts=counts,
+                                      device=device)
+    neighbor = {k: build_partitioned_graph(cp[k], ri[k], P, edge_weights=w[k],
+                                           edge_timestamps=ts[k],
+                                           device=device) for k in csc}
+    return budget, neighbor, {k: v.int() for k, v in ts.items()}
+
+
+def typed15(kind, cfg, rels, edge_types, seeds, states, mesh):
+    """One typed call of ``kind`` ("budget" or "neighbor") under
+    configuration ``cfg`` (``TYPED15_BUDGET``'s or ``HETERO_CONFIGS``'),
+    ``MAG_FANOUTS`` per type or relation: (sample, overflow)."""
+    from tch_geometric_tpu_torch.parallel import (dist_budget_sample_hetero,
+                                                  dist_hetero_neighbor_sample)
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.utils import config as c
+    hops = len(MAG_FANOUTS)
+    if kind == "budget":
+        node_types = sorted({t for e in edge_types for t in (e[0], e[2])})
+        window = dict(TYPED15_BUDGET)[cfg]
+        return dist_budget_sample_hetero(
+            rng.key(163), rels, edge_types, seeds,
+            {t: MAG_FANOUTS for t in node_types}, hops, mesh,
+            input_timestamps=states, window=window, forward=True)
+    kw = {}
+    if cfg.startswith("weighted"):
+        kw = dict(weighted=set(rels),
+                  with_replacement=cfg == "weighted_replace")
+    elif cfg == "temporal_dynamic":
+        kw = dict(filter=(TEMPORAL_WINDOW, True, c.TEMPORAL_SAMPLE_DYNAMIC),
+                  input_timestamps=states)
+    return dist_hetero_neighbor_sample(
+        rng.key(164), rels, edge_types, seeds,
+        {k: MAG_FANOUTS for k in rels}, hops, mesh, **kw)
+
+
+def merged15(kind, out, edge_types, seeds):
+    """A typed sample's rank blocks in the one-rank layout."""
+    from tch_geometric_tpu_torch.parallel import merge_rank_blocks
+    node_types = sorted({t for e in edge_types for t in (e[0], e[2])})
+    fan = ({t: MAG_FANOUTS for t in node_types} if kind == "budget"
+           else {k: MAG_FANOUTS for k in out[3]})
+    return merge_rank_blocks(out, edge_types,
+                             {t: len(v) for t, v in seeds.items()}, fan,
+                             len(MAG_FANOUTS), budget=kind == "budget")
+
+
+def typed_requests15(mag, rels, meshes, device, timer):
+    """Phase 15 (b), (c): ``dist_budget_sample_hetero`` (``TYPED15_BUDGET``,
+    [15, 10] per type) and ``dist_hetero_neighbor_sample``
+    (``HETERO_CONFIGS``, [15, 10] per relation) on the mag shape,
+    ``BUDGET_SEEDS`` papers with states in ``[0, TIME_RANGE)``, at P = 1,
+    and each sampler's ``P4_TYPED`` configuration at ``DIST_PARTS``: ms per
+    call, valid slots per type, overflow 0, every edge checked as phases 9
+    (b) and 10 (e) check theirs, and the P = 4 sample merged into the
+    one-rank layout equal to P = 1's."""
+    from types import SimpleNamespace
+    counts, edge_types, csc = mag
+    r = np.random.default_rng(165)
+    seeds = {"paper": r.integers(0, counts["paper"], BUDGET_SEEDS)}
+    states = {"paper": r.integers(0, TIME_RANGE, BUDGET_SEEDS)}
+    check_g = {k: SimpleNamespace(indptr=torch.from_numpy(v[0]).to(device),
+                                  indices=torch.from_numpy(v[1]).to(device))
+               for k, v in csc.items()}
+    ts = rels["ts"]
+    res, p1 = {}, {}
+    runs = [(1, "budget", cfg) for cfg, _w in TYPED15_BUDGET]
+    runs += [(1, "neighbor", cfg) for cfg in HETERO_CONFIGS]
+    runs += [(DIST_PARTS, kind, cfg)
+             for kind, cfg in zip(("budget", "neighbor"), P4_TYPED)]
+    with torch.no_grad():
+        for P, kind, cfg in runs:
+            (s, o), ms = calls15(timer, lambda: typed15(
+                kind, cfg, rels[kind, P], edge_types, seeds, states,
+                meshes[P]), P)
+            what = f"phase 15 dist typed {kind} {cfg} P={P}"
+            check(int(o.sum()) == 0, f"{what}: overflow 0")
+            out = merged15(kind, s, edge_types, seeds)
+            nodes, node_ts, valid, rows, cols, eptr, ev = out
+            if kind == "budget":
+                edges = check_budget_sample(
+                    what, SimpleNamespace(
+                        nodes=nodes, node_ts=node_ts, rows=rows, cols=cols,
+                        eptr=eptr, edge_valid=ev), check_g, ts,
+                    dict(TYPED15_BUDGET)[cfg], False)
+            else:
+                edges = sum(check_hetero_sample(what, cfg, SimpleNamespace(
+                    nodes=nodes, node_state=node_ts, rows=rows, cols=cols,
+                    eptr=eptr, edge_valid=ev), check_g, edge_types,
+                    ts).values())
+            across = ""
+            if P == 1:
+                p1[kind, cfg] = out
+            else:
+                diff = whole_diff(valid_only(out), valid_only(p1[kind, cfg]))
+                check(diff == 0, f"{what}: merged, {diff} slots differ from "
+                      "P=1's")
+                across = "; merged, bit-equal to P=1"
+            vs = {t: int(v.sum()) for t, v in valid.items()}
+            log(f"{what}: ms "
+                + (f"(first, warm-up) {ms[0]:.1f}, then {ms[1]:.1f}"
+                   if P == 1 else f"{ms[0]:.1f} (one call)")
+                + f"; overflow 0; valid slots {vs}; {edges} edges checked"
+                + across)
+            res[f"{kind} {cfg} P={P}"] = dict(ms=ms[-1], first_ms=ms[0],
+                                              valid_slots=vs, edges=edges)
+    return res
+
+
+def stacked15(rels, meshes):
+    """Phase 15 (d), the layouts: ``put_stacked_rels`` of (b)'s mag
+    relations on the ``DIST_PARTS`` thread mesh: each relation's slice,
+    owner block by owner block, equals its own partitioned graph and its
+    padded rows have degree 0; ELL tables kept only when every relation
+    has one."""
+    from tch_geometric_tpu_torch.parallel import put_stacked_rels
+    order = sorted(rels)
+    st = put_stacked_rels(rels, order, meshes[DIST_PARTS])
+    P, Npm, Em = st.num_parts, st.rows_per_part, st.local_edge_cap
+    bad = []
+    for i, k in enumerate(order):
+        g = rels[k]
+        for f, n, m in (("ldeg", g.rows_per_part, Npm),
+                        ("lstart", g.rows_per_part, Npm),
+                        ("gstart", g.rows_per_part, Npm),
+                        ("lindices", g.local_edge_cap, Em),
+                        ("lts", g.local_edge_cap, Em)):
+            a = getattr(st, f)[:, i].reshape(P, m)
+            if not torch.equal(a[:, :n].reshape(-1), getattr(g, f)):
+                bad.append(f"{k} {f}")
+        if st.ldeg[:, i].reshape(P, Npm)[:, g.rows_per_part:].any():
+            bad.append(f"{k} padded degree")
+    no_ell = [k for k in order if rels[k].ell is None]
+    check((st.ell is None) == bool(no_ell), "stacked ELL only when every "
+          "relation has one")
+    check(not bad, f"stacked relations differ: {bad}")
+    log(f"phase 15 (d) put_stacked_rels of {len(order)} mag relations at "
+        f"P={P}: rows a part {Npm}, edges a part {Em}, "
+        f"{sum(t.numel() * t.element_size() for t in (st.ldeg, st.lstart, st.gstart, st.lindices, st.lts)) / 2**30:.3f} "
+        f"GiB; ELL {'kept' if st.ell is not None else 'dropped'} "
+        f"(no table: {no_ell}); every relation's slice equals its graph, "
+        "padded rows of degree 0")
+    return dict(rows_per_part=Npm, local_edge_cap=Em, no_ell=no_ell)
+
+
+def card_vs_cpu15(sg, mag, device):
+    """Phase 15 (e): the card against the CPU, same keys and inputs
+    (``CUT15_SEEDS`` seeds or papers), (a) on phase 3's 5% cut (the CSC
+    with seeded timestamps, and its out-edge CSR), (b) and (c) on the mag
+    cut: each sampler's P = 4 configuration at ``DIST_PARTS`` thread ranks
+    on both (the CSC with the temporal filter, relative, and
+    ``P4_TYPED``), every other one at P = 1: equal, a Gumbel-ranked
+    configuration (every budget pick, the weighted neighbor draws) within
+    ``CUT_DIFF_LIMIT`` of the valid slots (each count printed; the last
+    ulp of ``log`` may move a pick)."""
+    from tch_geometric_tpu_torch.data.storage import to_csr
+    from tch_geometric_tpu_torch.parallel import (build_partitioned_graph,
+                                                  dist_budget_sample,
+                                                  make_mesh)
+    from tch_geometric_tpu_torch.parallel.mesh import ThreadComm
+    from tch_geometric_tpu_torch.sampling import rng
+    cpu = torch.device("cpu")
+    ns = sg["ns"]
+    out_csr = to_csr(sg["ei"], ns)[:2]
+    counts, sub_csc, _r = mag_cut(mag)
+    edge_types = mag[1]
+    r = np.random.default_rng(166)
+    seeds = r.integers(0, ns, CUT15_SEEDS)
+    seed_ts = r.integers(0, TIME_RANGE, CUT15_SEEDS)
+    papers = {"paper": r.integers(0, counts["paper"], CUT15_SEEDS)}
+    states = {"paper": r.integers(0, TIME_RANGE, CUT15_SEEDS)}
+    homogeneous = ((1, "csc", None), (1, "csr", None),
+                   (DIST_PARTS, "csc", True))
+    typed = ([(1, "budget", c) for c, _w in TYPED15_BUDGET
+              if c != P4_TYPED[0]]
+             + [(1, "neighbor", c) for c in HETERO_CONFIGS
+                if c != P4_TYPED[1]]
+             + [(DIST_PARTS, kind, c)
+                for kind, c in zip(("budget", "neighbor"), P4_TYPED)])
+    res, secs = {}, {}
+    for side, dev in (("card", device), ("cpu", cpu)):
+        t = time.perf_counter()
+        ts = edge_values(len(sg["ri"]), 167, dev)[1]
+        o = {}
+        for P in (1, DIST_PARTS):
+            mesh = make_mesh((P, 1), device=dev, comm=ThreadComm(P))
+            g = {"csc": build_partitioned_graph(sg["cp"], sg["ri"], P,
+                                                edge_timestamps=ts,
+                                                device=dev),
+                 "csr": build_partitioned_graph(*out_csr, P, device=dev)}
+            budget_rels, neighbor_rels, _ts = mag_rels15(
+                counts, edge_types, sub_csc, P, dev, 168)
+            rels = {"budget": budget_rels, "neighbor": neighbor_rels}
+            with torch.no_grad():
+                for _p, k, rel in (h for h in homogeneous if h[0] == P):
+                    kw = dict(capacity_factor=DIST_CF)
+                    if rel is not None:
+                        kw.update(input_timestamps=seed_ts,
+                                  window=TEMPORAL_WINDOW, forward=True,
+                                  relative=rel)
+                    s, ovf = dist_budget_sample(rng.key(169), g[k], seeds,
+                                                FANOUTS, mesh, **kw)
+                    name = k if rel is None else f"{k} temporal relative"
+                    o[f"budget {name} P={P}"] = (budget_layers(s), ovf)
+                for _p, kind, cfg in (x for x in typed if x[0] == P):
+                    o[f"typed {kind} {cfg} P={P}"] = typed15(
+                        kind, cfg, rels[kind], edge_types, papers, states,
+                        mesh)
+        for k, (s, ovf) in o.items():
+            check(int(ovf.sum()) == 0, f"(e) {side} {k}: overflow 0")
+            o[k] = s
+        res[side] = o
+        secs[side] = time.perf_counter() - t
+    out = {}
+    for k in res["card"]:
+        a, b = res["card"][k], res["cpu"][k]
+        diff = whole_diff(a, b)
+        valid = (int(b["node_valid"].sum()) if isinstance(b, dict)
+                 else sum(int(v.sum()) for v in b[2].values()))
+        exact = k.startswith("typed neighbor uniform")
+        rate = diff / max(valid, 1)
+        log(f"check: phase 15 (e) {k} card vs CPU: {diff} slots differ of "
+            f"{valid} valid ({rate:.2e}; limit "
+            f"{0 if exact else CUT_DIFF_LIMIT})")
+        check(diff == 0 if exact else rate <= CUT_DIFF_LIMIT,
+              f"(e) {k}: card and CPU differ in {diff} slots")
+        out[k] = dict(differing=diff, valid=valid, rate=rate)
+    log(f"phase 15 (e) seconds: card {secs['card']:.1f}, CPU "
+        f"{secs['cpu']:.1f}")
+    out["seconds"] = secs
+    return out
+
+
+def phase15(p, csr, mag, sg, device, timer):
+    """Phase 15: (a)-(e), each part's wall seconds logged; returns its
+    numbers.  Tears the process group down at the end."""
+    from tch_geometric_tpu_torch.parallel import multihost
+    t0 = time.perf_counter()
+    res, secs = {}, {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t
+        log(f"phase 15 {name}: {secs[name]:.1f}s")
+        return out
+
+    meshes = dist_meshes(device, DIST_STORE15, "phase 15")
+    graphs, res["graphs"] = part("products graphs", lambda: graphs15(
+        p, csr, device, timer))
+    res["budget"] = part("(a)", lambda: budget15(graphs, meshes, timer))
+    del graphs
+    torch.cuda.empty_cache()
+
+    def mag_rels():
+        rels = {}
+        for P in (1, DIST_PARTS):
+            b, n, ts = mag_rels15(*mag, P, device, 170)
+            rels["budget", P], rels["neighbor", P], rels["ts"] = b, n, ts
+        return rels
+    rels = part("mag relations", mag_rels)
+    res["typed"] = part("(b), (c)", lambda: typed_requests15(
+        mag, rels, meshes, device, timer))
+    res["stacked"] = part("(d) layouts", lambda: stacked15(
+        rels["budget", DIST_PARTS], meshes))
+    del rels
+    torch.cuda.empty_cache()
+    res["card_vs_cpu"] = part("(e)", lambda: card_vs_cpu15(sg, mag, device))
+    multihost.shutdown()
+    res["part_s"] = secs
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 15 wall time {res['wall_s']:.1f}s")
+    return res
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5145,6 +5672,15 @@ def main(argv=None) -> int:
         f"{walk_launches}")
     check(not any(walk_launches.values()),
           "no kernel of B1-B11 ran in phase 14")
+
+    for fn in wrappers:
+        fn.launches = 0
+    budget_res = phase15(p, csr, mag, sg, device, timer)
+    budget_launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"phase 15 launches (no kernel of B1-B11 lies on it): "
+        f"{budget_launches}")
+    check(not any(budget_launches.values()),
+          "no kernel of B1-B11 ran in phase 15")
     del mag, csr
 
     summary = dict(
@@ -5171,7 +5707,7 @@ def main(argv=None) -> int:
         attend_peak_device_gib=attend_peak_gb,
         train=train_res, profile=prof, sampling=sampling_res,
         parity=parity_res, models=models_res, dist=dist_res,
-        mesh2=mesh_res, dist_walks=walk_res,
+        mesh2=mesh_res, dist_walks=walk_res, dist_budget=budget_res,
         total_s=time.perf_counter() - t_all, **sub)
     log("serving: " + json.dumps(summary))
     if args.scale == 1.0:

@@ -16,3 +16,7 @@ from . import multihost
 from .dist_walks import (dist_biased_tempo_random_walk, dist_random_walk,
                          dist_tempo_random_walk, effective_edge_ts)
 from .dist_negative import dist_negative_sample, dist_negative_sample_hetero
+from .dist_hgt import (StackedRels, build_partitioned_hetero, put_stacked_rels,
+                       stack_partitioned_rels)
+from .dist_hetero import dist_hetero_neighbor_sample, merge_rank_blocks
+from .dist_budget import dist_budget_sample, dist_budget_sample_hetero

@@ -45,6 +45,9 @@ MODULES = ["tch_geometric_tpu_torch.data.dataset",
            "tch_geometric_tpu_torch.ops.segment",
            "tch_geometric_tpu_torch.ops.spmm",
            "tch_geometric_tpu_torch.ops.spmm_kernels",
+           "tch_geometric_tpu_torch.parallel.dist_budget",
+           "tch_geometric_tpu_torch.parallel.dist_hetero",
+           "tch_geometric_tpu_torch.parallel.dist_hgt",
            "tch_geometric_tpu_torch.parallel.dist_negative",
            "tch_geometric_tpu_torch.parallel.dist_sampling",
            "tch_geometric_tpu_torch.parallel.dist_walks",
@@ -91,7 +94,8 @@ def test_module_import_loads_no_jax(module):
     slices, of the data layer, walks, HGT, budget and negative samplers,
     transforms and loader, of the HGT and node2vec models and their
     trainers, and of the mesh, the partitioned graph, its exchanges,
-    trainers, walks and negative samplers, imported alone in a fresh interpreter, loads no JAX and
+    trainers, walks, negative, budget and typed samplers and the
+    partitioned heterogeneous layouts, imported alone in a fresh interpreter, loads no JAX and
     nothing of the JAX package."""
     code = ("import sys, importlib\n"
             f"bad = lambda: {{m for m in sys.modules if m.split('.')[0] in "
@@ -128,7 +132,10 @@ EXPORTS = {
         "dist_random_walk", "dist_tempo_random_walk",
         "dist_biased_tempo_random_walk", "effective_edge_ts",
         "dist_negative_sample", "dist_negative_sample_hetero",
-        "make_partitioned_link_trainer"],
+        "make_partitioned_link_trainer", "dist_budget_sample",
+        "dist_budget_sample_hetero", "dist_hetero_neighbor_sample",
+        "merge_rank_blocks", "build_partitioned_hetero", "StackedRels",
+        "stack_partitioned_rels", "put_stacked_rels"],
     "tch_geometric_tpu_torch.parallel.multihost": [
         "initialize", "make_mesh", "global_from_local", "replicated",
         "local_seed_shard", "put_partitioned"],
@@ -233,17 +240,11 @@ def test_layer_and_model_devices_default_to_the_card():
         assert dev.default == "cuda", cls.__name__
 
 
-# the distributed family still to port, ROADMAP queue A7: each slice of it
+# the distributed family still to port, ROADMAP queue A: each slice of it
 # takes its names off this list
 DISTRIBUTED = {
-    # modules
-    "dist_budget", "dist_hgt", "dist_hetero",
-    # the partitioned HGT trainer
-    "make_partitioned_hgt_trainer",
-    # the dist_* samplers and their graph layouts
-    "dist_budget_sample", "dist_budget_sample_hetero", "StackedRels",
-    "build_partitioned_hetero", "dist_hgt_sample", "put_stacked_rels",
-    "stack_partitioned_rels", "dist_hetero_neighbor_sample",
+    # the distributed HGT sampler and the partitioned HGT trainer
+    "dist_hgt_sample", "make_partitioned_hgt_trainer",
 }
 
 
@@ -267,3 +268,37 @@ def test_every_jax_parallel_name_exported_but_the_distributed():
     assert not missing, missing
     ported = sorted(n for n in DISTRIBUTED if hasattr(ours, n))
     assert not ported, ported
+
+
+def test_every_entry_point_defaults_num_rounds_to_auto():
+    """The port's counterpart of ``tests/test_num_rounds_defaults.py::
+    test_every_entry_point_defaults_to_auto``: every distributed entry
+    point of the port with a ``num_rounds`` parameter defaults it to None
+    (``resolve_num_rounds``: one round at P = 1, two at P > 1), so none
+    drops overflowing requests by default."""
+    import inspect
+
+    from tch_geometric_tpu_torch.parallel import (dist_budget, dist_hetero,
+                                                  dist_negative,
+                                                  dist_sampling, dist_walks,
+                                                  link_train,
+                                                  sharded_features)
+    entry_points = [
+        dist_sampling.dist_sample_neighbors,
+        dist_sampling.make_partitioned_trainer,
+        dist_sampling.make_partitioned_multibatch_trainer,
+        dist_budget.dist_budget_sample,
+        dist_budget.dist_budget_sample_hetero,
+        dist_hetero.dist_hetero_neighbor_sample,
+        dist_negative.dist_negative_sample,
+        dist_negative.dist_negative_sample_hetero,
+        dist_walks.dist_random_walk,
+        dist_walks.dist_tempo_random_walk,
+        dist_walks.dist_biased_tempo_random_walk,
+        link_train.make_partitioned_link_trainer,
+        sharded_features.make_sharded_feature_trainer,
+    ]
+    for f in entry_points:
+        params = inspect.signature(f).parameters
+        assert "num_rounds" in params, f.__qualname__
+        assert params["num_rounds"].default is None, f.__qualname__
