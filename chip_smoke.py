@@ -305,6 +305,30 @@ prints no result line):
    equal, a Gumbel-ranked configuration within 1e-3 of the valid slots
    (each count printed).  Each part's wall time and the phase's are
    printed.
+16. distributed HGT sampling, ``HGT(psum_axis=)`` and the partitioned HGT
+   trainer (no kernel of B1-B11 lies on them; their launch counts must
+   stay 0), at P = 1 over a process group of world size 1 (NCCL) and P =
+   4 thread ranks, on phase 9's mag shape at
+   ``scripts/bench_partitioned_hgt.py``'s configuration (512 papers,
+   [128, 128] per type, capacity factor 2.0): (a) ``dist_hgt_sample`` at
+   P = 1 in its three structures (per relation, relations fused, one
+   stacked relation at a time; the relations without ELL tables, so that
+   all three draw alike) and fused with ``timerange`` (0, 400) on edge
+   timestamps in [0, 1000): ms per call (one warm-up, then one), overflow
+   0, valid slots by type and hop; every kept edge real, between valid
+   slots, each node sampled at most once a type, every sampled node's time
+   in the range; the three structures bit-equal; (b)
+   ``make_partitioned_hgt_trainer`` with phase 11 (a)'s
+   ``HGT(128, 128, 349, 2 layers, 4 heads)`` on interleave-sharded
+   feature tables, 512 papers a step: at P = 1 per relation and
+   relation-batched (one warm-up, then 5 steps), at P = 4 relation-batched
+   (3 steps): ms per step, peak device memory, overflow 0, the 3 losses
+   within 1e-5 across P; (c) the P = 4 sample, its blocks concatenated,
+   equal to P = 1's on every valid slot and validity bit; (d) card against
+   CPU at P = 4 on the mag cut (256 papers): the samples within 1e-3 of
+   the valid slots (each count printed), 3 trainer steps' losses within
+   1e-5 when no slot of their samples differs.  Each part's wall time and
+   the phase's are printed.
 
 Output: human-readable lines, then one JSON line of kernel numbers, one
 line with the card's name and power limit (nvidia-smi), and as the last
@@ -5418,6 +5442,368 @@ def phase15(p, csr, mag, sg, device, timer):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: distributed HGT sampling, HGT(psum_axis=) and the partitioned
+# HGT trainer
+# ---------------------------------------------------------------------------
+
+DIST_STORE16 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "dist_store16")
+# scripts/bench_partitioned_hgt.py:47-52, 178: 512 seeds a step, [128, 128]
+# per type, capacity factor 2.0, HGT(128, 128, 2 layers, 4 heads)
+HGT16_CF = 2.0
+HGT16_STRUCTURES = (False, True, "scan")
+HGT16_P4_STEPS = 3              # (b) at P = 4: the cross-P losses
+CUT16_SEEDS = 256               # (d): papers a call or step on the mag cut
+HGT16_LOSS_RTOL = 1e-5
+
+
+def hgt16_rels(mag, P, device, ts=None, ell=None):
+    """The mag-shaped relations partitioned for P ranks, one
+    ``build_partitioned_graph`` a relation as ``build_partitioned_hetero``
+    builds them (edge timestamps ``ts`` by sorted edge where given;
+    ``ell=False``: no ELL table for any relation, so every structure draws
+    its subsets alike)."""
+    from tch_geometric_tpu_torch.parallel import build_partitioned_graph
+    _counts, _edge_types, csc = mag
+    return {k: build_partitioned_graph(
+        torch.from_numpy(v[0]).to(device), torch.from_numpy(v[1]).to(device),
+        P, edge_timestamps=None if ts is None else ts[k], ell_table=ell,
+        device=device) for k, v in csc.items()}
+
+
+def hgt16_sample(mag, rels, seeds, mesh, stacked, key, timerange=None):
+    """One ``dist_hgt_sample`` of ``seeds`` papers, ``HGT_TRAIN_SAMPLES``
+    per type, capacity factor ``HGT16_CF``: the outputs with the COO's
+    rank blocks concatenated, and the overflow (P,)."""
+    from tch_geometric_tpu_torch.parallel import dist_hgt_sample
+    counts, edge_types, _csc = mag
+    out, ovf = dist_hgt_sample(
+        key, rels, edge_types, {"paper": seeds},
+        {t: HGT_TRAIN_SAMPLES for t in counts}, len(HGT_TRAIN_SAMPLES), mesh,
+        node_counts=counts, timerange=timerange, capacity_factor=HGT16_CF,
+        stacked=stacked)
+    nodes, node_ts, valid, rows, cols, eptr, ev = out
+    flat = lambda d: {k: v.reshape(-1) for k, v in d.items()}  # noqa: E731
+    return (nodes, node_ts, valid, flat(rows), flat(cols), flat(eptr),
+            flat(ev)), ovf
+
+
+def hgt16_valid_only(s):
+    """A sample with its invalid slots set to -1 (nodes, times) or 0
+    (edges): what (c) compares."""
+    nodes, node_ts, nv, rows, cols, eptr, ev = s
+    m = lambda ok, d: {k: torch.where(ok[k], v, -1)  # noqa: E731
+                       for k, v in d.items()}
+    return (m(nv, nodes), m(nv, node_ts), nv, m(ev, rows), m(ev, cols),
+            m(ev, eptr), ev)
+
+
+def hgt16_hops(s, counts, n_seeds):
+    """Valid slots by type, in the order seeds, hop 1, hop 2."""
+    nv = s[2]
+    out = {}
+    for t in sorted(counts):
+        caps = [n_seeds if t == "paper" else 0] + list(HGT_TRAIN_SAMPLES)
+        b = np.cumsum([0] + caps)
+        out[t] = [int(nv[t][b[i]: b[i + 1]].sum()) for i in range(len(caps))]
+    return out
+
+
+def check_hgt16(what, s, check_g, counts, n_seeds, timerange=None):
+    """(a)'s checks: every kept edge is real (its pointer in the
+    destination's CSC window, reading the source) between two valid slots;
+    each node is sampled at most once a type; under ``timerange`` every
+    sampled node's time (its budget's, the max over the in-edges that
+    passed) lies in it.  Returns the kept edges."""
+    nodes, node_ts, nv, rows, cols, eptr, ev = s
+    edges = 0
+    for k, g in check_g.items():
+        src, _r, dst = k.split("__")
+        m = ev[k]
+        e, rr, cc = eptr[k][m], rows[k][m], cols[k][m]
+        parent = nodes[dst][cc]
+        check(bool(nv[src][rr].all()) and bool(nv[dst][cc].all())
+              and torch.equal(g.indices[e].long(), nodes[src][rr])
+              and bool(((e >= g.indptr[parent])
+                        & (e < g.indptr[parent + 1])).all()),
+              f"{what}: every kept {k} edge is real, between valid slots")
+        edges += int(m.sum())
+    for t in counts:
+        v = nodes[t][nv[t]]
+        check(torch.unique(v).numel() == v.numel(),
+              f"{what}: each {t} node sampled at most once")
+        if timerange is not None:
+            n = n_seeds if t == "paper" else 0
+            ts = node_ts[t][n:][nv[t][n:]]
+            check(bool(((ts == -1) | ((ts >= timerange[0])
+                                      & (ts < timerange[1]))).all()),
+                  f"{what}: every sampled {t} node's time passes the gate")
+    return edges
+
+
+def sampler16(mag, meshes, device, timer):
+    """Phase 16 (a) and (c): ``dist_hgt_sample`` of ``HGT_TRAIN_SEEDS``
+    papers at P = 1 in the three structures (one warm-up, one timed call
+    each), bit-equal to one another, and fused once with ``timerange`` =
+    ``TEMPORAL_WINDOW`` on edge timestamps in [0, 1000); then fused at
+    P = 4 (one call), equal to P = 1's on every valid slot and validity
+    bit.  The relations carry no ELL table: the has_topic relation into
+    field_of_study has none (its largest in-degree is past the widest),
+    so the stacked layouts drop every relation's, and the per-relation
+    structure draws alike only without them.  Each sample checked by
+    ``check_hgt16``, overflow 0.  Returns the numbers and (b)'s relations
+    (ELL tables where they fit) at P = 1 and ``DIST_PARTS``."""
+    from types import SimpleNamespace
+    from tch_geometric_tpu_torch.sampling import rng
+    counts, edge_types, csc = mag
+    r = np.random.default_rng(173)
+    seeds = r.choice(counts["paper"], HGT_TRAIN_SEEDS, replace=False)
+    check_g = {k: SimpleNamespace(indptr=torch.from_numpy(v[0]).to(device),
+                                  indices=torch.from_numpy(v[1]).to(device))
+               for k, v in csc.items()}
+    key = rng.key(174)
+    res, outs = {}, {}
+    rels = {1: hgt16_rels(mag, 1, device, ell=False)}
+
+    def report(name, s, ovf, ms, timerange=None):
+        what = f"phase 16 (a) dist_hgt_sample {name}"
+        check(int(ovf.sum()) == 0, f"{what}: overflow 0")
+        edges = check_hgt16(what, s, check_g, counts, HGT_TRAIN_SEEDS,
+                            timerange)
+        hops = hgt16_hops(s, counts, HGT_TRAIN_SEEDS)
+        log(f"{what}: ms "
+            + (f"(first, warm-up) {ms[0]:.1f}, then {ms[1]:.1f}"
+               if len(ms) > 1 else f"{ms[0]:.1f} (one call)")
+            + f"; overflow 0; valid slots by type (seeds, hop 1, hop 2) "
+            f"{hops}; {edges} kept edges checked")
+        res[name] = dict(ms=ms[-1], first_ms=ms[0], valid_by_hop=hops,
+                         edges=edges)
+
+    with torch.no_grad():
+        for stacked in HGT16_STRUCTURES:
+            (s, ovf), ms = calls15(timer, lambda: hgt16_sample(
+                mag, rels[1], seeds, meshes[1], stacked, key), 1)
+            report(f"stacked={stacked} P=1", s, ovf, ms)
+            outs[stacked] = s
+        for stacked in HGT16_STRUCTURES[1:]:
+            diff = whole_diff(outs[stacked], outs[False])
+            check(diff == 0, f"phase 16 (a) stacked={stacked}: {diff} slots "
+                  "differ from the per-relation structure's")
+        log("check: phase 16 (a) the three structures' samples are "
+            "bit-equal, every array whole")
+
+        ts = {k: edge_values(len(v[1]), 175 + i, device)[1]
+              for i, (k, v) in enumerate(sorted(csc.items()))}
+        rels_t = hgt16_rels(mag, 1, device, ts, ell=False)
+        (s, ovf), ms = calls15(timer, lambda: hgt16_sample(
+            mag, rels_t, seeds, meshes[1], True, key, TEMPORAL_WINDOW), 1)
+        report(f"fused P=1 timerange {TEMPORAL_WINDOW}", s, ovf, ms,
+               TEMPORAL_WINDOW)
+        del rels_t, ts
+
+        rels[DIST_PARTS] = hgt16_rels(mag, DIST_PARTS, device, ell=False)
+        (s, ovf), ms = calls15(timer, lambda: hgt16_sample(
+            mag, rels[DIST_PARTS], seeds, meshes[DIST_PARTS], True, key),
+            DIST_PARTS)
+        report(f"fused P={DIST_PARTS}", s, ovf, ms)
+        diff = whole_diff(hgt16_valid_only(s), hgt16_valid_only(outs[True]))
+        check(diff == 0, f"phase 16 (c) P={DIST_PARTS}: {diff} slots differ "
+              "from P=1's")
+        log(f"check: phase 16 (c) the P={DIST_PARTS} sample, its blocks "
+            "concatenated, equals P=1's on every valid slot and validity bit")
+    del rels
+    return res, {P: hgt16_rels(mag, P, device) for P in (1, DIST_PARTS)}
+
+
+def hgt16_trainer(mag, model, mesh):
+    from tch_geometric_tpu_torch.parallel import make_partitioned_hgt_trainer
+    counts, edge_types, _csc = mag
+    return make_partitioned_hgt_trainer(
+        model, edge_types, {t: HGT_TRAIN_SAMPLES for t in counts},
+        len(HGT_TRAIN_SAMPLES), counts, mesh, seed_type="paper",
+        learning_rate=TRAIN_LR, capacity_factor=HGT16_CF)
+
+
+def hgt16_steps(mag, rels, mesh, x, labels, batches, stacked, device, timer,
+                key):
+    """``len(batches)`` steps of the partitioned HGT trainer (model
+    ``hgt_model``, stacked relations fused when ``stacked``, else the
+    per-relation dict) from the same initial parameters: ms per step,
+    losses, overflow 0, peak device memory."""
+    from tch_geometric_tpu_torch.parallel import (build_interleaved_features,
+                                                  put_stacked_rels)
+    counts, edge_types, _csc = mag
+    P = mesh.size
+    model = hgt_model(counts, edge_types, stacked, device)
+    tr = hgt16_trainer(mag, model, mesh)
+    rels_in = (put_stacked_rels(rels, sorted(rels), mesh) if stacked
+               else rels)
+    xi = {t: build_interleaved_features(v, P) for t, v in x.items()}
+    state = tr.init_fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for seeds in batches:
+        (state, loss, _acc, ovf), t = timer(lambda: tr.train_step(
+            state, key, rels_in, xi, seeds, labels[seeds]))
+        check(int(ovf) == 0, f"phase 16 (b) P={P}: overflow 0")
+        check(np.isfinite(float(loss)), f"phase 16 (b) P={P}: loss finite")
+        ms.append(t)
+        losses.append(float(loss))
+    return dict(step_ms=ms, losses=losses, peak_device_gib=peak_gib())
+
+
+def trainer16(mag, rels, meshes, device, timer):
+    """Phase 16 (b): ``make_partitioned_hgt_trainer`` with phase 11 (a)'s
+    model, 128 seeded N(0, 1) feature columns a type (interleave-sharded),
+    seeded paper labels, ``HGT_TRAIN_SEEDS`` papers a step: at P = 1 per
+    relation (the per-relation dict) and relation-batched (stacked
+    relations, fused), one warm-up then ``TIMED_STEPS``; at ``DIST_PARTS``
+    relation-batched, ``HGT16_P4_STEPS`` steps, whose losses must agree with
+    P = 1's first within ``HGT16_LOSS_RTOL``."""
+    from tch_geometric_tpu_torch.sampling import rng
+    counts = mag[0]
+    x = mag_features(counts, device)
+    labels = torch.from_numpy(np.random.default_rng(176).integers(
+        0, HGT_OUT, counts["paper"])).to(device)
+    r = np.random.default_rng(177)
+    batches = [torch.from_numpy(r.choice(counts["paper"], HGT_TRAIN_SEEDS,
+                                         replace=False)).to(device)
+               for _ in range(1 + TIMED_STEPS)]
+    key = rng.key(178)
+    out = {}
+    runs = [(1, False, batches), (1, True, batches),
+            (DIST_PARTS, True, batches[:HGT16_P4_STEPS])]
+    for P, stacked, b in runs:
+        name = f"{'stacked' if stacked else 'per_rel'} P={P}"
+        res = hgt16_steps(mag, rels[P], meshes[P], x, labels, b, stacked,
+                          device, timer, key)
+        ms = res["step_ms"]
+        timed = ms[1:] if P == 1 else ms
+        res["step_ms_mean"] = float(np.mean(timed))
+        log(f"phase 16 (b) partitioned HGT {name}, {HGT_TRAIN_SEEDS} papers "
+            "a step: step ms "
+            + (f"(first, warm-up) {ms[0]:.1f}, then " if P == 1 else "")
+            + ", ".join(f"{m:.1f}" for m in timed)
+            + f"; mean {res['step_ms_mean']:.1f} ms; peak device memory "
+            f"{res['peak_device_gib']:.2f} GiB; overflow 0; losses "
+            + ", ".join(f"{v:.6f}" for v in res["losses"]))
+        out[name] = res
+        torch.cuda.empty_cache()
+    a = out[f"stacked P={DIST_PARTS}"]["losses"]
+    b = out["stacked P=1"]["losses"][:HGT16_P4_STEPS]
+    rel = max(abs(u - v) / abs(v) for u, v in zip(a, b))
+    log(f"check: phase 16 (b) {HGT16_P4_STEPS} losses P={DIST_PARTS} vs "
+        f"P=1: largest relative difference {rel:.3e} (limit "
+        f"{HGT16_LOSS_RTOL})")
+    check(rel <= HGT16_LOSS_RTOL, f"phase 16 (b) losses across P: {rel:.3e}")
+    out["cross_p_rel_diff"] = rel
+    return out
+
+
+def card_vs_cpu16(mag, device):
+    """Phase 16 (d): the card against the CPU at ``DIST_PARTS`` thread
+    ranks on the mag cut, same keys and inputs: one fused sample of
+    ``CUT16_SEEDS`` papers, and ``HGT16_P4_STEPS`` steps of (b)'s
+    relation-batched trainer (each step's sample redrawn from its key on
+    both).  The samples equal, or, where a Gumbel-ranked slot differs (the
+    last ulp of ``log``), at most ``CUT_DIFF_LIMIT`` of the valid slots
+    (each count printed); the losses within ``HGT16_LOSS_RTOL`` relative
+    when no slot of the steps' samples differs."""
+    from tch_geometric_tpu_torch.parallel import make_mesh
+    from tch_geometric_tpu_torch.parallel.mesh import ThreadComm
+    from tch_geometric_tpu_torch.sampling import rng
+    cpu = torch.device("cpu")
+    counts, sub_csc, r = mag_cut(mag)
+    cut = (counts, mag[1], sub_csc)
+    seeds = r.choice(counts["paper"], CUT16_SEEDS, replace=False)
+    batches = [torch.from_numpy(r.choice(counts["paper"], CUT16_SEEDS,
+                                         replace=False))
+               for _ in range(HGT16_P4_STEPS)]
+    labels = torch.from_numpy(r.integers(0, HGT_OUT, counts["paper"]))
+    x_cpu = mag_features(counts, cpu, seed=179)
+    key = rng.key(180)
+    res, secs = {}, {}
+    for side, dev in (("card", device), ("cpu", cpu)):
+        t = time.perf_counter()
+        mesh = make_mesh((DIST_PARTS, 1), device=dev,
+                         comm=ThreadComm(DIST_PARTS))
+        rels = hgt16_rels(cut, DIST_PARTS, dev)
+        with torch.no_grad():
+            s, ovf = hgt16_sample(cut, rels, seeds, mesh, True, key)
+            steps = [hgt16_sample(cut, rels, b, mesh, True,
+                                  rng.fold(key, i))
+                     for i, b in enumerate(batches)]
+        check(int(ovf.sum()) == 0 and all(int(o.sum()) == 0
+                                          for _s, o in steps),
+              f"phase 16 (d) {side}: overflow 0")
+        tr = hgt16_steps(cut, rels, mesh, {k: v.to(dev)
+                                           for k, v in x_cpu.items()},
+                         labels.to(dev), [b.to(dev) for b in batches], True,
+                         dev, lambda fn: (fn(), 0.0), key)
+        res[side] = (s, [a for a, _o in steps], tr["losses"])
+        secs[side] = time.perf_counter() - t
+    out = {}
+    (s_card, st_card, l_card), (s_cpu, st_cpu, l_cpu) = res["card"], \
+        res["cpu"]
+    valid = sum(int(v.sum()) for v in s_cpu[2].values())
+    diff = whole_diff(s_card, s_cpu)
+    out["sample"] = check_rate("dist_hgt_sample fused (slots, of the valid)",
+                               diff, valid, CUT_DIFF_LIMIT,
+                               where="phase 16 (d)")
+    sdiff = sum(whole_diff(a, b) for a, b in zip(st_card, st_cpu))
+    svalid = sum(sum(int(v.sum()) for v in b[2].values()) for b in st_cpu)
+    out["steps"] = check_rate("trainer steps' samples (slots, of the valid)",
+                              sdiff, svalid, CUT_DIFF_LIMIT,
+                              where="phase 16 (d)")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    log(f"check: phase 16 (d) {HGT16_P4_STEPS} trainer steps at "
+        f"P={DIST_PARTS}: losses card {l_card}, CPU {l_cpu}; largest "
+        f"relative difference {rel:.3e} (limit {HGT16_LOSS_RTOL} when no "
+        "slot differs)")
+    if sdiff == 0:
+        check(rel <= HGT16_LOSS_RTOL,
+              f"phase 16 (d) losses card vs CPU: {rel:.3e}")
+    out["steps"].update(losses_card=l_card, losses_cpu=l_cpu,
+                        max_rel_loss_diff=rel)
+    log(f"phase 16 (d) seconds: card {secs['card']:.1f}, CPU "
+        f"{secs['cpu']:.1f}")
+    out["seconds"] = secs
+    return out
+
+
+def phase16(mag, device, timer):
+    """Phase 16: (a)-(d), each part's wall seconds logged; returns its
+    numbers.  Tears the process group down at the end."""
+    from tch_geometric_tpu_torch.parallel import multihost
+    t0 = time.perf_counter()
+    res, secs = {}, {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t
+        log(f"phase 16 {name}: {secs[name]:.1f}s")
+        return out
+
+    meshes = dist_meshes(device, DIST_STORE16, "phase 16")
+    res["sampler"], rels = part("(a), (c) sampler", lambda: sampler16(
+        mag, meshes, device, timer))
+    torch.cuda.empty_cache()
+    res["trainer"] = part("(b) trainer", lambda: trainer16(
+        mag, rels, meshes, device, timer))
+    del rels
+    torch.cuda.empty_cache()
+    res["card_vs_cpu"] = part("(d)", lambda: card_vs_cpu16(mag, device))
+    multihost.shutdown()
+    res["part_s"] = secs
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 16 wall time {res['wall_s']:.1f}s")
+    return res
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5681,7 +6067,17 @@ def main(argv=None) -> int:
         f"{budget_launches}")
     check(not any(budget_launches.values()),
           "no kernel of B1-B11 ran in phase 15")
-    del mag, csr
+    del csr
+
+    for fn in wrappers:
+        fn.launches = 0
+    hgt_res = phase16(mag, device, timer)
+    hgt_launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"phase 16 launches (no kernel of B1-B11 lies on it): "
+        f"{hgt_launches}")
+    check(not any(hgt_launches.values()),
+          "no kernel of B1-B11 ran in phase 16")
+    del mag
 
     summary = dict(
         card=card, scale=args.scale, nodes=n, edges=p["graph"].num_edges,
@@ -5708,6 +6104,7 @@ def main(argv=None) -> int:
         train=train_res, profile=prof, sampling=sampling_res,
         parity=parity_res, models=models_res, dist=dist_res,
         mesh2=mesh_res, dist_walks=walk_res, dist_budget=budget_res,
+        dist_hgt=hgt_res,
         total_s=time.perf_counter() - t_all, **sub)
     log("serving: " + json.dumps(summary))
     if args.scale == 1.0:

@@ -31,11 +31,20 @@ casts each linear's input and parameters, as flax's
 promotes (bfloat16 keys times float32 matrices give float32), and the
 per-relation layout accumulates its float32 messages into each
 destination's bfloat16 zeros, which makes them float32, while the batched
-layout casts its sum back, as the JAX layouts do.  ``psum_axis`` (the
-distributed form) is not ported.
+layout casts its sum back, as the JAX layouts do.
+
+``psum_axis`` is the distributed form (inside ``parallel.mesh.spmd``):
+each rank holds only the edges of its own block of destination slots (the
+per-rank COO of ``parallel.dist_hgt.dist_hgt_sample``) and every node's
+inputs, and each layer sums its aggregated messages over the axis before
+its output linear, so the hidden states are again the same on every rank.
+A destination's softmax needs no collective: its in-edges all lie on one
+rank.  The sum takes part in autograd (``parallel.mesh.psum_grad``): the
+ranks' gradients averaged are the gradient of their mean loss.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
@@ -81,7 +90,7 @@ class HGTConv(nn.Module):
                  node_types: Sequence[str],
                  rel_specs: Sequence[Tuple[str, str, str]],
                  heads: int = 2, dtype=None, stacked_rels: bool = False, *,
-                 generator: Optional[torch.Generator] = None,
+                 psum_axis=None, generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
         if features % heads:
@@ -91,6 +100,7 @@ class HGTConv(nn.Module):
         self.node_types = tuple(node_types)
         self.rel_specs = tuple(tuple(s) for s in rel_specs)
         self.stacked_rels = stacked_rels
+        self.psum_axis = psum_axis
         d = features // heads
         fin = _widths(in_features, self.node_types)
 
@@ -176,6 +186,10 @@ class HGTConv(nn.Module):
                                   msg * att[..., None], 0.0)
                 out[dst] = out[dst] + segment_sum(msg, cols_c, n_dst)
 
+        if self.psum_axis is not None:
+            from ..parallel.mesh import psum_grad
+            out = {t: psum_grad(v, self.psum_axis) for t, v in out.items()}
+
         res = {}
         for t in self.node_types:
             h = nnf.gelu(_linear(self.a[t], out[t].reshape(-1, F),
@@ -256,13 +270,14 @@ class HGT(nn.Module):
     """Multi-layer HGT: per-type input linears to ``hidden``,
     ``num_layers`` HGT layers, and a linear head on ``out_type``'s rows.
 
-    ``in_features``: the input width, one for every type or per type."""
+    ``in_features``: the input width, one for every type or per type;
+    ``psum_axis`` as in :class:`HGTConv` (module doc), for every layer."""
 
     def __init__(self, in_features: Widths, hidden: int, out: int,
                  num_layers: int, node_types: Sequence[str],
                  rel_specs: Sequence[Tuple[str, str, str]], out_type: str,
                  heads: int = 2, dtype=None, stacked_rels: bool = False, *,
-                 generator: Optional[torch.Generator] = None,
+                 psum_axis=None, generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
         self.node_types = tuple(node_types)
@@ -279,7 +294,7 @@ class HGT(nn.Module):
         self.convs = nn.ModuleList(
             HGTConv(hidden, hidden, self.node_types, self.rel_specs,
                     heads=heads, dtype=dtype, stacked_rels=stacked_rels,
-                    generator=generator, device=device)
+                    psum_axis=psum_axis, generator=generator, device=device)
             for _ in range(num_layers))
         with torch.no_grad():
             _reset_linears(nn.ModuleDict({"head": self.head}), generator)
@@ -292,3 +307,17 @@ class HGT(nn.Module):
         for conv in self.convs:
             h = conv(h, edges)
         return _linear(self.head, h[self.out_type], self.dtype)
+
+    def clone(self, *, psum_axis) -> "HGT":
+        """The same model, its layers summing over ``psum_axis``: a view
+        that shares every parameter tensor with this one (flax's
+        ``model.clone(psum_axis=...)``)."""
+        view = copy.copy(self)
+        view.__dict__["_modules"] = dict(self._modules)
+        convs = []
+        for conv in self.convs:
+            c = copy.copy(conv)
+            c.psum_axis = psum_axis
+            convs.append(c)
+        view.__dict__["_modules"]["convs"] = nn.ModuleList(convs)
+        return view

@@ -355,17 +355,24 @@ def _uid_uniform_lane_topk(keys, deg, num_lanes: int, k: int):
 
 
 def _uid_floyd(keys, deg, k: int):
-    """``floyd_sample`` with one key per row (rows past the ELL width)."""
+    """``floyd_sample`` with one key per row (rows past the ELL width).
+    Draw ``i`` is ``randint`` under ``fold_in(row key, i)`` in
+    ``[0, deg - k + i]``; every draw is made at once, then Floyd's pass
+    runs over them."""
     deg = deg.long()
-    chosen = torch.full((deg.shape[0], k), -1, dtype=torch.long,
-                        device=deg.device)
-    for i in range(k):
-        j = deg - (k - i)
-        hi = torch.clamp(j + 1, min=1)
-        t = rng.randint_each(rng.fold_in_each(keys, i), (1,), 0,
-                             hi[:, None])[:, 0]
+    B = deg.shape[0]
+    i = torch.arange(k, device=deg.device)
+    j = deg[:, None] - (k - i)                                # (B, k)
+    zero = torch.zeros((B, k), dtype=torch.int64, device=deg.device)
+    o0, o1 = rng.threefry2x32(keys[:, :1], keys[:, 1:], zero, zero + i)
+    draws = rng.randint_each(torch.stack([o0, o1], -1).reshape(-1, 2), (1,),
+                             0, torch.clamp(j + 1, min=1).reshape(-1, 1))
+    draws = draws.reshape(B, k)
+    chosen = torch.full((B, k), -1, dtype=torch.long, device=deg.device)
+    for n in range(k):
+        t = draws[:, n]
         hit = (chosen == t[:, None]).any(dim=-1)
-        chosen[:, i] = torch.where(hit, j, t)
+        chosen[:, n] = torch.where(hit, j[:, n], t)
     iota = torch.arange(k, device=deg.device)
     take_all = (deg <= k)[:, None]
     positions = torch.where(take_all, iota.expand_as(chosen), chosen)

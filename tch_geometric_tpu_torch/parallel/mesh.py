@@ -759,6 +759,27 @@ def pmean(x: torch.Tensor, axis: Axes) -> torch.Tensor:
     return axis_comm(axis).all_reduce(x, "mean")
 
 
+class _PSum(torch.autograd.Function):
+    """``psum`` over the group of ``comm``; backward the ``psum`` of the
+    cotangent, so the ranks' gradients summed are the gradient of their
+    losses' sum.  ``comm`` is the group's communicator, taken when the
+    forward runs; the backward runs on the rank's own thread."""
+
+    @staticmethod
+    def forward(ctx, x, comm: Comm):
+        ctx.comm = comm
+        return comm.all_reduce(x.contiguous(), "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.contiguous(), "sum"), None
+
+
+def psum_grad(x: torch.Tensor, axis: Axes) -> torch.Tensor:
+    """:func:`psum` that takes part in autograd (see :class:`_PSum`)."""
+    return _PSum.apply(x, axis_comm(axis))
+
+
 def any_rank(count: torch.Tensor) -> bool:
     """Whether ``count`` summed over every rank of the running mesh is
     positive (one host read).  Control flow that depends on data around

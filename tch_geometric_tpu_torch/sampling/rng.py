@@ -233,10 +233,21 @@ def uniform_each(keys: torch.Tensor, shape: Sequence[int],
     return _uniform_from_bits(random_bits_each(keys, shape), minval, maxval)
 
 
-def gumbel_each(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+def gumbel_each(keys: torch.Tensor, shape: Sequence[int], *,
+                rounded_log: bool = False) -> torch.Tensor:
     """``vmap(lambda k: gumbel(k, shape))(keys)``: -log(-log(u)), u ~
-    U[tiny, 1) under each row's key."""
-    return -torch.log(-torch.log(uniform_each(keys, shape, _TINY32, 1.0)))
+    U[tiny, 1) under each row's key.  ``rounded_log``: each ``log`` taken
+    in float64 and rounded to float32, which gives the same bits on the
+    CPU and the card (a float32 ``log`` may differ in its last bit between
+    them)."""
+    log = log_rounded if rounded_log else torch.log
+    return -log(-log(uniform_each(keys, shape, _TINY32, 1.0)))
+
+
+def log_rounded(x: torch.Tensor) -> torch.Tensor:
+    """``log`` of float32 ``x`` in float64, rounded to float32: the same
+    bits on every device."""
+    return torch.log(x.double()).float()
 
 
 def randint_each(keys: torch.Tensor, shape: Sequence[int], minval, maxval

@@ -135,12 +135,13 @@ EXPORTS = {
         "make_partitioned_link_trainer", "dist_budget_sample",
         "dist_budget_sample_hetero", "dist_hetero_neighbor_sample",
         "merge_rank_blocks", "build_partitioned_hetero", "StackedRels",
-        "stack_partitioned_rels", "put_stacked_rels"],
+        "stack_partitioned_rels", "put_stacked_rels", "dist_hgt_sample",
+        "make_partitioned_hgt_trainer"],
     "tch_geometric_tpu_torch.parallel.multihost": [
         "initialize", "make_mesh", "global_from_local", "replicated",
         "local_seed_shard", "put_partitioned"],
     "tch_geometric_tpu_torch.parallel.mesh": [
-        "ThreadComm", "ProcessGroupComm", "spmd"],
+        "ThreadComm", "ProcessGroupComm", "spmd", "psum_grad"],
     "tch_geometric_tpu_torch.parallel.partition": [
         "RingShards", "build_ring_shards", "pad_features", "ring_spmm",
         "alltoall_gather"],
@@ -238,22 +239,22 @@ def test_layer_and_model_devices_default_to_the_card():
     for cls in classes:
         dev = inspect.signature(cls).parameters["device"]
         assert dev.default == "cuda", cls.__name__
+    for cls in (models.HGTConv, models.HGT):
+        assert inspect.signature(cls).parameters["psum_axis"].default is None
 
 
-# the distributed family still to port, ROADMAP queue A: each slice of it
-# takes its names off this list
-DISTRIBUTED = {
-    # the distributed HGT sampler and the partitioned HGT trainer
-    "dist_hgt_sample", "make_partitioned_hgt_trainer",
-}
+# the distributed names still to port: the last slice took the last two
+# (dist_hgt_sample, make_partitioned_hgt_trainer) off this list
+DISTRIBUTED = set()
 
 
 def test_every_jax_parallel_name_exported_but_the_distributed():
     """Every public name of the JAX ``parallel`` package, its submodules
     included (each package's submodules are imported first, so the names
     do not depend on what else the process imported), exists in the
-    port's, save the named distributed ones; and none of those is in the
-    port yet (a slice that ports one takes it off the list)."""
+    port's, save the named distributed ones, of which none is left; and
+    none of those is in the port yet (a slice that ports one takes it off
+    the list)."""
     import importlib
     import pkgutil
     jmod = importlib.import_module("tch_geometric_tpu.parallel")
@@ -279,9 +280,9 @@ def test_every_entry_point_defaults_num_rounds_to_auto():
     import inspect
 
     from tch_geometric_tpu_torch.parallel import (dist_budget, dist_hetero,
-                                                  dist_negative,
+                                                  dist_hgt, dist_negative,
                                                   dist_sampling, dist_walks,
-                                                  link_train,
+                                                  hgt_train, link_train,
                                                   sharded_features)
     entry_points = [
         dist_sampling.dist_sample_neighbors,
@@ -297,6 +298,8 @@ def test_every_entry_point_defaults_num_rounds_to_auto():
         dist_walks.dist_biased_tempo_random_walk,
         link_train.make_partitioned_link_trainer,
         sharded_features.make_sharded_feature_trainer,
+        dist_hgt.dist_hgt_sample,
+        hgt_train.make_partitioned_hgt_trainer,
     ]
     for f in entry_points:
         params = inspect.signature(f).parameters
