@@ -28,6 +28,7 @@ import torch
 
 from ..sampling import rng
 from ..sampling.neighbor import NeighborSample, _layer_layout
+from ..utils.metrics import trace_span
 
 Rows = Optional[Sequence[Tuple[int, int]]]
 
@@ -66,7 +67,8 @@ def keyed_dropout(h: torch.Tensor, key: Optional[torch.Tensor], rate: float,
     ``layer`` (the ``layer + 1``-th dropout call, module doc);
     the identity when ``deterministic`` or ``rate <= 0``.  Raises if dropout
     is on and ``key`` is None.  ``rows`` (:func:`tree_rows`): ``h``'s rows
-    are those of a larger ``h``, whose mask rows they take."""
+    are those of a larger ``h``, whose mask rows they take.  The mask and
+    its product run in a ``trace_span`` ``dropout``."""
     if deterministic or rate <= 0.0:
         return h
     if key is None:
@@ -75,12 +77,13 @@ def keyed_dropout(h: torch.Tensor, key: Optional[torch.Tensor], rate: float,
     if rate >= 1.0:
         return torch.zeros_like(h)
     keep = 1.0 - rate
-    lkey = rng.fold_in(key, flax_drop_tag(layer + 1))
-    if rows is None:
-        u = rng.uniform(lkey, h.shape, device=h.device)
-    else:
-        u = torch.cat([rng.uniform(lkey, (n,) + tuple(h.shape[1:]),
-                                   device=h.device, row0=first)
-                       for first, n in rows])
-    return torch.where(u < keep, h / keep,
-                       torch.zeros((), dtype=h.dtype, device=h.device))
+    with trace_span("dropout"):
+        lkey = rng.fold_in(key, flax_drop_tag(layer + 1))
+        if rows is None:
+            u = rng.uniform(lkey, h.shape, device=h.device)
+        else:
+            u = torch.cat([rng.uniform(lkey, (n,) + tuple(h.shape[1:]),
+                                       device=h.device, row0=first)
+                           for first, n in rows])
+        return torch.where(u < keep, h / keep,
+                           torch.zeros((), dtype=h.dtype, device=h.device))

@@ -21,7 +21,7 @@ from ..sampling import rng
 from ..sampling.walks import _random_walk_impl
 from ..utils.adam import (AdamState, Params, adam_update, gradients,
                           init_state, own_params)
-from ..utils.metrics import trace_span
+from ..utils.metrics import step_span, trace_span
 
 
 class Node2Vec(nn.Module):
@@ -121,6 +121,7 @@ def make_node2vec_trainer(model: Node2Vec, graph: CsrGraph, *,
     def init_fn(*_) -> N2VState:
         return init_state(model, N2VState)
 
+    @step_span
     def train_step(state: N2VState, key: torch.Tensor, starts
                    ) -> Tuple[N2VState, torch.Tensor]:
         own_params(model, state.params)

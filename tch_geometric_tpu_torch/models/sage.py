@@ -29,6 +29,7 @@ from torch import nn
 from ..data.graph import SparseGraph
 from ..ops.spmm import spmm
 from ..sampling.neighbor import NeighborSample
+from ..utils.metrics import trace_span
 from .dropout import Rows, keyed_dropout, tree_rows
 from .gnn import _linear
 
@@ -120,33 +121,38 @@ class GraphSAGE(nn.Module):
     def blocked_forward(self, x: torch.Tensor, blocked,
                         compute_dtype=torch.bfloat16) -> torch.Tensor:
         """Full-graph forward over a blocked-ELL layout; the aggregation
-        reads ``h`` in ``compute_dtype`` and accumulates in float32."""
+        reads ``h`` in ``compute_dtype`` and accumulates in float32.  Runs
+        in a ``trace_span`` ``blocked_forward``, each layer's aggregation
+        in one ``aggregate``."""
         from ..ops.spmm_blocked import (HotSplitCsr, HotSplitSeg,
                                         SegmentedBlockedCsr)
         from ..ops.spmm_kernels import (spmm_blocked_auto,
                                         spmm_blocked_segmented,
                                         spmm_hot_split,
                                         spmm_hot_split_segmented)
-        h = x
-        for i, conv in enumerate(self.convs):
-            if isinstance(blocked, HotSplitSeg):
-                agg = spmm_hot_split_segmented(
-                    blocked, h, agg="mean", compute_dtype=compute_dtype,
-                    out_dtype=h.dtype)
-            elif isinstance(blocked, HotSplitCsr):
-                agg = spmm_hot_split(blocked, h, agg="mean",
-                                     compute_dtype=compute_dtype).to(h.dtype)
-            elif isinstance(blocked, SegmentedBlockedCsr):
-                agg = spmm_blocked_segmented(blocked, h, agg="mean",
-                                             compute_dtype=compute_dtype,
-                                             out_dtype=h.dtype)
-            else:
-                agg = spmm_blocked_auto(blocked, h, agg="mean",
-                                        compute_dtype=compute_dtype
-                                        ).to(h.dtype)
-            h = conv(h, agg)
-            h = self._act(h, i, True)
-        return h
+        with trace_span("blocked_forward"):
+            h = x
+            for i, conv in enumerate(self.convs):
+                with trace_span("aggregate"):
+                    if isinstance(blocked, HotSplitSeg):
+                        agg = spmm_hot_split_segmented(
+                            blocked, h, agg="mean",
+                            compute_dtype=compute_dtype, out_dtype=h.dtype)
+                    elif isinstance(blocked, HotSplitCsr):
+                        agg = spmm_hot_split(
+                            blocked, h, agg="mean",
+                            compute_dtype=compute_dtype).to(h.dtype)
+                    elif isinstance(blocked, SegmentedBlockedCsr):
+                        agg = spmm_blocked_segmented(
+                            blocked, h, agg="mean",
+                            compute_dtype=compute_dtype, out_dtype=h.dtype)
+                    else:
+                        agg = spmm_blocked_auto(
+                            blocked, h, agg="mean",
+                            compute_dtype=compute_dtype).to(h.dtype)
+                h = conv(h, agg)
+                h = self._act(h, i, True)
+            return h
 
     def tree_forward(self, sample: NeighborSample, x: torch.Tensor, *,
                      deterministic: bool = True,

@@ -34,7 +34,7 @@ from ..sampling.hgt import HGTSample, _hgt_sampling_impl
 from ..sampling.neighbor import _int32
 from ..utils.adam import (AdamState, LearningRate, Params, adam_update,
                           gradients, init_state, own_params)
-from ..utils.metrics import trace_span
+from ..utils.metrics import step_span, trace_span
 from ..utils.types import NAN_TIMESTAMP, EdgeType, rel_key
 from .dist_hgt import _as_int32, _dist_hgt_device, _hgt_meta
 from .dist_sampling import resolve_num_rounds, sample_capacity
@@ -113,6 +113,7 @@ def make_hgt_trainer(model: HGT, graphs: Mapping[str, CscGraph],
     def init_fn(*_) -> HGTTrainState:
         return init_state(model, HGTTrainState)
 
+    @step_span
     def train_step(state: HGTTrainState, key: torch.Tensor, seeds, labels
                    ) -> Tuple[HGTTrainState, torch.Tensor, torch.Tensor]:
         own_params(model, state.params)
@@ -238,6 +239,7 @@ def make_partitioned_hgt_trainer(model: HGT,
         replicate_params(mesh, model)
         return init_state(model, HGTTrainState)
 
+    @step_span
     def train_step(state: HGTTrainState, key: torch.Tensor, rels, x_tables,
                    seeds, labels, seed_ts=None):
         own_params(model, state.params)

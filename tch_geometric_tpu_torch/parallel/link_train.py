@@ -34,7 +34,7 @@ from ..sampling import rng
 from ..sampling.neighbor import _sample_neighbors_impl
 from ..utils.adam import (LearningRate, adam_update, gradients, init_state,
                           own_params)
-from ..utils.metrics import trace_span
+from ..utils.metrics import step_span, trace_span
 from .dist_negative import _dist_negative_device
 from .dist_sampling import (_check_graph, _dist_sample_device, _fetch,
                             _filter_static, _plan, resolve_num_rounds)
@@ -132,6 +132,7 @@ def make_link_trainer(model, fanouts: Sequence[int], *, num_neg: int = 1,
     def init_fn(*_) -> TrainState:
         return init_state(model, TrainState)
 
+    @step_span
     def train_step(state: TrainState, key: torch.Tensor, graph: CscGraph,
                    x_table: torch.Tensor, src, dst
                    ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:

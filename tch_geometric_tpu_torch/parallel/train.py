@@ -50,7 +50,7 @@ from ..sampling.neighbor import NeighborSample, _sample_neighbors_impl
 from ..utils.adam import (AdamState, LearningRate, Params, adam_update,
                           gradients, init_state, own_params)
 from ..utils.adam import adam_init  # noqa: F401  (importable from here too)
-from ..utils.metrics import trace_span
+from ..utils.metrics import step_span, trace_span
 from .mesh import (Comm, Mesh, along, axis_comm, axis_index, current_mesh,
                    param_sharding_rule, pmean, spmd)
 from .multihost import placed
@@ -79,7 +79,8 @@ def _sample_and_gather(key: torch.Tensor, graph: CscGraph,
                        x_table: torch.Tensor, seeds, fanouts,
                        with_replacement: bool, seed_block=None
                        ) -> Tuple[NeighborSample, torch.Tensor]:
-    seeds = torch.as_tensor(seeds).to(graph.device).long()
+    with trace_span("to_device"):
+        seeds = torch.as_tensor(seeds).to(graph.device).long()
     with trace_span("sample"):
         sample = _sample_neighbors_impl(key, graph, seeds,
                                         torch.zeros_like(seeds), fanouts,
@@ -112,7 +113,8 @@ def _loss_step(model, params: Params, key: torch.Tensor,
         logits = model.tree_forward(
             sample, x, deterministic=False,
             dropout_key=rng.fold(key, rng.DROPOUT_STREAM))
-        labels = torch.as_tensor(labels).to(logits.device).long()
+        with trace_span("to_device"):
+            labels = torch.as_tensor(labels).to(logits.device).long()
         loss = nnf.cross_entropy(logits, labels)
         grads = gradients(loss, params)
     with trace_span("update"):
@@ -283,6 +285,7 @@ def _mesh_trainer(model, fanouts, mesh: Mesh, learning_rate,
         return along(mesh, "data", spmd(mesh, body,
                                         placed(seeds, mesh, on_data)))
 
+    @step_span
     def train_step(state: TrainState, key, graph, x_table, seeds, labels):
         own_params(model, state.params)
         step_key = rng.fold(key, state.step)
@@ -372,6 +375,7 @@ def make_gnn_trainer(model, fanouts: Sequence[int], *,
         return _sample_and_gather(key, graph, x_table, seeds, fanouts,
                                   with_replacement)
 
+    @step_span
     def train_step(state: TrainState, key: torch.Tensor, graph: CscGraph,
                    x_table: torch.Tensor, seeds, labels
                    ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
@@ -439,6 +443,7 @@ def make_multibatch_sage_trainer(model, fanouts: Sequence[int], *,
         return _mesh_multibatch_trainer(model, fanouts, mesh, learning_rate,
                                         with_replacement)
 
+    @step_span
     def train_step(state: TrainState, key: torch.Tensor, graph: CscGraph,
                    x_table: torch.Tensor, seeds, labels
                    ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
@@ -476,6 +481,7 @@ def _mesh_multibatch_trainer(model, fanouts, mesh: Mesh, learning_rate,
     _check_dp_tp_mesh(mesh)
     stripes = (None, "data")
 
+    @step_span
     def train_step(state: TrainState, key, graph, x_table, seeds, labels):
         own_params(model, state.params)
         dims = _split_dims(model, mesh, state.params)

@@ -4,7 +4,8 @@ Counterpart of ``tch_geometric_tpu/sampling/rng.py``.  A key is a host-side
 ``(2,)`` int64 tensor holding the two uint32 words of a ``jax.random`` key
 (``jax.random.key_data``).  Keys are derived on the host (a few scalar ops);
 random bits are drawn on whatever device the caller names, so a key never
-forces a device sync.
+forces a device sync.  ``split`` and ``fold_in`` run in a ``trace_span``
+``rng_keys``, ``random_bits`` and ``random_bits_each`` in one ``rng_bits``.
 
 The construction follows jax 0.9.0 with ``jax_threefry_partitionable=True``:
 
@@ -33,6 +34,8 @@ import threading
 from typing import Sequence, Tuple, Union
 
 import torch
+
+from ..utils.metrics import trace_span
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -89,16 +92,18 @@ def _numel(shape: Sequence[int]) -> int:
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``(num, 2)`` keys."""
-    b0, b1 = _hash_counters(key, num, "cpu")
-    return torch.stack([b0, b1], dim=-1)
+    with trace_span("rng_keys"):
+        b0, b1 = _hash_counters(key, num, "cpu")
+        return torch.stack([b0, b1], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in`` with ``data`` taken as uint32."""
-    k0, k1 = _words(key)
-    o0, o1 = threefry2x32(k0, k1, torch.tensor([0]),
-                          torch.tensor([int(data) & MASK32]))
-    return torch.cat([o0, o1])
+    with trace_span("rng_keys"):
+        k0, k1 = _words(key)
+        o0, o1 = threefry2x32(k0, k1, torch.tensor([0]),
+                              torch.tensor([int(data) & MASK32]))
+        return torch.cat([o0, o1])
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int],
@@ -106,9 +111,10 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
     """32 random bits per element as int64 values in ``[0, 2**32)``;
     ``row0`` the block's first row in a larger draw (module doc)."""
     shape = tuple(int(s) for s in shape)
-    b0, b1 = _hash_counters(key, _numel(shape), device,
-                            int(row0) * _numel(shape[1:]))
-    return (b0 ^ b1).reshape(shape)
+    with trace_span("rng_bits"):
+        b0, b1 = _hash_counters(key, _numel(shape), device,
+                                int(row0) * _numel(shape[1:]))
+        return (b0 ^ b1).reshape(shape)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
@@ -217,8 +223,9 @@ def random_bits_each(keys: torch.Tensor, shape: Sequence[int]
                      ) -> torch.Tensor:
     """``(B,) + shape`` bits, row ``b`` under key ``b``."""
     shape = tuple(int(s) for s in shape)
-    b0, b1 = _hash_counters_each(keys, _numel(shape))
-    return (b0 ^ b1).reshape((keys.shape[0],) + shape)
+    with trace_span("rng_bits"):
+        b0, b1 = _hash_counters_each(keys, _numel(shape))
+        return (b0 ^ b1).reshape((keys.shape[0],) + shape)
 
 
 def split_each(keys: torch.Tensor, num: int = 2) -> torch.Tensor:

@@ -9,7 +9,8 @@ from .config import (
     validate_mixeddata,
 )
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
-from .metrics import MetricsLogger, profile, trace_span
+from .metrics import (MetricsLogger, profile, span_ms, span_records,
+                      trace_span)
 from .params import (adam_state_from_optax, gnn_params_from_flax,
                      hgt_params_from_flax, load_flax_params,
                      node2vec_params_from_flax, sage_params_from_flax,
