@@ -37,7 +37,9 @@ prints no result line):
    row and the multi-pass layout, and at one head, where they run B6's
    kernel, on both its paths on the hub row and the testbed), in float32
    (5e-4, TF32 off) and
-   bfloat16 (per-kernel limits of ``utils/kernel_gates.py``);
+   bfloat16 (per-kernel limits of ``utils/kernel_gates.py``); then the
+   threefry kernel (``run_rng_gates``) bit-equal to its plain version on
+   the card and to the CPU's bits;
 3. the GraphSAGE serving path at ogbn-products size (synthetic graph with
    the dataset's node/edge counts, 100 features, 47 classes; model
    hidden=256, 3 layers, random weights from a seed):
@@ -110,7 +112,15 @@ prints no result line):
    the samples and dropout masks are bit-equal, so the losses must agree
    within 1e-3 relative (the largest parameter difference is printed).  No
    kernel of B1-B11 lies on this path; the launch counts are zeroed before
-   (a)-(c) and printed after.
+   (a)-(c) and printed after.  The threefry kernel (T1) does: every draw of
+   the sampler and the dropout masks is one launch of it.  Its count, zeroed
+   before the serving path (3), the train path (7) and every later phase,
+   is printed after each and must be above 0 on 3, 7, 9 and 11.  Then T1's
+   kernel row: the kernel alone and its plain version at the dropout
+   masks' shapes (``kernel_gates.RNG_MASK_SHAPES``), bit-equal, timed
+   beside the bound, with the train path's launches and the host's
+   microseconds a call of ``random_bits`` at a Floyd draw's widest shape,
+   ``split`` and ``fold_in``.
 8. ``torch.profiler`` (``utils.metrics.profile``, a Chrome trace each under
    ``build/profile/``) over 3 SAGE train steps, 3 sampled SAGE requests and
    one SAGE ``blocked_forward``: for each, the device time of the kernels
@@ -330,7 +340,8 @@ prints no result line):
    1e-5 when no slot of their samples differs.  Each part's wall time and
    the phase's are printed.
 
-Output: human-readable lines, then one JSON line of kernel numbers, one
+Output: human-readable lines, then one JSON line of kernel numbers (B1-B11
+and T1), one
 line with the card's name and power limit (nvidia-smi), and as the last
 line ``{"ok": true, "device": {...}}``.
 """
@@ -351,6 +362,13 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
+# T1's bound: an element of threefry takes 20 funnel shifts and 21 xors (the
+# rounds' and the output's), which only the ALU pipe issues, 64 lanes an SM
+# (its 32 adds can go to the FMA pipe as IMAD), and writes 8 bytes.  H100
+# SXM: 132 SMs at 1.98 GHz.
+T1_ALU_OPS_PER_ELEMENT = 20 + 21
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
+FLOYD_DRAW = (15360,)          # the widest hop's draw at 1,024 seeds
 PRODUCTS = "ogbn-products"
 FANOUTS = [15, 10, 5]
 REQUESTS = 8
@@ -415,6 +433,12 @@ def phase_kernel_checks(device):
         for k, v in errs.items():
             log(f"  {k}: {v:.3e}")
         check(ok, f"kernel checks {dtype}: {worst}")
+    # the threefry kernel: bit-equal to the plain version and the CPU
+    errs = kg.run_rng_gates(device)
+    bad = {k: v for k, v in errs.items() if v}
+    log(f"rng gates ({len(errs)} entries, mismatched elements): "
+        f"{bad or 'none'}")
+    check(not bad, f"rng gates: {bad}")
 
 
 def host_prep(scale: float, device):
@@ -728,6 +752,73 @@ def kernel_numbers(p, launches, device):
             f"{launches[s['key']]}, worst wrapper err bf16 {err16:.2e} "
             f"f32 {err32:.2e}")
     return rows, gather_bound
+
+
+def host_us(fn, reps: int) -> float:
+    """Host microseconds a call of ``fn`` over ``reps`` calls (after one
+    warm-up), with no synchronise inside the loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def rng_kernel_numbers(launches, device):
+    """T1, the threefry kernel, at the dropout masks' shapes of a sampled
+    SAGE train step: ``rng.threefry_cuda`` (the kernel) and
+    ``rng.threefry_plain`` (the torch ops on the card), bit-equal, each
+    timed beside the bound; then the host's microseconds a call of
+    ``random_bits`` at a Floyd draw's widest shape, ``split`` and
+    ``fold_in``.  ``launches``: the train path's.  Returns the JSON row."""
+    from tch_geometric_tpu_torch.sampling import rng
+    from tch_geometric_tpu_torch.utils.kernel_gates import RNG_MASK_SHAPES
+    key = rng.key(2024)
+    ms_by, plain_by, bound_by = {}, {}, {}
+    for name, shape in zip(("mask_layer1", "mask_layer2"), RNG_MASK_SHAPES):
+        n = shape[0] * shape[1]
+        kernel = lambda n=n: rng.threefry_cuda(key, n, device)  # noqa: E731
+        plain = lambda n=n: rng.threefry_plain(key, n, device)  # noqa: E731
+        check(torch.equal(kernel(), plain()), f"T1 {name} bits vs plain")
+        ms_by[name] = cuda_ms(kernel, 50)
+        plain_by[name] = cuda_ms(plain, 3)
+        t_ops = n * T1_ALU_OPS_PER_ELEMENT / ALU_OPS_PER_S * 1e3
+        t_bytes = n * 8 / HBM_BYTES_PER_S * 1e3
+        bound_by[name] = (max(t_ops, t_bytes),
+                          "operations" if t_ops >= t_bytes else "bytes")
+    host = dict(
+        random_bits=host_us(lambda: rng.random_bits(key, FLOYD_DRAW, device),
+                            2000),
+        split=host_us(lambda: rng.split(key), 2000),
+        fold_in=host_us(lambda: rng.fold_in(key, 7), 2000))
+    steps = ("mask_layer1", "mask_layer2")
+    row = dict(
+        name="threefry_cuda (T1)", route="cuda",
+        source="tch_geometric_tpu_torch/csrc/threefry.cu",
+        replaces="none: the JAX package's threefry is XLA's "
+                 "(jax/_src/prng.py::_threefry2x32_lowering)",
+        launches=launches, mismatched_bits=0, ms=ms_by["mask_layer1"],
+        plain_ms=plain_by["mask_layer1"],
+        bound_ms=bound_by["mask_layer1"][0],
+        bound_by=bound_by["mask_layer1"][1], library_ms=None,
+        ms_by_case=dict(ms_by, mask_step=sum(ms_by[k] for k in steps)),
+        plain_ms_by_case=dict(plain_by,
+                              mask_step=sum(plain_by[k] for k in steps)),
+        bound_ms_by_case={k: v[0] for k, v in bound_by.items()},
+        shape=dict(masks=[list(s) for s in RNG_MASK_SHAPES],
+                   dtype="int64 bits"),
+        host_us=host)
+    log(f"kernel {row['name']}: masks "
+        + ", ".join(f"{k} {ms_by[k]:.3f} ms (bound {bound_by[k][0]:.3f} ms "
+                    f"by {bound_by[k][1]}; plain {plain_by[k]:.3f} ms)"
+                    for k in steps)
+        + "; host us a call: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+        + f"; launches on the train path {launches}")
+    return row
 
 
 GAT_HEADS = 4
@@ -5835,6 +5926,17 @@ def main(argv=None) -> int:
                      ab.gat_attend_blocked_flash_cuda)
     wrappers = ((spmm_blocked_cuda, spmm_blocked_weighted_cuda,
                  spmm_blocked_q8_cuda) + attend_kernels + route_kernels)
+    from tch_geometric_tpu_torch.sampling import rng
+    threefry = rng.threefry_cuda
+    counted = wrappers + (threefry,)    # zeroed before each phase
+
+    def t1_launches(where, ran):
+        """T1's launches since the last zeroing; above 0 where ``ran``."""
+        log(f"{where}: threefry_cuda (T1) launches {threefry.launches}")
+        if ran:
+            check(threefry.launches > 0, f"kernel threefry_cuda (T1) ran on "
+                  f"{where}")
+        return threefry.launches
 
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
     warnings.filterwarnings("ignore", message="Sparse invariant checks")
@@ -5868,7 +5970,7 @@ def main(argv=None) -> int:
         return out, (time.perf_counter() - t0) * 1e3
 
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     res = serve(p, device, timer)
     launches = {"spmm_blocked_cuda": spmm_blocked_cuda.launches,
@@ -5878,6 +5980,7 @@ def main(argv=None) -> int:
     log(f"main path launches: {launches}")
     for k, v in launches.items():
         check(v > 0, f"kernel {k} ran on the main path")
+    t1_launches("main path", True)
     log("requests ms: " + ", ".join(f"{m:.1f}" for m in res["req_ms"]))
     log(f"full-graph blocked_forward {res['ms_b']:.1f} ms, hot split "
         f"{res['ms_c']:.1f} ms (first calls); peak device memory "
@@ -5892,7 +5995,7 @@ def main(argv=None) -> int:
     models = gat_models(p, device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     gres = serve_gat(p, models, timer)
     gat_launches = {"gat_attend_blocked_packed_cuda":
@@ -5914,7 +6017,7 @@ def main(argv=None) -> int:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     route_outs, route_ms = serve_gat_routes(p, models, timer)
     route_launches = {fn.__name__: fn.launches for fn in route_kernels}
@@ -5948,7 +6051,7 @@ def main(argv=None) -> int:
     xs = attend_inputs(p, device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     ares = serve_attend(p, xs, timer)
     attend_launches = {fn.__name__: fn.launches
@@ -5969,7 +6072,7 @@ def main(argv=None) -> int:
     del xs
     torch.cuda.empty_cache()
 
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     qres = serve_q8(p, device, timer)
     q8_launches = {"spmm_blocked_q8_cuda": spmm_blocked_q8_cuda.launches}
@@ -5978,23 +6081,25 @@ def main(argv=None) -> int:
           "kernel spmm_blocked_q8_cuda ran on the int8 path")
     kernels.append(q8_kernel_numbers(p, qres, q8_launches))
     del qres
-    check(len(kernels) == 11, f"{len(kernels)} kernel rows, expected 11")
     torch.cuda.empty_cache()
 
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     train_res, trainers = train(p, device, timer)
     train_res["multibatch"] = train_multibatch(p, device, timer)
     train_launches = {fn.__name__: fn.launches for fn in wrappers}
     log(f"train path launches (no kernel of B1-B11 lies on it): "
         f"{train_launches}")
+    kernels.append(rng_kernel_numbers(t1_launches("train path", True),
+                                      device))
+    check(len(kernels) == 12, f"{len(kernels)} kernel rows, expected 12")
     torch.cuda.empty_cache()
     train_res["card_vs_cpu"] = check_train_card_vs_cpu(p["data"], sg, device)
     prof = profile_phase(p, trainers, device)
     del trainers
     torch.cuda.empty_cache()
 
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     sampling_res = sampling_requests(p, device, timer)
     t = time.perf_counter()
@@ -6006,11 +6111,12 @@ def main(argv=None) -> int:
     sampling_launches = {fn.__name__: fn.launches for fn in wrappers}
     log(f"sampling path launches (no kernel of B1-B11 lies on it): "
         f"{sampling_launches}")
+    t1_launches("phase 9", True)
     torch.cuda.empty_cache()
     sampling_res["card_vs_cpu"] = check_sampling_card_vs_cpu(sg, mag, device)
     torch.cuda.empty_cache()
 
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     parity_res, csr = phase10(p, mag, sg, device, timer)
     parity_launches = {fn.__name__: fn.launches for fn in wrappers}
@@ -6018,9 +6124,10 @@ def main(argv=None) -> int:
         f"{parity_launches}")
     check(not any(parity_launches.values()),
           "no kernel of B1-B11 ran in phase 10")
+    t1_launches("phase 10", False)
     torch.cuda.empty_cache()
 
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     models_res = phase11(p, mag, csr, sg, device, timer)
     models_launches = {fn.__name__: fn.launches for fn in wrappers}
@@ -6028,9 +6135,10 @@ def main(argv=None) -> int:
         f"{models_launches}")
     check(not any(models_launches.values()),
           "no kernel of B1-B11 ran in phase 11")
+    t1_launches("phase 11", True)
     torch.cuda.empty_cache()
 
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     dist_res = phase12(p, sg, device, timer)
     dist_launches = {fn.__name__: fn.launches for fn in wrappers}
@@ -6038,9 +6146,10 @@ def main(argv=None) -> int:
         f"{dist_launches}")
     check(not any(dist_launches.values()),
           "no kernel of B1-B11 ran in phase 12")
+    t1_launches("phase 12", False)
     torch.cuda.empty_cache()
 
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     mesh_res = phase13(p, sg, dist_res, device, timer)
     mesh_launches = {fn.__name__: fn.launches for fn in wrappers}
@@ -6048,9 +6157,10 @@ def main(argv=None) -> int:
         f"{mesh_launches}")
     check(not any(mesh_launches.values()),
           "no kernel of B1-B11 ran in phase 13")
+    t1_launches("phase 13", False)
     torch.cuda.empty_cache()
 
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     walk_res = phase14(p, csr, mag, sg, device, timer)
     walk_launches = {fn.__name__: fn.launches for fn in wrappers}
@@ -6058,8 +6168,9 @@ def main(argv=None) -> int:
         f"{walk_launches}")
     check(not any(walk_launches.values()),
           "no kernel of B1-B11 ran in phase 14")
+    t1_launches("phase 14", False)
 
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     budget_res = phase15(p, csr, mag, sg, device, timer)
     budget_launches = {fn.__name__: fn.launches for fn in wrappers}
@@ -6067,9 +6178,10 @@ def main(argv=None) -> int:
         f"{budget_launches}")
     check(not any(budget_launches.values()),
           "no kernel of B1-B11 ran in phase 15")
+    t1_launches("phase 15", False)
     del csr
 
-    for fn in wrappers:
+    for fn in counted:
         fn.launches = 0
     hgt_res = phase16(mag, device, timer)
     hgt_launches = {fn.__name__: fn.launches for fn in wrappers}
@@ -6077,6 +6189,7 @@ def main(argv=None) -> int:
         f"{hgt_launches}")
     check(not any(hgt_launches.values()),
           "no kernel of B1-B11 ran in phase 16")
+    t1_launches("phase 16", False)
     del mag
 
     summary = dict(

@@ -71,6 +71,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
                                   _vp, _vp, _vp, _vp]),
         "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
+    "threefry": {
+        "tgt_threefry": (_i, [_vp, _i64, _i64, _vp, ctypes.c_uint64, _i64,
+                              _i64, _i, _vp, _vp]),
+        "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -266,14 +266,6 @@ def _scatter_route(payload, owner, valid, apply_fn, *, axis,
     return (valid & ~carried).sum()
 
 
-def _fold_rows(keys, data):
-    """``vmap(fold_in)(keys, data)``: row ``b``'s key with ``data[b]``
-    folded in (uint32)."""
-    d = data.long() & rng.MASK32
-    o0, o1 = rng.threefry2x32(keys[:, 0], keys[:, 1], torch.zeros_like(d), d)
-    return torch.stack([o0, o1], dim=-1)
-
-
 def _rel_keys(key, R: int, device):
     """``fold(key, ri)`` for every relation, (R, 2) on ``device``."""
     return torch.stack([rng.fold_in(key, ri) for ri in range(R)]).to(device)
@@ -654,7 +646,7 @@ def _dist_hgt_device_stacked(key, stk: StackedRels, seeds, seed_ts, *,
 
     def fused_keys(base_key):
         rkeys = _rel_keys(base_key, R, device)
-        return lambda ris, uids: _fold_rows(rkeys[ris], uids)
+        return lambda ris, uids: rng.fold_in_each(rkeys[ris], uids)
 
     def update_budget(upd_key, new_nodes, new_ts, new_valid):
         m_max = max(v.shape[0] for v in new_nodes.values())

@@ -363,9 +363,8 @@ def _uid_floyd(keys, deg, k: int):
     B = deg.shape[0]
     i = torch.arange(k, device=deg.device)
     j = deg[:, None] - (k - i)                                # (B, k)
-    zero = torch.zeros((B, k), dtype=torch.int64, device=deg.device)
-    o0, o1 = rng.threefry2x32(keys[:, :1], keys[:, 1:], zero, zero + i)
-    draws = rng.randint_each(torch.stack([o0, o1], -1).reshape(-1, 2), (1,),
+    # fold_in(row key, i) for i < k is split(row key, k)[i]
+    draws = rng.randint_each(rng.split_each(keys, k).reshape(-1, 2), (1,),
                              0, torch.clamp(j + 1, min=1).reshape(-1, 1))
     draws = draws.reshape(B, k)
     chosen = torch.full((B, k), -1, dtype=torch.long, device=deg.device)

@@ -24,17 +24,29 @@ data-parallel rank draws its block of a batch so, and gets exactly the
 whole-batch draw's rows, as a rank's shard of a ``jax.random`` draw under
 ``jax_threefry_partitionable=True`` is.
 
+Where the hash runs.  Host keys (``split``, ``fold_in``) are hashed on
+python ints, ~130 integer operations a key, and the result tensor is built
+once.  Every draw on a CUDA tensor (the bits of ``random_bits`` and
+``random_bits_each``, and the device-side keys of ``fold_in_many``,
+``fold_in_each`` and ``split_each``) is one launch of the hand-written
+kernel ``csrc/threefry.cu`` through :func:`threefry_cuda`, which counts
+its launches in ``threefry_cuda.launches``; on a CPU tensor the same
+function runs the plain torch :func:`threefry2x32`.  The three give the
+same bits.
+
 uint32 arithmetic runs in int64 with ``& 0xFFFFFFFF`` masks: torch on the
 CPU has no uint32 ``<<``.  Products of two 32-bit words are split into
 16-bit halves so no intermediate leaves the int64 range.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..ops import _build
 from ..utils.metrics import trace_span
 
 MASK32 = 0xFFFFFFFF
@@ -48,11 +60,11 @@ def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
     return ((x << d) | (x >> (32 - d))) & MASK32
 
 
-def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 hash of the counter pairs ``(x0, x1)`` under key
-    ``(k0, k1)``.  Keys are python ints or broadcastable int64 tensors;
-    counters are int64 tensors of uint32 values."""
+    ``(k0, k1)``: the plain version.  Keys and counters are python ints or
+    broadcastable int64 tensors of uint32 values; on python ints it is the
+    host keys' hash."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32
@@ -75,12 +87,108 @@ def key(seed: int) -> torch.Tensor:
     return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64)
 
 
-def _hash_counters(key: torch.Tensor, n: int, device: DeviceLike,
-                   offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Threefry over the partitionable counters ``offset..offset+n-1``."""
-    k0, k1 = _words(key)
-    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
-    return threefry2x32(k0, k1, idx >> 32, idx & MASK32)
+def _draw_device(key: torch.Tensor, data: Optional[torch.Tensor],
+                 device: DeviceLike, words: bool) -> torch.device:
+    """A draw's device: ``data``'s, else a key table's, else ``device``."""
+    if data is not None:
+        dev = data.device
+    elif key.dim() == 2:
+        dev = key.device
+    else:
+        dev = torch.device(device)
+    if key.shape[-1] != 2 or key.dim() > 2:
+        raise ValueError(f"a key is (2,) and a key table (B, 2), got "
+                         f"{tuple(key.shape)}")
+    if key.dim() == 2 and key.device != dev:
+        raise ValueError(f"keys are on {key.device}, data on {dev}")
+    if data is not None and not words:
+        raise ValueError("counters from data give keys: pass words=True")
+    return dev
+
+
+def threefry_plain(key: torch.Tensor, n: int, device: DeviceLike = None, *,
+                   offset: int = 0, data: Optional[torch.Tensor] = None,
+                   words: bool = False) -> torch.Tensor:
+    """:func:`threefry_cuda`'s function as torch ops on any device: the
+    plain version."""
+    dev = _draw_device(key, data, device, words)
+    table = key.dim() == 2
+    rows = key.shape[0] if table else 1
+    k0, k1 = (key[:, :1], key[:, 1:]) if table else _words(key)
+    if data is None:
+        c = torch.arange(offset, offset + n, dtype=torch.int64, device=dev)
+    else:
+        c = (data.long().reshape(rows, n) & MASK32) + offset
+    o0, o1 = threefry2x32(k0, k1, c >> 32, c & MASK32)
+    o0, o1 = torch.broadcast_tensors(o0, o1)
+    if words:
+        return torch.stack([o0, o1], dim=-1).reshape(rows * n, 2)
+    return (o0 ^ o1).reshape(rows * n)
+
+
+def threefry_cuda(key: torch.Tensor, n: int, device: DeviceLike = None, *,
+                  offset: int = 0, data: Optional[torch.Tensor] = None,
+                  words: bool = False) -> torch.Tensor:
+    """Threefry over the counters of ``rows`` rows of ``n`` elements: the
+    ``(rows * n,)`` bits ``out0 ^ out1`` as int64 values in ``[0, 2**32)``,
+    or with ``words`` the ``(rows * n, 2)`` output words (keys).
+
+    ``key`` is one host key ``(2,)`` (``rows`` = 1), or a ``(rows, 2)`` key
+    table (row ``b`` under key ``b``).  Element ``i`` of a row hashes the
+    partitionable counter ``offset + i``, or given ``data`` (``rows * n``
+    ints; keys only, so ``words``) ``offset + (data[e] mod 2**32)``.  It runs on ``data``'s device,
+    else the table's, else ``device``: on a CPU tensor the plain version
+    (:func:`threefry_plain`), on a CUDA tensor one launch of the kernel
+    (``csrc/threefry.cu``) or an error."""
+    dev = _draw_device(key, data, device, words)
+    table = key.dim() == 2
+    rows = key.shape[0] if table else 1
+    if data is not None and data.numel() != rows * n:
+        raise ValueError(f"data has {data.numel()} elements, expected "
+                         f"{rows} x {n}")
+    if dev.type == "cpu":
+        return threefry_plain(key, n, dev, offset=offset, data=data,
+                              words=words)
+    return _launch_threefry(key if table else None,
+                            (0, 0) if table else _words(key), data, offset,
+                            rows, n, words, dev)
+
+
+def _launch_threefry(keys: Optional[torch.Tensor], k: Tuple[int, int],
+                     data: Optional[torch.Tensor], offset: int, rows: int,
+                     n: int, words: bool, dev: torch.device) -> torch.Tensor:
+    """Launch ``tgt_threefry`` on the current stream of ``dev``."""
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA device, got {dev}")
+    if not 0 <= offset < 2 ** 64:
+        raise ValueError(f"counter offset {offset} outside uint64")
+    out = torch.empty((rows * n, 2) if words else (rows * n,),
+                      dtype=torch.int64, device=dev)
+    if out.numel() == 0:
+        return out
+    if keys is not None:
+        keys = keys.to(torch.int64).contiguous()
+    if data is not None:
+        data = data.to(torch.int64).contiguous()
+    lib = _build.load("threefry")
+    # entering the device's context costs a launch's time: only off it
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    with (contextlib.nullcontext() if index == current
+          else torch.cuda.device(index)):
+        rc = lib.tgt_threefry(
+            None if keys is None else keys.data_ptr(), k[0], k[1],
+            None if data is None else data.data_ptr(), offset, rows, n,
+            int(words), out.data_ptr(),
+            torch.cuda.current_stream(index).cuda_stream)
+    if rc != 0:
+        msg = lib.tgt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"tgt_threefry launch failed: {msg} ({rc})")
+    threefry_cuda.launches += 1
+    return out
+
+
+threefry_cuda.launches = 0
 
 
 def _numel(shape: Sequence[int]) -> int:
@@ -91,19 +199,21 @@ def _numel(shape: Sequence[int]) -> int:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``(num, 2)`` keys."""
+    """``jax.random.split``: ``(num, 2)`` keys, hashed on python ints."""
     with trace_span("rng_keys"):
-        b0, b1 = _hash_counters(key, num, "cpu")
-        return torch.stack([b0, b1], dim=-1)
+        k0, k1 = _words(key)
+        return torch.tensor([threefry2x32(k0, k1, j >> 32, j & MASK32)
+                             for j in range(num)],
+                            dtype=torch.int64).reshape(num, 2)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in`` with ``data`` taken as uint32."""
+    """``jax.random.fold_in`` with ``data`` taken as uint32, hashed on
+    python ints."""
     with trace_span("rng_keys"):
         k0, k1 = _words(key)
-        o0, o1 = threefry2x32(k0, k1, torch.tensor([0]),
-                              torch.tensor([int(data) & MASK32]))
-        return torch.cat([o0, o1])
+        return torch.tensor(threefry2x32(k0, k1, 0, int(data) & MASK32),
+                            dtype=torch.int64)
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int],
@@ -112,9 +222,9 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
     ``row0`` the block's first row in a larger draw (module doc)."""
     shape = tuple(int(s) for s in shape)
     with trace_span("rng_bits"):
-        b0, b1 = _hash_counters(key, _numel(shape), device,
-                                int(row0) * _numel(shape[1:]))
-        return (b0 ^ b1).reshape(shape)
+        return threefry_cuda(key, _numel(shape), device,
+                             offset=int(row0) * _numel(shape[1:])
+                             ).reshape(shape)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
@@ -199,24 +309,18 @@ def gumbel(key: torch.Tensor, shape: Sequence[int],
 def fold_in_many(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """``vmap(lambda d: fold_in(key, d))(data)``: ``(B, 2)`` keys, ``data``
     taken as uint32, on ``data``'s device."""
-    k0, k1 = _words(key)
-    d = data.long() & MASK32
-    o0, o1 = threefry2x32(k0, k1, torch.zeros_like(d), d)
-    return torch.stack([o0, o1], dim=-1)
+    return threefry_cuda(key, data.numel(), data=data,
+                         words=True).reshape(tuple(data.shape) + (2,))
 
 
-def fold_in_each(keys: torch.Tensor, data: int) -> torch.Tensor:
-    """``vmap(lambda k: fold_in(k, data))(keys)``."""
-    zero = torch.zeros_like(keys[:, 0])
-    o0, o1 = threefry2x32(keys[:, 0], keys[:, 1], zero,
-                          zero + (int(data) & MASK32))
-    return torch.stack([o0, o1], dim=-1)
-
-
-def _hash_counters_each(keys: torch.Tensor, n: int
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
-    return threefry2x32(keys[:, :1], keys[:, 1:], idx >> 32, idx & MASK32)
+def fold_in_each(keys: torch.Tensor, data) -> torch.Tensor:
+    """``vmap(lambda k: fold_in(k, data))(keys)``; ``data`` an int, or a
+    ``(B,)`` tensor for ``vmap(fold_in)(keys, data)``."""
+    if isinstance(data, torch.Tensor):
+        out = threefry_cuda(keys, 1, data=data, words=True)
+    else:
+        out = threefry_cuda(keys, 1, offset=int(data) & MASK32, words=True)
+    return out.reshape(keys.shape[0], 2)
 
 
 def random_bits_each(keys: torch.Tensor, shape: Sequence[int]
@@ -224,14 +328,14 @@ def random_bits_each(keys: torch.Tensor, shape: Sequence[int]
     """``(B,) + shape`` bits, row ``b`` under key ``b``."""
     shape = tuple(int(s) for s in shape)
     with trace_span("rng_bits"):
-        b0, b1 = _hash_counters_each(keys, _numel(shape))
-        return (b0 ^ b1).reshape((keys.shape[0],) + shape)
+        return threefry_cuda(keys, _numel(shape)).reshape(
+            (keys.shape[0],) + shape)
 
 
 def split_each(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``vmap(lambda k: split(k, num))(keys)``: ``(B, num, 2)``."""
-    b0, b1 = _hash_counters_each(keys, num)
-    return torch.stack([b0, b1], dim=-1)
+    return threefry_cuda(keys, num, words=True).reshape(keys.shape[0], num,
+                                                        2)
 
 
 def uniform_each(keys: torch.Tensor, shape: Sequence[int],

@@ -810,3 +810,105 @@ def run_weighted_mode_gates(compute_dtype=torch.float32, device="cuda"
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return errs
+
+
+# The dropout masks of the sage-products train step at width 256: the
+# hidden rows of a 1,024-seed tree at fanouts [15, 10, 5] after the first
+# layer (depths 0-2) and after the second (depths 0-1).
+RNG_MASK_SHAPES = ((169984, 256), (16384, 256))
+
+
+def _mismatches(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements that differ; every element when the shapes differ."""
+    if a.shape != b.shape:
+        return max(a.numel(), b.numel(), 1)
+    return int((a.cpu() != b.cpu()).sum())
+
+
+def run_rng_gates(device="cuda", mask_shapes=RNG_MASK_SHAPES
+                  ) -> Dict[str, int]:
+    """``{case/side: mismatched elements}`` of the threefry kernel
+    (``rng.threefry_cuda``, through the rng functions) against the plain
+    version on ``device`` (``/plain``) and against the CPU's bits
+    (``/cpu``); bit-equal passes, so every entry must be 0.  Cases: an
+    empty draw, one element, the two masks' shapes, 2-D block draws (``row0``)
+    against the rows of the whole draw, counters that cross ``2**32``,
+    per-row key tables (``random_bits_each``, ``split_each``, also on a
+    strided table), and the two-word mode (``fold_in_each`` with an int and
+    with a tensor, ``fold_in_many``).  ``launches`` counts the kernel
+    launches that are missing on a CUDA device (0 on the CPU)."""
+    from ..sampling import rng
+
+    dev = torch.device(device)
+    cpu = torch.device("cpu")
+    g = np.random.default_rng(23)
+    key = rng.key(int(g.integers(0, 2**32)))
+    table = torch.from_numpy(g.integers(0, 2**32, (1000, 2))).to(dev)
+    wide = torch.from_numpy(g.integers(0, 2**32, (7, 3, 2))).to(dev)
+    strided = wide[:, 1]                                  # (7, 2), stride 6
+    data = np.concatenate([[0, 1, 2**31, 2**32 - 1, -1],
+                           g.integers(0, 2**32, 995)])
+    data = torch.from_numpy(data).to(dev)
+    # name: (kernel on dev, plain on dev, plain on the CPU), each a thunk
+    # of (threefry_* function, device) -> result
+    def draw(shape, row0=0):
+        n = int(np.prod(shape[1:], dtype=np.int64))
+        return lambda f, d: f(key, int(np.prod(shape, dtype=np.int64)), d,
+                              offset=row0 * n).reshape(shape)
+
+    def each(keys, n, **kw):
+        return lambda f, d: f(keys.to(d), n, **{
+            k: v.to(d) if isinstance(v, torch.Tensor) else v
+            for k, v in kw.items()})
+
+    cases = {
+        "empty": draw((0,)), "empty_2d": draw((3, 0)), "one": draw((1,)),
+        "mask_layer1": draw(tuple(mask_shapes[0])),
+        "mask_layer2": draw(tuple(mask_shapes[1])),
+        "block[3:8]": draw((5, 33), row0=3),
+        "block[1000:1037]": draw((37, 129), row0=1000),
+        "cross_2**32": draw((5, 1000), row0=2**32 // 1000),
+        "cross_2**32_3d": draw((3, 4096, 2), row0=2**32 // 8192 - 1),
+        "random_bits_each": each(table, 33),
+        "random_bits_each_strided": each(strided, 5),
+        "split_each": each(table, 3, words=True),
+        "fold_in_each": each(table, 1, offset=2**31 + 7, words=True),
+        "fold_in_each_rows": each(table, 1, data=data, words=True),
+        "fold_in_many": lambda f, d: f(key, data.numel(), d,
+                                       data=data.to(d), words=True),
+    }
+    errs: Dict[str, int] = {}
+    before = rng.threefry_cuda.launches
+    launched = 0
+    for name, case in cases.items():
+        got = case(rng.threefry_cuda, dev)
+        launched += int(got.numel() > 0)
+        for side, want in (("plain", case(rng.threefry_plain, dev)),
+                           ("cpu", case(rng.threefry_plain, cpu))):
+            errs[f"{name}/{side}"] = _mismatches(got, want)
+    # the public draws: the whole draw's rows equal the block draw's, and
+    # each function's result equals the plain one's (bits and keys)
+    whole = rng.random_bits(key, (1037, 129), dev)
+    errs["block_rows/whole"] = _mismatches(
+        rng.random_bits(key, (37, 129), dev, row0=1000), whole[1000:])
+    pub = {"random_bits_each": (rng.random_bits_each(table, (3, 11)),
+                                rng.threefry_plain(table, 33)),
+           "split_each": (rng.split_each(table, 4),
+                          rng.threefry_plain(table, 4, words=True)),
+           "fold_in_each": (rng.fold_in_each(table, 9),
+                            rng.threefry_plain(table, 1, offset=9,
+                                               words=True)),
+           "fold_in_each_rows": (rng.fold_in_each(table, data),
+                                 rng.threefry_plain(table, 1, data=data,
+                                                    words=True)),
+           "fold_in_many": (rng.fold_in_many(key, data),
+                            rng.threefry_plain(key, 1000, dev, data=data,
+                                               words=True))}
+    for name, (got, want) in pub.items():
+        errs[f"{name}/public"] = _mismatches(got.reshape(-1), want.reshape(-1))
+    launched += 2 + len(pub)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        errs["launches"] = abs(rng.threefry_cuda.launches - before
+                               - launched)
+    return errs

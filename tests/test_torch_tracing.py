@@ -200,6 +200,14 @@ def karate():
                                  device="cpu"))
 
 
+@pytest.fixture
+def card():
+    """The CUDA card of a ``card``-marked test; skips it without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; this machine has none")
+    return torch.device("cuda")
+
+
 def _model(num_layers):
     return GraphSAGE(34, 8, 4, num_layers, dropout=0.5, device="cpu",
                      generator=torch.Generator().manual_seed(0))
@@ -251,6 +259,32 @@ def test_train_step_records_and_results_with_and_without_profiler(
     (l0, p0), (l1, p1) = out[False], out[True]
     assert torch.equal(l0, l1)
     assert all(torch.equal(p0[k], p1[k]) for k in p0)
+
+
+@pytest.mark.card
+def test_train_step_launches_the_threefry_kernel_once_a_draw(karate, card):
+    """On the card every draw of a train step is one launch of the
+    threefry kernel: randint's two draws per Floyd draw and one a mask,
+    the formula the ``rng_bits`` spans follow (11 at fanouts [3, 2] with
+    2 layers; 62 at [15, 10, 5] with 3)."""
+    fanouts, L = [3, 2], 2
+    seeds = np.array([0, 1, 4, 5, 9, 33])
+    graph = make_graph(karate["cp"], karate["ri"], num_src=34, num_dst=34,
+                       ell_table=False, window_table=False, device=card)
+    model = GraphSAGE(34, 8, 4, L, dropout=0.5, device=card,
+                      generator=torch.Generator().manual_seed(0))
+    trainer = make_gnn_trainer(model, fanouts)
+    state = trainer.init_fn()
+    x = karate["x"].to(card)
+    before = rng.threefry_cuda.launches
+    state, loss, _ = trainer.train_step(state, rng.key(5), graph, x, seeds,
+                                        karate["y"][seeds])
+    torch.cuda.synchronize()
+    launches = rng.threefry_cuda.launches - before
+    assert launches == sum(2 * k for k in fanouts) + (L - 1) == 11
+    rec = span_records("step")[-1]
+    assert launches == _names(rec).count("rng_bits")
+    assert torch.isfinite(loss)
 
 
 def test_blocked_forward_records_one_aggregate_a_layer(karate):
