@@ -59,12 +59,14 @@ prints no result line):
    ``GAT(100, 256, 47, 3 layers, 4 heads)``: H=4, D=64, then one head of
    47; random weights from a seed): (a) 8 requests of 1024 seeds through
    ``sample_and_gather`` + ``tree_forward``, and one request each through
-   GCN and GIN (hidden 256, 3 layers); (b) the full-graph pass, the three
-   ``GATConv(blocked=...)`` layers with ELU between them (the composition
-   of ``GAT.forward``), in float32, which launches B3.  B3's launch count is
-   zeroed just before (a)-(b) and read just after.  Then B3's wrapper is
-   checked against its plain version at both layer shapes, both modes and
-   both dtypes, and timed; the outputs are checked finite.
+   GCN and GIN (hidden 256, 3 layers); (b) the full-graph pass,
+   ``GAT.blocked_forward`` (B3 a layer, ELU between them), in float32.
+   B3's launch count is zeroed just before (a)-(b) and read just after.
+   Then B3's wrapper is checked against its plain version at both layer
+   shapes and at PyG's ogbn-products GAT's (H=4 of D=128 and of D=47), in
+   three modes (table, vec, vec with self loops) and both dtypes, and
+   timed (with self loops too at PyG's shapes); the outputs are checked
+   finite.
    Then the GAT routes: the same float32 full-graph pass three ways, each
    layer's attention through B3, through the composed route
    (``gat_attend_blocked_cuda``: B7 computing the logits from the (N, H)
@@ -842,8 +844,8 @@ GAT_ROUTES = ("packed", "composed", "flash")
 
 def gat_route_pass(gat, x, blocked, route="packed"):
     """``GAT.forward``'s composition over the blocked layout, ELU between
-    layers, each layer's attention step through one route: ``packed``, each
-    ``GATConv(blocked=...)`` (B3); ``composed``, ``gat_attend_blocked_cuda``
+    layers, each layer's attention step through one route: ``packed``,
+    ``GAT.blocked_forward`` (B3 a layer); ``composed``, ``gat_attend_blocked_cuda``
     (B7 on the logit tables, B8); ``flash``,
     ``gat_attend_blocked_flash_cuda`` (B9).  The last two take the
     layer's ``project`` and ``logit_tables`` (alpha_src as an (N, H)
@@ -851,15 +853,15 @@ def gat_route_pass(gat, x, blocked, route="packed"):
     from tch_geometric_tpu_torch.ops import attention_blocked as ab
     attend = {"composed": ab.gat_attend_blocked_cuda,
               "flash": ab.gat_attend_blocked_flash_cuda}.get(route)
+    if attend is None:
+        return gat.blocked_forward(x, blocked,
+                                   compute_dtype=gat.convs[0].compute_dtype)
     h = x
     for i, conv in enumerate(gat.convs):
-        if attend is None:
-            out = conv(h, blocked=blocked)
-        else:
-            hh = conv.project(h)
-            out = attend(blocked, hh, *conv.logit_tables(hh),
-                         compute_dtype=conv.compute_dtype).reshape(
-                             -1, conv.features)
+        hh = conv.project(h)
+        out = attend(blocked, hh, *conv.logit_tables(hh),
+                     compute_dtype=conv.compute_dtype).reshape(
+                         -1, conv.features)
         h = gat._act(out, i, True)
     return h
 
@@ -1201,16 +1203,20 @@ def _gat_library_ms(p, logits, x, device):
 
 
 def gat_kernel_numbers(p, launches, device):
-    """B3 at the main path's shapes: layers 1-2 (H=4, D=64) and layer 3
-    (H=1, D=47) of the products GAT.  The wrapper is held against the plain
-    version in both modes (alpha_src table; the in-kernel GATv1 projection,
-    which GATConv uses) and both dtypes; then the vec mode is timed at both
-    shapes in both dtypes, and the plain version at H=4, D=64 in float32 (the
-    main path's widest call).  Returns the JSON row."""
+    """B3 at the main path's shapes, layers 1-2 (H=4, D=64) and layer 3
+    (H=1, D=47) of the products GAT, and at PyG's ogbn-products GAT's
+    (H=4 heads of D=128 in layers 1-2, of D=47 averaged in layer 3).  The
+    wrapper is held against the plain version in three modes (alpha_src
+    table; the in-kernel GATv1 projection, which GATConv uses; that with
+    self loops, PyG's) and both dtypes; then the vec mode is timed at every
+    shape in both dtypes, with self loops too at PyG's shapes, and the plain
+    version at H=4, D=64 in float32 (the main path's widest call).  Returns
+    the JSON row."""
     from tch_geometric_tpu_torch.ops.attention_blocked import (
         gat_attend_blocked_packed, gat_attend_blocked_packed_cuda)
     from tch_geometric_tpu_torch.utils.kernel_gates import (BF16_THRESHOLDS,
-                                                            F32_THRESHOLD)
+                                                            F32_THRESHOLD,
+                                                            WIDE_VEC_B3)
     key = "gat_attend_blocked_packed_cuda"
     b = p["blocked"]
     n = p["x_table"].shape[0]
@@ -1218,15 +1224,21 @@ def gat_kernel_numbers(p, launches, device):
     valid = int(b.edge_valid.sum())
     gen = torch.Generator().manual_seed(5)
     errs, ms, shapes = {}, {}, {}
-    for H, D in ((GAT_HEADS, 256 // GAT_HEADS), (1, 47)):
+    pyg = ((GAT_HEADS, 128), (GAT_HEADS, 47))
+    for H, D in ((GAT_HEADS, 256 // GAT_HEADS), (1, 47)) + pyg:
         h = torch.randn((n, H, D), generator=gen).to(device)
         a_s = torch.randn((n, H), generator=gen).to(device)
         a_d = torch.randn((n, H), generator=gen).to(device)
         vec = (torch.randn((H, D), generator=gen) / D ** 0.5).to(device)
         for dt, thr in ((torch.float32, F32_THRESHOLD),
                         (torch.bfloat16, BF16_THRESHOLDS[key])):
-            for mode, table, v in (("table", a_s, None), ("vec", None, vec)):
-                kw = dict(alpha_src_vec=v, compute_dtype=dt)
+            for mode, table, v in (("table", a_s, None), ("vec", None, vec),
+                                   ("vec+self", None, vec)):
+                if (dt == torch.bfloat16 and v is not None
+                        and (H, D) in pyg):
+                    thr = BF16_THRESHOLDS[WIDE_VEC_B3]
+                kw = dict(alpha_src_vec=v, compute_dtype=dt,
+                          self_loops=mode == "vec+self")
                 got = gat_attend_blocked_packed_cuda(b, h, table, a_d, **kw)
                 ref = gat_attend_blocked_packed(b, h, table, a_d, **kw)
                 check(got.shape == ref.shape == (n, H, D),
@@ -1238,12 +1250,19 @@ def gat_kernel_numbers(p, launches, device):
                 check(e <= thr, f"B3 H={H} D={D} {mode} {dt}: {e:.3e}")
                 del got, ref
             hc = h.to(dt)
-            ms[f"H{H}_D{D}_{str(dt)[6:]}"] = cuda_ms(
-                lambda: gat_attend_blocked_packed_cuda(
-                    b, hc, None, a_d, alpha_src_vec=vec, compute_dtype=dt),
-                10)
-        if H == GAT_HEADS:
+            for self_loops in ((False, True) if (H, D) in pyg else (False,)):
+                k = f"H{H}_D{D}_{str(dt)[6:]}" + ("_self" if self_loops
+                                                  else "")
+                shapes[k] = (H, D, hc.element_size())
+                ms[k] = cuda_ms(
+                    lambda: gat_attend_blocked_packed_cuda(
+                        b, hc, None, a_d, alpha_src_vec=vec,
+                        compute_dtype=dt, self_loops=self_loops), 10)
+            del hc
+        if H == GAT_HEADS and D == 256 // GAT_HEADS:
             main = (h, a_d, vec)
+        del h, a_s, a_d
+        torch.cuda.empty_cache()
     # split-row slots of the last call (the layout's, whatever H and D)
     slots = getattr(gat_attend_blocked_packed_cuda, "last_slots", None)
     h, a_d, vec = main
@@ -1265,9 +1284,7 @@ def gat_kernel_numbers(p, launches, device):
                 (valid * H * (5 + 2 * D) + 2 * n * H * D) / F32_FLOP_PER_S
                 * 1e3)
 
-    bounds = {k: max(bound(int(k.split("_")[0][1:]), int(k.split("_")[1][1:]),
-                           4 if k.endswith("float32") else 2))
-              for k in ms}
+    bounds = {k: max(bound(*shapes[k])) for k in ms}
     t_bytes, t_ops = bound(H, D, 4)
     main_ms = ms[f"H{H}_D{D}_float32"]
     err32 = max(v for k, v in errs.items() if k[3] == "float32")

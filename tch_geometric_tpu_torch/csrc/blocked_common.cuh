@@ -686,7 +686,24 @@ __device__ inline SplitCount count_split_pieces(
 // undivided sums of the split rows and zeroes where out is zeroed (an owned
 // row's raw sums are the main kernel's).  kOut floats per access; kOut
 // divides D.
-template <int kOut, bool kRowStats>
+//
+// Self (chunk-max stats only): B3's self-loop mode, in which each row i
+// below Self::rows takes one more term, its own row x[i] under the logit
+// s_i = self.logits(i, ...).  The s_i join M_block, and per row and head
+// the term e_i = exp(s_i - M_block) joins the sum: Z = z exp(m - M_block)
+// + e_i (an owned row), the slots' sum + e_i (a split row) or e_i (a row no
+// lane reaches), and out = (acc exp(m - M_block) + e_i x[i]) / max(Z,
+// 1e-20), the term f32 e_i times the compute-dtype row.  NoSelfLoops
+// leaves the kernel as it was.
+struct NoSelfLoops {
+  static constexpr bool kOn = false;
+  static constexpr int kHeads = 1;
+  int64_t rows = 0;
+  __device__ void logits(int64_t, int, float (&)[1]) const {}
+  __device__ float value(int64_t, int) const { return 0.f; }
+};
+
+template <int kOut, bool kRowStats, typename Self = NoSelfLoops>
 __global__ void __launch_bounds__(kRowThreads)
 flash_merge_kernel(const int32_t* __restrict__ block_start,
                    const int32_t* __restrict__ slot_off, int W, int H, int D,
@@ -695,12 +712,16 @@ flash_merge_kernel(const int32_t* __restrict__ block_start,
                    const float* __restrict__ slot_z,
                    const float* __restrict__ slot_acc,
                    float* __restrict__ row_m, float* __restrict__ row_z,
-                   float* __restrict__ out, float* __restrict__ raw) {
+                   float* __restrict__ out, float* __restrict__ raw,
+                   Self self) {
+  static_assert(!(kRowStats && Self::kOn), "self loops: chunk-max stats");
   extern __shared__ float mz[];
   float* mr = mz;                        // W x H maxima over the slots
   float* zr = mr + W * H;                // W x H merged sums
   float* mb = zr + W * H;                // H: M_block (chunk-max stats)
   int* ns = reinterpret_cast<int*>(mb + H);   // W slot counts
+  // Self: W x H self-loop logits, then their weights e_i
+  float* es = reinterpret_cast<float*>(ns + W);
   __shared__ float red[kRowWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x, F = H * D;
@@ -718,12 +739,27 @@ flash_merge_kernel(const int32_t* __restrict__ block_start,
       atomic_max_float(mr + r * H + h, slot_m[static_cast<int64_t>(s) * H + h]);
     atomicAdd(ns + r, 1);
   }
+  if constexpr (Self::kOn) {
+    for (int r = threadIdx.x; r < W; r += kRowThreads) {
+      const int64_t row = row0 + r;
+      for (int h0 = 0; h0 < H; h0 += Self::kHeads) {
+        float s[Self::kHeads];
+        if (row < self.rows) self.logits(row, h0, s);
+#pragma unroll
+        for (int q = 0; q < Self::kHeads; ++q)
+          if (h0 + q < H)
+            es[r * H + h0 + q] = row < self.rows ? s[q] : -CUDART_INF_F;
+      }
+    }
+  }
   __syncthreads();
   if (!kRowStats) {
     for (int h = 0; h < H; ++h) {
       float v = -CUDART_INF_F;
-      for (int r = threadIdx.x; r < W; r += kRowThreads)
+      for (int r = threadIdx.x; r < W; r += kRowThreads) {
         v = fmaxf(v, fmaxf(mr[r * H + h], row_m[(row0 + r) * H + h]));
+        if constexpr (Self::kOn) v = fmaxf(v, es[r * H + h]);
+      }
       v = warp_max(v);
       if (lane == 0) red[warp] = v;
       __syncthreads();
@@ -737,6 +773,15 @@ flash_merge_kernel(const int32_t* __restrict__ block_start,
       __syncthreads();
     }
   }
+  if constexpr (Self::kOn) {
+    // exp(-inf) = 0 past the rows with a self loop
+    for (int i = threadIdx.x; i < W * H; i += kRowThreads) {
+      const float e = expf(es[i] - mb[i % H]);
+      es[i] = e;
+      zr[i] = e;                         // the slots' sums add to it
+    }
+    __syncthreads();
+  }
   auto ref = [&](int r, int h) { return kRowStats ? mr[r * H + h] : mb[h]; };
   for (int s = s0 + threadIdx.x; s < s1; s += kRowThreads) {
     const int r = slot_row[s];
@@ -746,7 +791,51 @@ flash_merge_kernel(const int32_t* __restrict__ block_start,
     }
   }
   __syncthreads();
-  for (int r = warp; r < W; r += kRowWarps) {
+  if constexpr (Self::kOn) {
+    // an owned row's acc / z becomes (acc / z) zf / Z + e_i x[i] / Z; a
+    // split row starts from e_i x[i] / Z (its slots are added below).  The
+    // two weights of each row and head first (ca over the spent slot
+    // maxima, cb over e_i), then one pass over the block's rows, all
+    // threads streaming kOut columns each
+    float* ca = mr;
+    for (int i = threadIdx.x; i < W * H; i += kRowThreads) {
+      const int r = i / H;
+      const int64_t ri = row0 * H + i;
+      const float zo = row_z[ri];
+      const float zf = ns[r] == 0 && zo > 0.f
+                           ? zo * expf(row_m[ri] - mb[i - r * H])
+                           : 0.f;
+      const float zt = ns[r] > 0 ? zr[i] : zf + es[i];
+      const float inv = zt > 0.f ? 1.f / fmaxf(zt, 1e-20f) : 0.f;
+      ca[i] = zf * inv;
+      es[i] *= inv;
+    }
+    __syncthreads();
+    const int per_row = F / kOut;
+    for (int k = threadIdx.x; k < W * per_row; k += kRowThreads) {
+      const int r = k / per_row, c = (k - r * per_row) * kOut;
+      const int i = r * H + c / D;
+      const float a = ca[i], w = es[i];
+      float* o = out + (row0 + r) * F + c;
+      float v[kOut];
+      if constexpr (kOut == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(o);
+        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+      } else if constexpr (kOut == 2) {
+        const float2 t = *reinterpret_cast<const float2*>(o);
+        v[0] = t.x; v[1] = t.y;
+      } else {
+        v[0] = *o;
+      }
+#pragma unroll
+      for (int e = 0; e < kOut; ++e) {
+        v[e] = a > 0.f ? v[e] * a : 0.f;
+        if (w > 0.f) v[e] += w * self.value(row0 + r, c + e);
+      }
+      put<kOut>(o, v, false);
+    }
+  }
+  for (int r = warp; r < W && !Self::kOn; r += kRowWarps) {
     const int64_t row = row0 + r;
     for (int h = 0; h < H; ++h) {
       const float zo = row_z[row * H + h];
@@ -795,27 +884,40 @@ flash_merge_kernel(const int32_t* __restrict__ block_start,
   }
 }
 
+// The merge kernel of kOut floats an access (row stats, or chunk-max stats
+// with or without self loops).
+template <int kOut, typename Self>
+auto merge_kernel(bool row_stats) {
+  if constexpr (Self::kOn) {
+    return &flash_merge_kernel<kOut, false, Self>;
+  } else {
+    return row_stats ? &flash_merge_kernel<kOut, true, Self>
+                     : &flash_merge_kernel<kOut, false, Self>;
+  }
+}
+
 // flash_merge_kernel with the widest access (4, 2 or 1 floats) that divides
 // D, over num_blocks row blocks.
+template <typename Self = NoSelfLoops>
 inline cudaError_t launch_merge(bool row_stats, const int32_t* block_start,
                                 const int32_t* slot_off, int num_blocks,
                                 int W, int H, int D, const int32_t* slot_row,
                                 const float* slot_m, const float* slot_z,
                                 const float* slot_acc, float* row_m,
                                 float* row_z, float* out, float* raw,
-                                cudaStream_t stream) {
-  const size_t smem = (2 * static_cast<size_t>(W) * H + H) * sizeof(float) +
-                      static_cast<size_t>(W) * sizeof(int);
-#define TGT_MERGE(V)                                                        \
-  (row_stats ? &flash_merge_kernel<V, true> : &flash_merge_kernel<V, false>)
-  auto merge = D % 4 == 0 ? TGT_MERGE(4)
-               : D % 2 == 0 ? TGT_MERGE(2) : TGT_MERGE(1);
-#undef TGT_MERGE
+                                cudaStream_t stream, Self self = Self()) {
+  const size_t smem =
+      (2 * static_cast<size_t>(W) * H + H +
+       (Self::kOn ? static_cast<size_t>(W) * H : 0)) * sizeof(float) +
+      static_cast<size_t>(W) * sizeof(int);
+  auto merge = D % 4 == 0 ? merge_kernel<4, Self>(row_stats)
+               : D % 2 == 0 ? merge_kernel<2, Self>(row_stats)
+                            : merge_kernel<1, Self>(row_stats);
   cudaError_t err = allow_smem(merge, smem);
   if (err != cudaSuccess) return err;
   merge<<<num_blocks, kRowThreads, smem, stream>>>(
       block_start, slot_off, W, H, D, slot_row, slot_m, slot_z, slot_acc,
-      row_m, row_z, out, raw);
+      row_m, row_z, out, raw, self);
   return cudaGetLastError();
 }
 

@@ -7,7 +7,15 @@
 //           s_e = leaky_relu(alpha_src[src(e), h] + alpha_dst[i, h]),
 //           out[i, h, :] = sum_e exp(s_e) h[src(e), h, :] / sum_e exp(s_e),
 //       rows with no edges 0; alpha_src a given (N, H) table or the GATv1
-//       projection sum_d h[n, h, d] * a[h, d] (the mode GATConv uses);
+//       projection sum_d h[n, h, d] * a[h, d] (the mode GATConv uses).
+//       The port adds a self-loop mode (PyG's GATConv adds one self loop
+//       per node): row i's softmax takes one more term, the logit
+//       leaky_relu(alpha_src[i, h] + alpha_dst[i, h]) and the row h[i],
+//       folded in by the merge kernel, which holds each row's final max
+//       and sum (step 3 below); a row with no in-edges then reads h[i].
+//       In that mode a lane whose source is its own row is given the
+//       logit -inf, so a layout of a graph with self loops of its own
+//       gives PyG's answer (which removes them before adding one);
 //   B7  _mz_mh_kernel + _att_mh_kernel (edge_softmax_blocked_multihead): the
 //       per-dst-row softmax of (H, T, C) f32 scores for H heads, 0 on pad
 //       lanes; a second entry computes the scores, the GAT logits
@@ -120,7 +128,12 @@
 //      arithmetic) or B3's M_block, and rescales an owned B3 row by
 //      z exp(M_chunk - M_block) under B4's chunk-max rule (0 on underflow,
 //      the max(z, 1e-20) division below 1e-20).  B9's debug outputs come
-//      out of the main kernel (owned rows) and the merge (split rows).
+//      out of the main kernel (owned rows) and the merge (split rows).  In
+//      B3's self-loop mode the merge takes each row's own logit into
+//      M_block and its term e_i = exp(s_i - M_block) into the row's sum,
+//      and writes every row of the block: (acc exp(M_chunk - M_block) +
+//      e_i x[i]) / Z, the self term in f32 (one more read of each row and,
+//      for an owned row, of its output; the main kernel is unchanged).
 //   No shared-memory float atomic per lane and column is left, and each
 //   chunk is traversed once for all heads.
 // - Rounding: B8 rounds each term bf16(x * w), as the TPU kernel does (the
@@ -272,7 +285,9 @@ constexpr int kHeads = 4;
 // alpha_src rounded to the compute dtype T where round_alpha (B3's table
 // and B9: it rides the TPU's row gather), alpha_dst 0 past ad_rows.  vec4:
 // H % 4 == 0 and both tables 16-byte aligned, so kHeads of a row are one
-// float4 load.
+// float4 load.  skip_self (B3's self-loop mode): a lane whose source is its
+// row is -inf in every head, so it weighs nothing (PyG removes a graph's own
+// self loops before it adds one per node).
 struct Logits {
   const float* alpha_src;
   const float* alpha_dst;
@@ -281,6 +296,7 @@ struct Logits {
   float slope;
   int round_alpha;
   int vec4;
+  int skip_self = 0;
   // heads h0 .. h0+kHeads of lane (src, row) into s (-inf past H)
   template <typename T>
   __device__ void at(int src, int64_t row, int h0, float (&s)[kHeads]) const {
@@ -302,10 +318,12 @@ struct Logits {
         dv[q] = ok && has_d ? __ldg(d + q) : 0.f;
       }
     }
+    const bool loop = skip_self && src == row;
 #pragma unroll
     for (int q = 0; q < kHeads; ++q) {
       const float x = round_alpha ? round_to<T>(av[q]) : av[q];
-      s[q] = h0 + q < H ? leaky_relu(x + dv[q], slope) : -CUDART_INF_F;
+      s[q] = h0 + q < H && !loop ? leaky_relu(x + dv[q], slope)
+                                 : -CUDART_INF_F;
     }
   }
 };
@@ -1094,7 +1112,10 @@ gat_rows_kernel(const T* __restrict__ x, Logits lg,
                          : row_max[pc.row * H + h];
             if (pc.row == lo) ref = fmaxf(ref, chunk_h[h]);
           }
-          const float e = live ? expf(s[q] - ref) : 0.f;
+          // ref is -inf only where every lane of the chunk is a skipped
+          // self loop (B3's self-loop mode)
+          const float e =
+              live && ref > -CUDART_INF_F ? expf(s[q] - ref) : 0.f;
           tw[lane * H + h] = round_to<T>(e);
           const float z = warp_sum(e);
           if (lane == 0) {
@@ -1146,6 +1167,7 @@ inline Logits logits(const float* alpha_src, const float* alpha_dst,
 }
 
 // The arguments of B3 and B9 (gat_prepass_kernel, gat_rows_kernel).
+// self_rows > 0: B3's self-loop mode on rows below it.
 struct GatArgs {
   Logits lg;
   const int32_t* edge_src;
@@ -1153,6 +1175,28 @@ struct GatArgs {
   const int32_t* chunk_block;
   const int32_t* block_start;
   int num_chunks, num_blocks, C, W, D;
+  int64_t self_rows = 0;
+};
+
+// B3's self loops in the merge (blocked::flash_merge_kernel's Self policy):
+// row i's own logit leaky_relu(alpha_src[i, h] + alpha_dst[i, h]), as a
+// lane of source i into row i computes it (lg without skip_self), and its
+// compute-dtype row x[i].
+constexpr int kSelfHeads = kHeads;
+template <typename T>
+struct GatSelfLoops {
+  static constexpr bool kOn = true;
+  static constexpr int kHeads = kSelfHeads;
+  Logits lg;
+  const T* x;
+  int64_t rows;
+  int F;
+  __device__ void logits(int64_t row, int h0, float (&s)[kSelfHeads]) const {
+    lg.at<T>(static_cast<int>(row), row, h0, s);
+  }
+  __device__ float value(int64_t row, int col) const {
+    return to_float(x[row * F + col]);
+  }
 };
 
 // Lanes staged per pass: a chunk in one pass when it fits kMaxStage.
@@ -1231,6 +1275,21 @@ cudaError_t launch_gat(const void* x, bool bf16, const GatArgs& a, bool flash,
   }
 #undef TGT_GAT
   if (err != cudaSuccess) return err;
+  if (a.self_rows > 0) {
+    Logits own = a.lg;
+    own.skip_self = 0;
+    if (bf16)
+      return blocked::launch_merge(
+          false, a.block_start, slot_off, a.num_blocks, a.W, a.lg.H, a.D,
+          slot_row, slot_m, slot_z, slot_acc, row_m, row_z, out, raw, s,
+          GatSelfLoops<__nv_bfloat16>{
+              own, static_cast<const __nv_bfloat16*>(x), a.self_rows, F});
+    return blocked::launch_merge(
+        false, a.block_start, slot_off, a.num_blocks, a.W, a.lg.H, a.D,
+        slot_row, slot_m, slot_z, slot_acc, row_m, row_z, out, raw, s,
+        GatSelfLoops<float>{own, static_cast<const float*>(x), a.self_rows,
+                            F});
+  }
   return blocked::launch_merge(flash, a.block_start, slot_off, a.num_blocks,
                                a.W, a.lg.H, a.D, slot_row, slot_m, slot_z,
                                slot_acc, row_m, row_z, out, raw, s);
@@ -1326,19 +1385,21 @@ int tgt_spmm_multiweighted(const void* x, int x_is_bf16,
 // split pieces; chunk_ref f32, B3 (num_chunks, H) the chunk max, B9
 // (num_chunks, 2, H) the max of the chunk's lowest and highest row;
 // chunk_rows (num_chunks, 2) int32 those rows (B9 only, else null); row_m,
-// row_z reset to (-inf, 0).  The caller scans split into the slot offsets
-// and sizes the slots for tgt_gat_attend.
+// row_z reset to (-inf, 0).  skip_self != 0 (B3's self-loop mode, as
+// tgt_gat_attend's self_rows > 0): lanes whose source is their row are left
+// out of the chunk max.  The caller scans split into the slot offsets and
+// sizes the slots for tgt_gat_attend.
 int tgt_gat_count(const void* x, int x_is_bf16, int flash, int round_alpha,
                   float* alpha_src, const float* alpha_src_vec,
                   const float* alpha_dst, int ad_rows,
                   const int32_t* edge_src, const int32_t* local_row,
                   const int32_t* chunk_block, int N, int num_chunks, int C,
-                  int W, int H, int D, float negative_slope, int32_t* split,
-                  float* chunk_ref, int32_t* chunk_rows, float* row_m,
-                  float* row_z, void* stream) {
+                  int W, int H, int D, float negative_slope, int skip_self,
+                  int32_t* split, float* chunk_ref, int32_t* chunk_rows,
+                  float* row_m, float* row_z, void* stream) {
   if (N <= 0 || num_chunks <= 0 || C <= 0 || W <= 0 || H <= 0 || D <= 0 ||
       D > kMaxD || (flash != 0) != (chunk_rows != nullptr) ||
-      (flash && alpha_src_vec))
+      (flash && alpha_src_vec) || (flash && skip_self))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (alpha_src_vec) {                   // the projection, once per node
@@ -1356,10 +1417,11 @@ int tgt_gat_count(const void* x, int x_is_bf16, int flash, int round_alpha,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const GatArgs a{logits(alpha_src, alpha_dst, ad_rows, H, negative_slope,
-                         round_alpha),
-                  edge_src, local_row, chunk_block, nullptr, num_chunks, 0, C,
-                  W, D};
+  GatArgs a{logits(alpha_src, alpha_dst, ad_rows, H, negative_slope,
+                   round_alpha),
+            edge_src, local_row, chunk_block, nullptr, num_chunks, 0, C, W,
+            D};
+  a.lg.skip_self = skip_self != 0;
   int2* rows = reinterpret_cast<int2*>(chunk_rows);
   return static_cast<int>(
       x_is_bf16 ? launch_prepass<__nv_bfloat16>(a, flash != 0, split,
@@ -1375,7 +1437,12 @@ int tgt_gat_count(const void* x, int x_is_bf16, int flash, int round_alpha,
 // (S, H) and slot_acc (S, H*D) f32 scratch; chunk_ref, chunk_rows, row_m,
 // row_z as tgt_gat_count left them; out (num_blocks*W, H*D) f32, divided
 // by z.  B9 only: raw_out (the shape of out, undivided) when not null, and
-// row_m, row_z then hold each row's final (m, z).
+// row_m, row_z then hold each row's final (m, z).  B3 only: self_rows > 0
+// (at most N and the layout's rows) gives each row i < self_rows a self
+// loop, one more term of logit leaky_relu(alpha_src[i, h] + alpha_dst[i,
+// h]) and row x[i], folded in by the merge, and lanes whose source is their
+// row weigh nothing (the count must have had skip_self); 0 leaves B3 as it
+// was.
 int tgt_gat_attend(const void* x, int x_is_bf16, int flash, int round_alpha,
                    const float* alpha_src, const float* alpha_dst,
                    int ad_rows, const int32_t* edge_src,
@@ -1386,15 +1453,17 @@ int tgt_gat_attend(const void* x, int x_is_bf16, int flash, int round_alpha,
                    float negative_slope, float* row_m, float* row_z,
                    int32_t* slot_row, float* slot_m, float* slot_z,
                    float* slot_acc, float* out, float* raw_out,
-                   void* stream) {
+                   int self_rows, void* stream) {
   if (num_chunks <= 0 || num_blocks <= 0 || C <= 0 || W <= 0 || H <= 0 ||
       D <= 0 || D > kMaxD || (flash != 0) != (chunk_rows != nullptr) ||
-      (!flash && raw_out))
+      (!flash && raw_out) || self_rows < 0 || (flash && self_rows > 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const GatArgs a{logits(alpha_src, alpha_dst, ad_rows, H, negative_slope,
-                         round_alpha),
-                  edge_src, local_row, chunk_block, block_start, num_chunks,
-                  num_blocks, C, W, D};
+  GatArgs a{logits(alpha_src, alpha_dst, ad_rows, H, negative_slope,
+                   round_alpha),
+            edge_src, local_row, chunk_block, block_start, num_chunks,
+            num_blocks, C, W, D};
+  a.self_rows = self_rows;
+  a.lg.skip_self = self_rows > 0;
   return static_cast<int>(launch_gat(
       x, x_is_bf16 != 0, a, flash != 0, slot_off, chunk_ref,
       reinterpret_cast<const int2*>(chunk_rows), out, raw_out, row_m, row_z,

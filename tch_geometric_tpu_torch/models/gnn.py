@@ -5,7 +5,10 @@ same graph containers as GraphSAGE: a full ``SparseGraph`` (gather +
 segment ops), or a padded ``NeighborSample`` with ``keep_depths`` (dense
 per-depth reductions over the fanout axis, no scatter).  ``GATConv`` also
 takes ``blocked=`` (a ``BlockedCsr`` of the same adjacency), which runs the
-head-packed GAT kernel B3 on the card.
+head-packed GAT kernel B3 on the card, and :meth:`GAT.blocked_forward` runs
+a whole full-graph pass so.  ``GATConv`` takes PyG's options (averaged
+heads, bias, self loops) and ``GAT(..., pyg=True)`` is PyG's model (those
+and skip linears); the defaults are the flax model's.
 
 ``in_features`` is each layer's input width (flax infers it; torch needs it
 up front).  Linear layers follow ``torch.nn.Linear``'s default init,
@@ -36,6 +39,7 @@ from ..ops.attention_blocked import gat_attend_blocked_packed_cuda
 from ..ops.segment import csr_row_ids, segment_softmax, segment_sum
 from ..ops.spmm import spmm
 from ..sampling.neighbor import NeighborSample
+from ..utils.metrics import trace_span
 from .dropout import Rows, keyed_dropout, tree_rows
 
 # flax's truncated normal: N(0, 1) cut at +-2, rescaled to unit variance
@@ -174,10 +178,27 @@ class GCNConv(nn.Module):
 
 
 class GATConv(nn.Module):
-    """Multi-head graph attention (GATv1-style additive logits)."""
+    """Multi-head graph attention (GATv1-style additive logits).
+
+    ``features`` is the projection's width: ``heads`` heads of ``features //
+    heads`` columns, one linear without bias shared by sources and targets.
+    PyG's ``GATConv`` options, all off by default (the flax model's layer):
+
+    * ``concat=False``: the heads are averaged, so the layer gives
+      ``features // heads`` columns (``out_features``);
+    * ``bias``: ``out_bias`` (PyG's ``bias``, zeros at init) is added after
+      the heads are joined;
+    * ``self_loops``: every target ``i`` that is also a source takes one
+      self loop (logit ``leaky_relu(a_src . h_i + a_dst . h_i)``, row
+      ``h_i``).  The segment path removes the graph's own self loops first,
+      as PyG does; on a tree a parent attends its own slot and children
+      that are the parent's node are dropped; B3 folds one term into each
+      row and gives the layout's own self-loop lanes no weight.
+    """
 
     def __init__(self, in_features: int, features: int, heads: int = 4,
-                 dtype=None, device="cuda"):
+                 dtype=None, device="cuda", *, concat: bool = True,
+                 bias: bool = False, self_loops: bool = False):
         super().__init__()
         if features % heads:
             raise ValueError(f"features ({features}) must be divisible by "
@@ -185,16 +206,26 @@ class GATConv(nn.Module):
         self.features = features
         self.heads = heads
         self.dtype = dtype
+        self.concat = concat
+        self.self_loops = self_loops
         d = features // heads
+        self.out_features = features if concat else d
         self.lin = nn.Linear(in_features, features, bias=False, device=device)
         self.a_src = nn.Parameter(torch.empty((heads, d), device=device))
         self.a_dst = nn.Parameter(torch.empty((heads, d), device=device))
+        if bias:
+            self.out_bias = nn.Parameter(torch.empty((self.out_features,),
+                                                     device=device))
+        else:
+            self.register_parameter("out_bias", None)
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
         _uniform_(self.lin.weight, self.lin.in_features, generator)
         _lecun_normal_(self.a_src, generator)
         _lecun_normal_(self.a_dst, generator)
+        if self.out_bias is not None:
+            self.out_bias.zero_()
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -214,6 +245,30 @@ class GATConv(nn.Module):
         (``gat_attend_blocked_cuda``, ``gat_attend_blocked_flash_cuda``)."""
         return (h * self.a_src[None]).sum(-1), (h * self.a_dst[None]).sum(-1)
 
+    def attend_blocked(self, h: torch.Tensor, blocked,
+                       compute_dtype=None) -> torch.Tensor:
+        """B3 (``gat_attend_blocked_packed_cuda``) over ``blocked`` on the
+        projected rows ``h`` (N, H, d), read in ``compute_dtype`` (default:
+        the layer's), with the layer's self loops: (num_rows, H, d)
+        float32."""
+        # GATv1's alpha_src is a linear projection of h: the kernel
+        # computes it from the rows it reads
+        return gat_attend_blocked_packed_cuda(
+            blocked, h, None, (h * self.a_dst[None]).sum(-1),
+            alpha_src_vec=self.a_src,
+            compute_dtype=(self.compute_dtype if compute_dtype is None
+                           else compute_dtype),
+            self_loops=self.self_loops)
+
+    def join_heads(self, out: torch.Tensor) -> torch.Tensor:
+        """(N, H, d) attention output as the layer's rows: the heads
+        concatenated, or averaged (``concat=False``)."""
+        return (out.reshape(-1, self.features) if self.concat
+                else out.mean(dim=1))
+
+    def add_bias(self, out: torch.Tensor) -> torch.Tensor:
+        return out if self.out_bias is None else out + self.out_bias
+
     def forward(self, x: torch.Tensor, graph: Optional[SparseGraph] = None,
                 blocked=None, *, sample: Optional[NeighborSample] = None,
                 keep_depths: Optional[int] = None) -> torch.Tensor:
@@ -226,35 +281,43 @@ class GATConv(nn.Module):
         if sample is not None:
             hf = h.reshape(-1, self.features)
             a_src, a_dst = _whole(self.a_src), _whole(self.a_dst)
-            return torch.cat([self.tree_attention(hf, sample.node_valid,
-                                                  sample, dd, a_src, a_dst)
-                              for dd in range(keep_depths)], dim=0)
+            out = torch.cat([self.tree_attention(
+                hf, sample.node_valid, sample, dd, a_src, a_dst,
+                self_loops=self.self_loops) for dd in range(keep_depths)],
+                dim=0)
+            return self.add_bias(self.join_heads(
+                out.reshape(-1, self.heads, self.features // self.heads)))
 
         if blocked is not None:
-            # GATv1's alpha_src is a linear projection of h: the kernel
-            # computes it from the rows it reads
-            out = gat_attend_blocked_packed_cuda(
-                blocked, h, None, (h * self.a_dst[None]).sum(-1),
-                alpha_src_vec=self.a_src, compute_dtype=self.compute_dtype)
-            return out.reshape(-1, self.features)
+            return self.add_bias(self.join_heads(self.attend_blocked(
+                h, blocked)))
 
         alpha_src, alpha_dst = self.logit_tables(h)         # (N, H) each
-        E = graph.num_edges
-        rows = csr_row_ids(graph.indptr, E)                 # dst per edge
+        n = graph.num_ptr_nodes
+        rows = csr_row_ids(graph.indptr, graph.num_edges)   # dst per edge
+        src = graph.indices
+        if self.self_loops:
+            # PyG: remove the graph's self loops, then add one per node
+            keep = src.long() != rows
+            loop = torch.arange(min(n, h.shape[0]), device=rows.device)
+            src = torch.cat([src[keep].long(), loop])
+            rows = torch.cat([rows[keep], loop])
         logits = nnf.leaky_relu(
-            alpha_src[graph.indices] + alpha_dst[rows], 0.2)   # (E, H)
-        att = segment_softmax(logits, rows, graph.num_ptr_nodes)
-        msg = h[graph.indices] * att[..., None]             # (E, H, d)
-        out = segment_sum(msg, rows, graph.num_ptr_nodes)
-        return out.reshape(-1, self.features)
+            alpha_src[src] + alpha_dst[rows], 0.2)          # (E, H)
+        att = segment_softmax(logits, rows, n)
+        msg = h[src] * att[..., None]                       # (E, H, d)
+        return self.add_bias(self.join_heads(segment_sum(msg, rows, n)))
 
     @staticmethod
     def tree_attention(h: torch.Tensor, valid: torch.Tensor,
                        sample: NeighborSample, depth: int,
-                       a_src: torch.Tensor, a_dst: torch.Tensor
-                       ) -> torch.Tensor:
+                       a_src: torch.Tensor, a_dst: torch.Tensor, *,
+                       self_loops: bool = False) -> torch.Tensor:
         """Dense attention over a padded tree layer: (B, k) children —
-        softmax over the fanout axis, no scatter."""
+        softmax over the fanout axis, no scatter.  ``self_loops``: each
+        parent also attends its own slot, and a child that is the parent's
+        own node is dropped (PyG relabels it onto the parent: a self loop,
+        removed before one is added)."""
         k = sample.fanouts[depth]
         lo, hi = sample.node_base[depth], sample.node_base[depth + 1]
         clo, chi = sample.node_base[depth + 1], sample.node_base[depth + 2]
@@ -262,10 +325,19 @@ class GATConv(nn.Module):
         H, d = a_src.shape
         hd = h[lo:hi].reshape(B, H, d)
         hc = h[clo:chi].reshape(B, k, H, d)
-        mask = valid[clo:chi].reshape(B, k)[..., None]
+        mask = valid[clo:chi].reshape(B, k)
+        dst_term = (hd * a_dst[None]).sum(-1)                 # (B, H)
         logits = nnf.leaky_relu(
-            (hc * a_src[None, None]).sum(-1)
-            + (hd * a_dst[None]).sum(-1)[:, None, :], 0.2)     # (B, k, H)
+            (hc * a_src[None, None]).sum(-1) + dst_term[:, None, :], 0.2)
+        if self_loops:
+            nodes = sample.nodes
+            mask = mask & (nodes[clo:chi].reshape(B, k)
+                           != nodes[lo:hi][:, None])
+            own = nnf.leaky_relu((hd * a_src[None]).sum(-1) + dst_term, 0.2)
+            logits = torch.cat([logits, own[:, None]], dim=1)  # (B, k+1, H)
+            hc = torch.cat([hc, hd[:, None]], dim=1)
+            mask = torch.cat([mask, mask.new_ones((B, 1))], dim=1)
+        mask = mask[..., None]
         # -1e9 (not -inf): parents with zero valid children would softmax
         # all--inf rows into nans
         logits = torch.where(mask, logits, -1e9)
@@ -330,13 +402,20 @@ class _Stack(nn.Module):
                               deterministic=deterministic, rows=rows)
         return h
 
+    def _skip(self, i: int, h_in: torch.Tensor, out: torch.Tensor
+              ) -> torch.Tensor:
+        """Layer ``i``'s output ``out`` of the rows ``h_in[:len(out)]``
+        (the targets come first), before the activation: as it is here."""
+        return out
+
     def forward(self, x: torch.Tensor, graph: SparseGraph, *,
                 deterministic: bool = True,
                 dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-graph forward: x (N, F), CSC in-neighbor adjacency."""
         h = x
         for i, conv in enumerate(self.convs):
-            h = self._act(conv(h, graph), i, deterministic, dropout_key)
+            h = self._act(self._skip(i, h, conv(h, graph)), i, deterministic,
+                          dropout_key)
         return h
 
     def tree_forward(self, sample: NeighborSample, x: torch.Tensor, *,
@@ -352,9 +431,9 @@ class _Stack(nn.Module):
         h = x
         for j, conv in enumerate(self.convs):
             keep_depths = sample.num_hops - j
-            h = conv(h, sample=sample, keep_depths=keep_depths, **kw)
-            h = self._act(h, j, deterministic, dropout_key,
-                          tree_rows(sample, keep_depths))
+            out = conv(h, sample=sample, keep_depths=keep_depths, **kw)
+            h = self._act(self._skip(j, h, out), j, deterministic,
+                          dropout_key, tree_rows(sample, keep_depths))
         return h[: sample.node_base[1]]
 
     def _tree_kwargs(self, sample: NeighborSample) -> dict:
@@ -391,8 +470,24 @@ class GCN(_Stack):
 
 
 class GAT(_Stack):
-    """Multi-layer GAT: ``heads`` heads in every layer but the last, which
-    has one head and ``max(out, 1)`` features; ELU between layers."""
+    """Multi-layer GAT, ELU between layers.
+
+    Every layer but the last has ``heads`` heads of ``hidden // heads``
+    columns, concatenated.  By default (the flax model) the last layer has
+    one head and ``max(out, 1)`` features.  ``pyg=True`` gives PyG's GAT of
+    ``examples/ogbn_products_gat.py`` (``GAT(100, 4 * 128, 47, 3, heads=4,
+    pyg=True)``):
+
+    * the last layer has ``heads`` heads of ``out`` columns, averaged;
+    * every ``GATConv`` has PyG's bias and self loops (see
+      :class:`GATConv`);
+    * a linear with bias per layer (``skips``) maps the layer's input to its
+      output width and is added to the conv's output before the activation
+      (on a tree, of the target slots' rows).
+
+    :meth:`blocked_forward` is the full-graph pass over a blocked layout
+    (B3 on the card).
+    """
 
     act = staticmethod(nnf.elu)
 
@@ -400,14 +495,54 @@ class GAT(_Stack):
                  num_layers: int, heads: int = 4, dtype=None,
                  dropout: float = 0.0, *,
                  generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+                 device="cuda", pyg: bool = False):
         super().__init__()
+        self.dtype = dtype
         convs, fin = [], in_features
         for i in range(num_layers):
             last = i == num_layers - 1
-            f = out if last else hidden
-            hh = 1 if last else heads
-            convs.append(GATConv(fin, max(f, hh), heads=hh, dtype=dtype,
-                                 device="meta"))
-            fin = max(f, hh)
+            opts = dict(dtype=dtype, device="meta", bias=pyg, self_loops=pyg)
+            if last and pyg:
+                conv = GATConv(fin, out * heads, heads=heads, concat=False,
+                               **opts)
+            else:
+                f = out if last else hidden
+                hh = 1 if last else heads
+                conv = GATConv(fin, max(f, hh), heads=hh, **opts)
+            convs.append(conv)
+            fin = conv.out_features
+        self.skips = (nn.ModuleList(
+            [nn.Linear(c.lin.in_features, c.out_features, device="meta")
+             for c in convs]) if pyg else None)
         self._init(convs, dropout, generator, device)
+        if pyg:
+            with torch.no_grad():
+                for lin in self.skips:
+                    for p in lin.parameters():
+                        _uniform_(p, lin.in_features, generator)
+
+    def _skip(self, i: int, h_in: torch.Tensor, out: torch.Tensor
+              ) -> torch.Tensor:
+        if self.skips is None:
+            return out
+        return out + _linear(self.skips[i], h_in[: out.shape[0]], self.dtype)
+
+    def blocked_forward(self, x: torch.Tensor, blocked,
+                        compute_dtype=torch.bfloat16) -> torch.Tensor:
+        """Full-graph forward over a blocked layout of the in-neighbour
+        adjacency, without dropout: per layer the projection in the
+        model's dtype, then B3 (with the layer's self loops) reading the
+        rows in ``compute_dtype`` with float32 logits, softmax and sums,
+        the heads joined, the bias, the skip and the activation.  Runs in a
+        ``trace_span`` ``blocked_forward``, each layer's attention (its
+        alpha_dst table, B3 with its cast of the rows, the heads joined) in
+        one ``aggregate``.  Returns (num_rows, out) float32 logits."""
+        with trace_span("blocked_forward"):
+            h = x
+            for i, conv in enumerate(self.convs):
+                hp = conv.project(h)
+                with trace_span("aggregate"):
+                    out = conv.join_heads(conv.attend_blocked(
+                        hp, blocked, compute_dtype))
+                h = self._act(self._skip(i, h, conv.add_bias(out)), i, True)
+            return h

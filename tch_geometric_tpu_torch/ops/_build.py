@@ -45,11 +45,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
                                         _i, _i, _i, _i, _i, _i, _vp, _vp]),
         "tgt_gat_count": (_i, [_vp, _i, _i, _i, _vp, _vp, _vp, _i, _vp, _vp,
                                _vp, _i, _i, _i, _i, _i, _i, ctypes.c_float,
-                               _vp, _vp, _vp, _vp, _vp, _vp]),
+                               _i, _vp, _vp, _vp, _vp, _vp, _vp]),
         "tgt_gat_attend": (_i, [_vp, _i, _i, _i, _vp, _vp, _i, _vp, _vp, _vp,
                                 _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
                                 ctypes.c_float, _vp, _vp, _vp, _vp, _vp, _vp,
-                                _vp, _vp, _vp]),
+                                _vp, _vp, _i, _vp]),
         "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
     "attend_blocked": {

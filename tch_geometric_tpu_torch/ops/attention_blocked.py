@@ -121,13 +121,24 @@ def _alpha_src_table(hc: torch.Tensor, alpha_src, alpha_src_vec, H: int,
     return (hc.float().reshape(-1, H, D) * a).sum(-1)
 
 
+def _self_logits(b: BlockedCsr, asrc: torch.Tensor, ad: torch.Tensor,
+                 negative_slope: float) -> torch.Tensor:
+    """(B*W, H) float32 self-loop logits ``leaky_relu(alpha_src[i] +
+    alpha_dst[i])`` of the rows ``i < min(N, num_rows)``, -inf past them
+    (``ad``: alpha_dst padded to the block grid)."""
+    R = min(asrc.shape[0], b.num_rows)
+    s = ad.new_full(ad.shape, float("-inf"))
+    s[:R] = nnf.leaky_relu(asrc[:R] + ad[:R], negative_slope)
+    return s
+
+
 def gat_attend_blocked_packed(b: BlockedCsr, h: torch.Tensor,
                               alpha_src: Optional[torch.Tensor],
                               alpha_dst: torch.Tensor, *,
                               negative_slope: float = 0.2,
                               compute_dtype=torch.bfloat16,
-                              alpha_src_vec: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
+                              alpha_src_vec: Optional[torch.Tensor] = None,
+                              self_loops: bool = False) -> torch.Tensor:
     """Plain version of B3: multi-head GATv1 aggregation on the blocked
     layout.
 
@@ -137,6 +148,15 @@ def gat_attend_blocked_packed(b: BlockedCsr, h: torch.Tensor,
     head: ``softmax(leaky_relu(alpha_src[src] + alpha_dst[dst]))``-weighted
     sum of ``h[src]``.  Returns (num_rows, H, D) float32; rows with no
     edges are 0.
+
+    ``self_loops``: each row ``i < min(N, num_rows)`` takes one more term,
+    its own row ``h[i]`` under the logit ``leaky_relu(alpha_src[i] +
+    alpha_dst[i])``, and a lane whose source is its row weighs nothing
+    (PyG's ``GATConv`` removes a graph's self loops, then adds one per
+    node), so a layout may hold the graph's own.  The self logits join each
+    block's max and the term ``e_i h[i]`` is float32, unrounded, so a row
+    with no other edges reads ``h[i]`` in the compute dtype.  The JAX
+    kernel has no such mode.
 
     Rounding follows the JAX kernel: ``h`` (and a table ``alpha_src``) in
     ``compute_dtype``; in bfloat16 each lane's weight ``e`` is rounded to
@@ -151,6 +171,7 @@ def gat_attend_blocked_packed(b: BlockedCsr, h: torch.Tensor,
     hc = h.reshape(N, H * D).to(compute_dtype)
     asrc = _alpha_src_table(hc, alpha_src, alpha_src_vec, H, D)
     ad = _pad_dst(b, alpha_dst.float())                    # (B*W, H)
+    s_self = _self_logits(b, asrc, ad, negative_slope) if self_loops else None
     dev = h.device
     iota = torch.arange(W, device=dev, dtype=torch.int32)
     bs_host = b.block_start.tolist()
@@ -164,6 +185,8 @@ def gat_attend_blocked_packed(b: BlockedCsr, h: torch.Tensor,
         blk = b.chunk_block[t0:t1].long()
         rows = blk[:, None] * W + lr.clamp(max=W - 1).long()
         s = nnf.leaky_relu(asrc[src] + ad[rows], negative_slope)
+        if s_self is not None:                   # the layout's own loops
+            valid = valid & (src != rows)[..., None]
         s = torch.where(valid, s, float("-inf"))             # (Tg, C, H)
         M = s.amax(dim=1)                                    # (Tg, H)
         Mf = torch.where(torch.isfinite(M), M, 0.0)
@@ -177,10 +200,21 @@ def gat_attend_blocked_packed(b: BlockedCsr, h: torch.Tensor,
         bl = blk - b0
         m = M.new_full((b1 - b0, H), float("-inf")).scatter_reduce(
             0, bl[:, None].expand_as(M), M, "amax")
+        if s_self is not None:
+            ss = s_self[b0 * W:b1 * W].reshape(b1 - b0, W, H)
+            m = torch.maximum(m, ss.amax(dim=1))
         r = torch.where(torch.isfinite(M), torch.exp(M - m[bl]), 0.0)
         acc = part.new_zeros((b1 - b0, W, H, D)).index_add_(
             0, bl, part.reshape(-1, W, H, D) * r[:, None, :, None])
         z = zc.new_zeros((b1 - b0, W, H)).index_add_(0, bl, zc * r[:, None])
+        if s_self is not None:
+            es = torch.where(torch.isfinite(ss), torch.exp(ss - m[:, None]),
+                             0.0)                            # (nb, W, H)
+            own = hc[b0 * W:min(b1 * W, N)].float()
+            rows = own.new_zeros(((b1 - b0) * W, H * D))
+            rows[: own.shape[0]] = own
+            acc = acc + es[..., None] * rows.reshape(-1, W, H, D)
+            z = z + es
         zc_ = z[..., None]
         out[b0 * W:b1 * W] = torch.where(
             zc_ > 0, acc / zc_.clamp(min=1e-20), 0.0).reshape(-1, H, D)
@@ -190,14 +224,18 @@ def gat_attend_blocked_packed(b: BlockedCsr, h: torch.Tensor,
 def _gat_cuda(b: BlockedCsr, hc: torch.Tensor, H: int, D: int,
               asrc: torch.Tensor, vec: Optional[torch.Tensor],
               ad: torch.Tensor, *, flash: bool, round_alpha: bool,
-              negative_slope: float, debug_stats: bool = False):
+              negative_slope: float, debug_stats: bool = False,
+              self_rows: int = 0):
     """B3 (``flash=False``) or B9 through ``csrc/gat_blocked.cu`` on the
     compute-dtype rows ``hc`` (N, H*D).  Two C calls, four kernels: B3's
     projection of ``vec`` into ``asrc`` (vec mode only), a pre-pass over
     each chunk's lanes without row reads (split-piece count, reference
     maxima), then the main kernel (one CUDA block per chunk, all heads) and
-    the merge of the split rows.  Between the two calls the host reads the
-    number of split-row slots to size their scratch (one synchronisation).
+    the merge of the split rows (B3 with ``self_rows``: also each row's
+    self loop, on the rows below it, and the lanes whose source is their
+    row left out of both kernels).  Between the two calls the host reads
+    the number of split-row slots to size their scratch (one
+    synchronisation).
     Returns ``(out (B*W, H*D), raw or None, m (B*W, H), z (B*W, H),
     slots)``; ``raw``, ``m`` and ``z`` are B9's ``debug_stats``."""
     T, C = b.edge_src.shape
@@ -221,7 +259,7 @@ def _gat_cuda(b: BlockedCsr, hc: torch.Tensor, H: int, D: int,
          int(flash), int(round_alpha), asrc.data_ptr(),
          None if vec is None else vec.data_ptr(), ad.data_ptr(), ad.shape[0],
          *lanes, asrc.shape[0], T, C, W, H, D, float(negative_slope),
-         split.data_ptr(), chunk_ref.data_ptr(), rows_ptr, row_m.data_ptr(),
+         int(self_rows > 0), split.data_ptr(), chunk_ref.data_ptr(), rows_ptr, row_m.data_ptr(),
          row_z.data_ptr())
     slot_off = torch.zeros((T + 1,), dtype=i32, device=dev)
     torch.cumsum(split, 0, out=slot_off[1:])
@@ -239,7 +277,7 @@ def _gat_cuda(b: BlockedCsr, hc: torch.Tensor, H: int, D: int,
          float(negative_slope), row_m.data_ptr(), row_z.data_ptr(),
          slot_row.data_ptr(), slot_m.data_ptr(), slot_z.data_ptr(),
          slot_acc.data_ptr(), out.data_ptr(),
-         None if raw is None else raw.data_ptr())
+         None if raw is None else raw.data_ptr(), int(self_rows))
     return out, raw, row_m, row_z, S
 
 
@@ -248,20 +286,22 @@ def gat_attend_blocked_packed_cuda(b: BlockedCsr, h: torch.Tensor,
                                    alpha_dst: torch.Tensor, *,
                                    negative_slope: float = 0.2,
                                    compute_dtype=torch.bfloat16,
-                                   alpha_src_vec: Optional[torch.Tensor] = None
-                                   ) -> torch.Tensor:
+                                   alpha_src_vec: Optional[torch.Tensor] = None,
+                                   self_loops: bool = False) -> torch.Tensor:
     """B3: :func:`gat_attend_blocked_packed` through the hand-written
     Hopper kernels of ``csrc/gat_blocked.cu`` (one CUDA block per chunk for
     all heads, its lanes sorted by row, a warp per piece of at most 32
     lanes of one row reading each source row whole; each lane weighed
     against its chunk's max, taken by a pre-pass; split rows merged against
-    the row block's max) on a CUDA tensor; the plain version on a CPU
-    tensor.  Same arguments and result; ``.last_slots`` holds the last
-    call's split-row slot count."""
+    the row block's max, and with ``self_loops`` each row's own term folded
+    in there) on a CUDA tensor; the plain version on a CPU tensor.  Same
+    arguments and result; ``.last_slots`` holds the last call's split-row
+    slot count."""
     if h.device.type == "cpu":
         return gat_attend_blocked_packed(
             b, h, alpha_src, alpha_dst, negative_slope=negative_slope,
-            compute_dtype=compute_dtype, alpha_src_vec=alpha_src_vec)
+            compute_dtype=compute_dtype, alpha_src_vec=alpha_src_vec,
+            self_loops=self_loops)
     _check_packed_args(b, alpha_src, alpha_src_vec)
     if h.dim() != 3:
         raise ValueError(f"h must be (N, H, D), got {tuple(h.shape)}")
@@ -282,7 +322,9 @@ def gat_attend_blocked_packed_cuda(b: BlockedCsr, h: torch.Tensor,
         _check(vec, "alpha_src_vec", torch.float32, (H, D), dev)
     out, _, _, _, S = _gat_cuda(b, hc, H, D, asrc, vec, ad, flash=False,
                                 round_alpha=vec is None,
-                                negative_slope=negative_slope)
+                                negative_slope=negative_slope,
+                                self_rows=(min(N, b.num_rows) if self_loops
+                                           else 0))
     gat_attend_blocked_packed_cuda.launches += 1
     gat_attend_blocked_packed_cuda.last_slots = S
     return out[: b.num_rows].reshape(-1, H, D)

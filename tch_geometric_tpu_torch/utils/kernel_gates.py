@@ -30,7 +30,9 @@ the SpMM gates (B1, B2, the hot split) also a hub row of 1,000 in-edges
 (:func:`hub_row_graph`), and :func:`run_spmm_mode_gates` holds B1 and B2
 in their multi-pass mode (chunks wider than the kernel's stage);
 the GAT kernels B3, B7, B8 and B9 also run one head of D=47 on the testbed
-(GAT's last layer at ogbn-products width, an odd row width); the ragged
+(GAT's last layer at ogbn-products width, an odd row width), and B3 the
+heads of PyG's ogbn-products GAT, 4 of 128 and 4 of 47 columns, and its
+self-loop mode on every case; the ragged
 case's rows are 37 columns wide.  B7 runs both its entries (scores in, and
 the GAT logits computed from the (N, H) tables; at one head both run B6's
 kernel, also on its looped path), and B11 also the hub row,
@@ -61,7 +63,12 @@ import torch
 # same points as its plain version (h, each lane's weight and their
 # product in bfloat16, every sum in float32), each weight against the same
 # chunk max, which a pre-pass takes before any row is read, so it differs
-# by summation order and the rare term whose rounding flips.  B4 rounds
+# by summation order and the rare term whose rounding flips; the error is
+# per element, so B3's limit holds at any head width (4 heads of 128 and of
+# 47 columns, the ogbn-products GAT's).  Its self-loop mode adds each row's
+# own term in float32 in the merge, unrounded on both sides, and rescales
+# an owned row's stored acc / z by zf / Z there, where the plain version
+# divides once: an ulp or two of float32, far below the limit.  B4 rounds
 # each lane's
 # weight bf16(e) against its piece's running max (a piece: at most 32 lanes
 # of one row in one chunk; the max moves once per batch of rows in flight,
@@ -107,9 +114,19 @@ import torch
 # up to 3.2 (PERF.md, Findings).  Each limit sits well above the card's
 # reading and well below the values compared.
 F32_THRESHOLD = 5e-4
+# B3 in its GATv1 projection modes at the published heads (4 of 128 and of
+# 47 columns): the kernel projects alpha_src by fused multiply-adds over
+# each lane's D / 32 columns and a warp sum, torch by its own order, so a
+# source logit can differ in its last float32 bit, and a lane's bf16(e)
+# near a rounding boundary then rounds the other way: one bfloat16 ulp of
+# that term, 2**-8 of |h| < 5 times its weight, at most 2e-2 (an NVIDIA
+# H100 80GB HBM3 read 3.3e-3 at 4 heads of 128).  With a given alpha_src
+# table both sides read the same logits and B3's own limit holds.
+WIDE_VEC_B3 = "gat_attend_blocked_packed_cuda[vec,wide]"
 BF16_THRESHOLDS = {"spmm_blocked_cuda": 1e-3, "spmm_hot_split": 1e-3,
                    "spmm_blocked_weighted_cuda": 1e-3,
                    "gat_attend_blocked_packed_cuda": 1e-3,
+                   WIDE_VEC_B3: 2e-2,
                    "sddmm_blocked_cuda": 1e-3,
                    "edge_softmax_blocked_cuda": 1e-5,
                    "attend_blocked_cuda": 5e-2,
@@ -360,35 +377,46 @@ def run_spmm_mode_gates(compute_dtype=torch.float32, device="cuda"
 def run_gat_gates(compute_dtype=torch.float32, device="cuda"
                   ) -> Dict[str, float]:
     """``{case[mode]/gat_attend_blocked_packed_cuda: max_abs_err}`` of B3
-    against its plain version on ``device``, in both modes (``table``: an
-    (N, H) alpha_src; ``vec``: the GATv1 projection GATConv uses)."""
+    against its plain version on ``device``, in three modes (``table``: an
+    (N, H) alpha_src; ``vec``: the GATv1 projection GATConv uses;
+    ``vec+self``: that with a self loop on every row, PyG's GAT)."""
     from ..ops.attention_blocked import (gat_attend_blocked_packed,
                                          gat_attend_blocked_packed_cuda)
     from ..ops.spmm_blocked import build_blocked
 
     errs: Dict[str, float] = {}
     with _strict_f32():
-        for name, ip, s, W, C, arrays in _gat_cases():
+        for name, ip, s, W, C, arrays in _gat_cases(published=True):
             b = build_blocked(ip, s, rows_per_block=W, chunk_edges=C,
                               device=device)
             hh, asrc, adst, v = (torch.from_numpy(a).to(device)
                                  for a in arrays)
-            for mode, table, vv in (("table", asrc, None), ("vec", None, v)):
-                kw = dict(alpha_src_vec=vv, compute_dtype=compute_dtype)
-                errs[f"{name}[{mode}]/gat_attend_blocked_packed_cuda"] = \
-                    _maxerr(gat_attend_blocked_packed_cuda(b, hh, table,
-                                                           adst, **kw),
-                            gat_attend_blocked_packed(b, hh, table, adst,
-                                                      **kw))
+            for mode, table, vv in (("table", asrc, None), ("vec", None, v),
+                                    ("vec+self", None, v)):
+                kw = dict(alpha_src_vec=vv, compute_dtype=compute_dtype,
+                          self_loops=mode == "vec+self")
+                key = (WIDE_VEC_B3 if vv is not None and name in _WIDE_GAT
+                       else "gat_attend_blocked_packed_cuda")
+                errs[f"{name}[{mode}]/{key}"] = _maxerr(
+                    gat_attend_blocked_packed_cuda(b, hh, table, adst, **kw),
+                    gat_attend_blocked_packed(b, hh, table, adst, **kw))
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return errs
 
 
-def _gat_cases():
+# the cases of PyG's ogbn-products GAT's heads in B3's gates
+_WIDE_GAT = ("testbed_h4_d128", "testbed_h4_d47")
+
+
+def _gat_cases(published: bool = False):
     """``(name, indptr, src, rows_per_block, chunk_edges, (h, alpha_src,
     alpha_dst, vec))`` of the GAT gates: the testbed (H=4, D=32), the three
-    edge cases and the testbed at one head of 47 columns."""
+    edge cases and the testbed at one head of 47 columns; ``published``
+    (B3's gates): also the testbed at the ogbn-products GAT's heads, 4 of
+    128 columns (layers 1-2, B3's widest rows) and 4 of 47 (layer 3,
+    averaged after B3: an odd head width, so one-element row loads), and
+    :func:`own_loops_graph`."""
     indptr, src, h, a_s, a_d, vec = build_gat_testbed()
     cases = [("testbed", indptr, src, 256, None, (h, a_s, a_d, vec))]
     for name, ip, s, _, W, C in edge_case_graphs():
@@ -397,7 +425,35 @@ def _gat_cases():
     r = np.random.default_rng(47)
     cases.append(("testbed_h1_d47", indptr, src, 256, None,
                   _gat_inputs(r, len(indptr) - 1, 1, 47)))
+    for d in ((128, 47) if published else ()):
+        r = np.random.default_rng(4000 + d)
+        cases.append((f"testbed_h4_d{d}", indptr, src, 256, None,
+                      _gat_inputs(r, len(indptr) - 1, 4, d)))
+    if published:
+        ip, s, W, C = own_loops_graph()
+        cases.append(("own_loops", ip, s, W, C,
+                      _gat_inputs(np.random.default_rng(5), len(ip) - 1, 4,
+                                  32)))
     return cases
+
+
+def own_loops_graph(n: int = 512, seed: int = 3
+                    ) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """``(indptr, src, rows_per_block, chunk_edges)`` of a graph whose
+    edges are mostly self loops, repeated: every row has 1-6 lanes of its
+    own source, every 5th row also 1-3 of others, and row 3 has 600 own
+    lanes then 40 of others, so whole 128-lane chunks of a split row hold
+    self loops only.  B3's self-loop mode gives those lanes no weight: its
+    gate then meets chunks whose maximum is -inf and rows whose only terms
+    are their own."""
+    rng = np.random.default_rng(seed)
+    srcs = []
+    for i in range(n):
+        own = [i] * (600 if i == 3 else int(rng.integers(1, 7)))
+        k = 40 if i == 3 else (int(rng.integers(1, 4)) if i % 5 == 0 else 0)
+        srcs.append(np.concatenate([own, rng.integers(0, n, k)]))
+    indptr = np.concatenate([[0], np.cumsum([len(x) for x in srcs])])
+    return indptr, np.concatenate(srcs).astype(np.int64), 128, 128
 
 
 def _gat_mode_cases():

@@ -192,8 +192,9 @@ def test_segment_softmax_matches_jax(heads, masked):
     (torch.bfloat16, kernel_gates.BF16_THRESHOLDS)])
 def test_gat_gates_harness_on_cpu(dtype, threshold):
     errs = kernel_gates.run_gat_gates(dtype, device="cpu")
-    assert len(errs) == 10
-    assert all(k.endswith("/gat_attend_blocked_packed_cuda") for k in errs)
+    assert len(errs) == 24
+    assert all(k.endswith(("/gat_attend_blocked_packed_cuda",
+                           "/" + kernel_gates.WIDE_VEC_B3)) for k in errs)
     ok, worst = kernel_gates.gate(errs, threshold)
     assert ok, worst
 
