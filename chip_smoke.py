@@ -39,7 +39,9 @@ prints no result line):
    (5e-4, TF32 off) and
    bfloat16 (per-kernel limits of ``utils/kernel_gates.py``); then the
    threefry kernel (``run_rng_gates``) bit-equal to its plain version on
-   the card and to the CPU's bits;
+   the card and to the CPU's bits, and the Floyd hop kernel
+   (``run_floyd_gates``) bit-equal to its plain version on the card and on
+   CPU copies of its inputs;
 3. the GraphSAGE serving path at ogbn-products size (synthetic graph with
    the dataset's node/edge counts, 100 features, 47 classes; model
    hidden=256, 3 layers, random weights from a seed):
@@ -115,14 +117,24 @@ prints no result line):
    within 1e-3 relative (the largest parameter difference is printed).  No
    kernel of B1-B11 lies on this path; the launch counts are zeroed before
    (a)-(c) and printed after.  The threefry kernel (T1) does: every draw of
-   the sampler and the dropout masks is one launch of it.  Its count, zeroed
-   before the serving path (3), the train path (7) and every later phase,
-   is printed after each and must be above 0 on 3, 7, 9 and 11.  Then T1's
-   kernel row: the kernel alone and its plain version at the dropout
-   masks' shapes (``kernel_gates.RNG_MASK_SHAPES``), bit-equal, timed
-   beside the bound, with the train path's launches and the host's
+   the ELL sampler and the dropout masks is one launch of it; and on a
+   graph with no ELL table each hop of the uniform sampler is one launch of
+   the Floyd hop kernel (F1).  Their counts, zeroed before the serving path
+   (3), the train path (7) and every later phase, are printed after each;
+   T1's must be above 0 on 3, 7, 9 and 11; F1's must be 0 on 7 (its graph
+   has an ELL table) and above 0 on 9, 10 and 11 (relations of
+   ogbn-mag's shape past the ELL widths, and graphs built without one).
+   Then T1's kernel row: the kernel alone and its plain version at the
+   dropout masks' shapes (``kernel_gates.RNG_MASK_SHAPES``), bit-equal,
+   timed beside the bound, with the train path's launches and the host's
    microseconds a call of ``random_bits`` at a Floyd draw's widest shape,
-   ``split`` and ``fold_in``.
+   ``split`` and ``fold_in``.  Then F1's kernel row, on the benchmark's
+   products graph (``benchmark/graphs/products.py``, no ELL table): the
+   launches of F1 and T1 in each of ``F1_STEPS`` steps of (a)'s SAGE
+   trainer there, the train cell's path (3 and 2 a step: one a hop, one a
+   mask); then, at the three hops of a 1,024-seed tree at [15, 10, 5],
+   the hop kernel beside its bound and its plain version on the card,
+   bit-equal.
 8. ``torch.profiler`` (``utils.metrics.profile``, a Chrome trace each under
    ``build/profile/``) over 3 SAGE train steps, 3 sampled SAGE requests and
    one SAGE ``blocked_forward``: for each, the device time of the kernels
@@ -342,8 +354,8 @@ prints no result line):
    1e-5 when no slot of their samples differs.  Each part's wall time and
    the phase's are printed.
 
-Output: human-readable lines, then one JSON line of kernel numbers (B1-B11
-and T1), one
+Output: human-readable lines, then one JSON line of kernel numbers (B1-B11,
+T1 and F1), one
 line with the card's name and power limit (nvidia-smi), and as the last
 line ``{"ok": true, "device": {...}}``.
 """
@@ -441,6 +453,12 @@ def phase_kernel_checks(device):
     log(f"rng gates ({len(errs)} entries, mismatched elements): "
         f"{bad or 'none'}")
     check(not bad, f"rng gates: {bad}")
+    # the hop kernel: bit-equal to the plain version on the card and the CPU
+    errs = kg.run_floyd_gates(device)
+    bad = {k: v for k, v in errs.items() if v}
+    log(f"floyd gates ({len(errs)} entries, mismatched elements): "
+        f"{bad or 'none'}")
+    check(not bad, f"floyd gates: {bad}")
 
 
 def host_prep(scale: float, device):
@@ -773,19 +791,25 @@ def rng_kernel_numbers(launches, device):
     """T1, the threefry kernel, at the dropout masks' shapes of a sampled
     SAGE train step: ``rng.threefry_cuda`` (the kernel) and
     ``rng.threefry_plain`` (the torch ops on the card), bit-equal, each
-    timed beside the bound; then the host's microseconds a call of
-    ``random_bits`` at a Floyd draw's widest shape, ``split`` and
-    ``fold_in``.  ``launches``: the train path's.  Returns the JSON row."""
+    timed beside the bound (the kernel's device time by the profiler, and
+    by CUDA events around back-to-back calls); then the host's
+    microseconds a call of ``random_bits`` at a Floyd draw's widest shape,
+    ``split`` and ``fold_in``.  ``launches``: the train path's.  Returns
+    the JSON row."""
     from tch_geometric_tpu_torch.sampling import rng
     from tch_geometric_tpu_torch.utils.kernel_gates import RNG_MASK_SHAPES
     key = rng.key(2024)
-    ms_by, plain_by, bound_by = {}, {}, {}
+    ms_by, events_by, plain_by, bound_by = {}, {}, {}, {}
     for name, shape in zip(("mask_layer1", "mask_layer2"), RNG_MASK_SHAPES):
         n = shape[0] * shape[1]
         kernel = lambda n=n: rng.threefry_cuda(key, n, device)  # noqa: E731
         plain = lambda n=n: rng.threefry_plain(key, n, device)  # noqa: E731
         check(torch.equal(kernel(), plain()), f"T1 {name} bits vs plain")
-        ms_by[name] = cuda_ms(kernel, 50)
+        # the kernel's device time by the profiler; CUDA events around
+        # back-to-back calls read the host's pace where a call's host side
+        # outlasts its kernel (the second mask's)
+        ms_by[name] = kernel_device_ms(kernel, "threefry_kernel", 50)
+        events_by[name] = cuda_ms(kernel, 50)
         plain_by[name] = cuda_ms(plain, 3)
         t_ops = n * T1_ALU_OPS_PER_ELEMENT / ALU_OPS_PER_S * 1e3
         t_bytes = n * 8 / HBM_BYTES_PER_S * 1e3
@@ -807,6 +831,7 @@ def rng_kernel_numbers(launches, device):
         bound_ms=bound_by["mask_layer1"][0],
         bound_by=bound_by["mask_layer1"][1], library_ms=None,
         ms_by_case=dict(ms_by, mask_step=sum(ms_by[k] for k in steps)),
+        events_ms_by_case=events_by,
         plain_ms_by_case=dict(plain_by,
                               mask_step=sum(plain_by[k] for k in steps)),
         bound_ms_by_case={k: v[0] for k, v in bound_by.items()},
@@ -815,11 +840,148 @@ def rng_kernel_numbers(launches, device):
         host_us=host)
     log(f"kernel {row['name']}: masks "
         + ", ".join(f"{k} {ms_by[k]:.3f} ms (bound {bound_by[k][0]:.3f} ms "
-                    f"by {bound_by[k][1]}; plain {plain_by[k]:.3f} ms)"
-                    for k in steps)
+                    f"by {bound_by[k][1]}; by CUDA events around "
+                    f"back-to-back calls {events_by[k]:.3f} ms; plain "
+                    f"{plain_by[k]:.3f} ms)" for k in steps)
         + "; host us a call: "
         + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
         + f"; launches on the train path {launches}")
+    return row
+
+
+# F1's bound: a row-draw takes two threefry hashes (T1's 41 ALU operations
+# each); a slot writes pos, valid, eptr and neighbor (25 bytes) and reads
+# one neighbor id (8), a row reads its frontier id, validity and indptr pair
+# (25) and writes its degree (8).
+F1_ALU_OPS_PER_DRAW = 2 * T1_ALU_OPS_PER_ELEMENT
+F1_BYTES_PER_SLOT, F1_BYTES_PER_ROW = 25 + 8, 25 + 8
+F1_STEPS = 3            # counted train steps on the products graph
+
+
+def kernel_device_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device time a call of ``fn`` spends in the kernels whose name
+    holds ``kernel``, over ``reps`` calls under ``torch.profiler`` (after
+    one warm-up): a call whose host side outlasts its kernel is timed by
+    the kernel, not by the host's pace, as CUDA events around the calls
+    would time it."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    check(us > 0, f"the profiler saw no device time of {kernel}")
+    return us / reps / 1e3
+
+
+def floyd_kernel_numbers(device, seed=2025):
+    """F1, the hop kernel, on the benchmark's products graph
+    (``benchmark/graphs/products.py`` with ``sage-products``' settings, no
+    ELL table: in-degrees past 18k).  First the train cell's path: after
+    a warm-up step, ``F1_STEPS`` steps of phase 7 (a)'s SAGE trainer there,
+    each of which must launch F1 once a hop and T1 once a mask (the row's
+    ``launches`` and ``t1_launches``, a step).  Then the sampled train
+    step's three hop shapes (1,024 seeds at fanouts [15, 10, 5]), the
+    frontiers of one ``sample_neighbors`` tree: each hop's
+    ``floyd_hop_cuda`` (the kernel) and ``floyd_hop_plain`` (torch ops on
+    the card), bit-equal, timed beside the bound: the kernel's device time
+    by the profiler, a call's host time (CUDA events around back-to-back
+    calls, which the host paces) and the plain version's.  Returns the
+    JSON row."""
+    from benchmark.graphs import products
+    from tch_geometric_tpu_torch.data.graph import make_graph
+    from tch_geometric_tpu_torch.data.storage import coo_to_csc_device
+    from tch_geometric_tpu_torch.parallel import make_gnn_trainer
+    from tch_geometric_tpu_torch.sampling import primitives, rng
+    from tch_geometric_tpu_torch.sampling.neighbor import sample_neighbors
+    with open("benchmark/configs/sage-products.json") as f:
+        gcfg = json.load(f)["graph"]
+    gg = products.generate(gcfg, seed, device)
+    ptr, idx, perm = coo_to_csc_device(gg.src, gg.dst, gg.num_nodes,
+                                       gg.num_nodes)
+    graph = make_graph(ptr, idx, perm, num_src=gg.num_nodes,
+                       num_dst=gg.num_nodes, device=device)
+    del ptr, idx, perm
+    check(graph.ell is None and graph.indices_win is None,
+          f"the products graph has no sampling table (max in-degree "
+          f"{graph.max_degree})")
+    model = train_model("sage", gg.x.shape[1], device)
+    trainer = make_gnn_trainer(model, FANOUTS, learning_rate=TRAIN_LR)
+    state = trainer.init_fn()
+    key = rng.key(seed)
+    batches = gg.train_idx[:(1 + F1_STEPS) * SEEDS_PER_REQUEST].view(
+        1 + F1_STEPS, SEEDS_PER_REQUEST)
+    f1, t1 = [], []
+    for seeds in batches:
+        f0, t0 = primitives.floyd_hop_cuda.launches, rng.threefry_cuda.launches
+        state, loss, _ = trainer.train_step(state, key, graph, gg.x, seeds,
+                                            gg.y[seeds])
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(loss)), "F1's train steps: loss finite")
+        f1.append(primitives.floyd_hop_cuda.launches - f0)
+        t1.append(rng.threefry_cuda.launches - t0)
+    log(f"train steps on the products graph: F1 launches {f1}, T1 "
+        f"launches {t1} a step (the first a warm-up)")
+    check(f1 == [len(FANOUTS)] * len(f1),
+          f"F1 launches {f1} a train step, one a hop")
+    check(t1 == [model.num_layers - 1] * len(t1),
+          f"T1 launches {t1} a train step, one a dropout mask")
+    del trainer, state, model
+    seeds = gg.train_idx[:SEEDS_PER_REQUEST].cpu().numpy()
+    del gg
+    tree = sample_neighbors(graph, seeds, FANOUTS, key=key)
+    torch.cuda.synchronize()
+    ms_by, host_by, plain_by, bound_by, shapes = {}, {}, {}, {}, {}
+    nb = tree.node_base
+    for hop, k in enumerate(FANOUTS):
+        frontier = tree.nodes[nb[hop]:nb[hop + 1]]
+        fvalid = tree.node_valid[nb[hop]:nb[hop + 1]]
+        hkey = rng.fold(key, hop)
+        name = f"hop{hop}"
+        kernel = lambda f=frontier, v=fvalid, k=k, hk=hkey: (  # noqa: E731
+            primitives.floyd_hop_cuda(hk, graph, f, v, k))
+        plain = lambda f=frontier, v=fvalid, k=k, hk=hkey: (  # noqa: E731
+            primitives.floyd_hop_plain(hk, graph, f, v, k))
+        got, want = kernel(), plain()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"F1 {name} vs plain")
+        B = frontier.shape[0]
+        drawing = int((got[0] > k).sum())
+        ms_by[name] = kernel_device_ms(kernel, "floyd_kernel", 50)
+        host_by[name] = cuda_ms(kernel, 200) * 1e3
+        plain_by[name] = cuda_ms(plain, 3)
+        t_ops = drawing * k * F1_ALU_OPS_PER_DRAW / ALU_OPS_PER_S * 1e3
+        t_bytes = (B * k * F1_BYTES_PER_SLOT
+                   + B * F1_BYTES_PER_ROW) / HBM_BYTES_PER_S * 1e3
+        bound_by[name] = (max(t_ops, t_bytes),
+                          "operations" if t_ops >= t_bytes else "bytes")
+        shapes[name] = dict(rows=B, k=k, drawing_rows=drawing)
+    del graph, tree
+    steps = tuple(ms_by)
+    row = dict(
+        name="floyd_hop_cuda (F1)", route="cuda",
+        source="tch_geometric_tpu_torch/csrc/floyd.cu",
+        replaces="none: the JAX package's Floyd loop is XLA's fusion "
+                 "(sampling/primitives.py::floyd_sample)",
+        launches=f1[-1], t1_launches=t1[-1], mismatched=0, ms=ms_by["hop2"],
+        plain_ms=plain_by["hop2"], bound_ms=bound_by["hop2"][0],
+        bound_by=bound_by["hop2"][1], library_ms=None,
+        ms_by_case=dict(ms_by, step=sum(ms_by[k] for k in steps)),
+        plain_ms_by_case=dict(plain_by,
+                              step=sum(plain_by[k] for k in steps)),
+        bound_ms_by_case={k: v[0] for k, v in bound_by.items()},
+        host_us_by_case=host_by, shape=shapes)
+    log(f"kernel {row['name']}: "
+        + ", ".join(f"{k} [{shapes[k]['rows']} x {shapes[k]['k']}] "
+                    f"{ms_by[k] * 1e3:.1f} us (bound "
+                    f"{bound_by[k][0] * 1e3:.1f} us by {bound_by[k][1]}; "
+                    f"a call on the host "
+                    f"{host_by[k]:.1f} us; plain {plain_by[k]:.2f} ms)"
+                    for k in steps)
+        + f"; launches a train step: F1 {f1[-1]}, T1 {t1[-1]}")
     return row
 
 
@@ -5943,16 +6105,22 @@ def main(argv=None) -> int:
                      ab.gat_attend_blocked_flash_cuda)
     wrappers = ((spmm_blocked_cuda, spmm_blocked_weighted_cuda,
                  spmm_blocked_q8_cuda) + attend_kernels + route_kernels)
-    from tch_geometric_tpu_torch.sampling import rng
-    threefry = rng.threefry_cuda
-    counted = wrappers + (threefry,)    # zeroed before each phase
+    from tch_geometric_tpu_torch.sampling import primitives, rng
+    threefry, floyd = rng.threefry_cuda, primitives.floyd_hop_cuda
+    counted = wrappers + (threefry, floyd)    # zeroed before each phase
 
-    def t1_launches(where, ran):
-        """T1's launches since the last zeroing; above 0 where ``ran``."""
-        log(f"{where}: threefry_cuda (T1) launches {threefry.launches}")
+    def t1_launches(where, ran, f1_ran=None):
+        """T1's launches since the last zeroing, above 0 where ``ran``;
+        F1's printed beside them, above 0 where ``f1_ran`` and 0 where it
+        is False."""
+        log(f"{where}: threefry_cuda (T1) launches {threefry.launches}, "
+            f"floyd_hop_cuda (F1) launches {floyd.launches}")
         if ran:
             check(threefry.launches > 0, f"kernel threefry_cuda (T1) ran on "
                   f"{where}")
+        if f1_ran is not None:
+            check((floyd.launches > 0) == f1_ran, f"kernel floyd_hop_cuda "
+                  f"(F1) {'ran' if f1_ran else 'did not run'} on {where}")
         return threefry.launches
 
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
@@ -6107,9 +6275,13 @@ def main(argv=None) -> int:
     train_launches = {fn.__name__: fn.launches for fn in wrappers}
     log(f"train path launches (no kernel of B1-B11 lies on it): "
         f"{train_launches}")
-    kernels.append(rng_kernel_numbers(t1_launches("train path", True),
-                                      device))
-    check(len(kernels) == 12, f"{len(kernels)} kernel rows, expected 12")
+    # the train path's graph has an ELL table: its hops take the ELL
+    # engine, whose draws are T1's, and F1 stays off it
+    kernels.append(rng_kernel_numbers(t1_launches(
+        "train path", True, f1_ran=p["graph"].ell is None), device))
+    torch.cuda.empty_cache()
+    kernels.append(floyd_kernel_numbers(device))
+    check(len(kernels) == 13, f"{len(kernels)} kernel rows, expected 13")
     torch.cuda.empty_cache()
     train_res["card_vs_cpu"] = check_train_card_vs_cpu(p["data"], sg, device)
     prof = profile_phase(p, trainers, device)
@@ -6128,7 +6300,7 @@ def main(argv=None) -> int:
     sampling_launches = {fn.__name__: fn.launches for fn in wrappers}
     log(f"sampling path launches (no kernel of B1-B11 lies on it): "
         f"{sampling_launches}")
-    t1_launches("phase 9", True)
+    t1_launches("phase 9", True, f1_ran=True)
     torch.cuda.empty_cache()
     sampling_res["card_vs_cpu"] = check_sampling_card_vs_cpu(sg, mag, device)
     torch.cuda.empty_cache()
@@ -6141,7 +6313,7 @@ def main(argv=None) -> int:
         f"{parity_launches}")
     check(not any(parity_launches.values()),
           "no kernel of B1-B11 ran in phase 10")
-    t1_launches("phase 10", False)
+    t1_launches("phase 10", False, f1_ran=True)
     torch.cuda.empty_cache()
 
     for fn in counted:
@@ -6152,7 +6324,7 @@ def main(argv=None) -> int:
         f"{models_launches}")
     check(not any(models_launches.values()),
           "no kernel of B1-B11 ran in phase 11")
-    t1_launches("phase 11", True)
+    t1_launches("phase 11", True, f1_ran=True)
     torch.cuda.empty_cache()
 
     for fn in counted:

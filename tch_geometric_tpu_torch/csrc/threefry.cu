@@ -9,10 +9,8 @@
 // most of a sampled train step (the dropout masks and the sampler's draws).
 // Here one launch computes a whole draw.
 //
-// The hash is jax's with jax_threefry_partitionable=True: 20 rounds in 5
-// groups of 4, key injection after each group, rotations
-// (13, 15, 26, 6) and (17, 29, 16, 24) alternating, the third key word
-// k0 ^ k1 ^ 0x1BD11BDA.  Element e of a draw of rows x n elements hashes
+// The hash is jax's with jax_threefry_partitionable=True (threefry.cuh,
+// shared with floyd.cu).  Element e of a draw of rows x n elements hashes
 // the counter c = offset + (data ? data[e] mod 2**32 : e mod n), a uint64
 // split into the words (c >> 32, c mod 2**32), under the key of its row
 // (row e / n of a (rows, 2) key table) or under the one key (k0, k1).  The
@@ -38,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -53,26 +53,6 @@ struct Args {
   int64_t total;        // rows * n
   int64_t* out;         // (total,) bits or (total, 2) words
 };
-
-__device__ __forceinline__ void round4(uint32_t& x0, uint32_t& x1, int r0,
-                                       int r1, int r2, int r3) {
-  x0 += x1; x1 = __funnelshift_l(x1, x1, r0) ^ x0;
-  x0 += x1; x1 = __funnelshift_l(x1, x1, r1) ^ x0;
-  x0 += x1; x1 = __funnelshift_l(x1, x1, r2) ^ x0;
-  x0 += x1; x1 = __funnelshift_l(x1, x1, r3) ^ x0;
-}
-
-// Threefry-2x32 of the counter words (x0, x1) under key (k0, k1), in place.
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0; x1 += k1;
-  round4(x0, x1, 13, 15, 26, 6);  x0 += k1; x1 += k2 + 1u;
-  round4(x0, x1, 17, 29, 16, 24); x0 += k2; x1 += k0 + 2u;
-  round4(x0, x1, 13, 15, 26, 6);  x0 += k0; x1 += k1 + 3u;
-  round4(x0, x1, 17, 29, 16, 24); x0 += k1; x1 += k2 + 4u;
-  round4(x0, x1, 13, 15, 26, 6);  x0 += k2; x1 += k0 + 5u;
-}
 
 // The hash of element e: its key, its counter, the two output words.
 template <bool kTable, bool kData>
@@ -92,7 +72,7 @@ __device__ __forceinline__ void element(const Args& a, int64_t e,
                         : static_cast<uint64_t>(i));
   x0 = static_cast<uint32_t>(c >> 32);
   x1 = static_cast<uint32_t>(c);
-  threefry2x32(k0, k1, x0, x1);
+  tgt_rng::threefry2x32(k0, k1, x0, x1);
 }
 
 template <bool kTable, bool kData, bool kWords>

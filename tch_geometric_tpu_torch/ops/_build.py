@@ -11,6 +11,7 @@ build raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -74,6 +77,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "threefry": {
         "tgt_threefry": (_i, [_vp, _i64, _i64, _vp, ctypes.c_uint64, _i64,
                               _i64, _i, _vp, _vp]),
+        "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
+    },
+    "floyd": {
+        "tgt_floyd_hop": (_i, [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i64,
+                               _i64, _i64, _i64, ctypes.c_uint64, _i64, _i64,
+                               _vp, _vp, _vp, _vp, _vp, _vp]),
         "tgt_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
 }
@@ -150,3 +159,20 @@ def load(name: str) -> ctypes.CDLL:
             f.argtypes = argtypes
         _loaded[name] = lib
     return lib
+
+
+def launch(name: str, fn: str, dev: torch.device, *args) -> None:
+    """Call the C function ``fn`` of library ``name`` with ``args`` and the
+    current stream of the CUDA device ``dev``; raise on a launch error.
+    The device's context is entered only when ``dev`` is not the current
+    device: entering it costs a launch's time."""
+    lib = load(name)
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    with (contextlib.nullcontext() if index == current
+          else torch.cuda.device(index)):
+        rc = getattr(lib, fn)(*args,
+                              torch.cuda.current_stream(index).cuda_stream)
+    if rc != 0:
+        msg = lib.tgt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")

@@ -123,21 +123,14 @@ def sample_edges_uniform(key, graph: CscGraph, frontier, frontier_valid,
     table exists, else by Floyd's algorithm.  Returns ``(deg (B,), pos
     (B, k), pvalid (B, k), eptr (B, k), v (B, k))``, ``v`` the neighbor
     ids."""
+    if graph.ell is None:
+        return primitives.floyd_hop(key, graph, frontier, frontier_valid, k)
     node = frontier.clamp(0, graph.num_ptr_nodes - 1)
-    if graph.ell is not None:
-        lanes, deg_l, starts = graph.ell_rows(node)
-        deg = torch.where(frontier_valid, deg_l, 0).long()
-        pos, pvalid = primitives.uniform_lane_topk(key, deg, lanes.shape[-1],
-                                                   k)
-    else:
-        starts, ends = graph.neighbors_range(node)
-        deg = torch.where(frontier_valid, ends - starts, 0)
-        pos, pvalid = primitives.floyd_sample(key, deg, k)
+    lanes, deg_l, starts = graph.ell_rows(node)
+    deg = torch.where(frontier_valid, deg_l, 0).long()
+    pos, pvalid = primitives.uniform_lane_topk(key, deg, lanes.shape[-1], k)
     eptr = (starts.long()[:, None] + pos).clamp(0, max(graph.num_edges - 1, 0))
-    if graph.ell is not None:
-        v = _select_lanes(lanes, pos.clamp(0, lanes.shape[-1] - 1)).long()
-    else:
-        v = graph.gather_neighbors(eptr)
+    v = _select_lanes(lanes, pos.clamp(0, lanes.shape[-1] - 1)).long()
     return deg, pos, pvalid, eptr, v
 
 
@@ -188,6 +181,13 @@ def _sample_one_hop(key, graph: CscGraph, frontier, frontier_valid,
     frontier's first row in a larger frontier whose draws it takes a block
     of.  Returns ``(eptr (B,k), neighbor (B,k), valid (B,k), state
     (B,k))``."""
+    if (graph.ell is None and filter_cfg is None and log_weights is None
+            and not with_replacement):
+        _, _, valid, eptr, neighbor = primitives.floyd_hop(
+            key, graph, frontier, frontier_valid, k, row0,
+            window_table=True)
+        return (eptr, neighbor, valid,
+                frontier_state[..., None].expand(eptr.shape))
     node = frontier.clamp(0, graph.num_ptr_nodes - 1)
     ell_lanes = None
     if graph.ell is not None:
@@ -202,11 +202,9 @@ def _sample_one_hop(key, graph: CscGraph, frontier, frontier_valid,
     if filter_cfg is None and log_weights is None:
         if with_replacement:
             pos, valid = primitives.replacement_positions(key, degs, k, row0)
-        elif ell_lanes is not None:
+        else:
             pos, valid = primitives.uniform_lane_topk(
                 key, degs, ell_lanes.shape[-1], k, row0)
-        else:
-            pos, valid = primitives.floyd_sample(key, degs, k, row0)
     elif ell_lanes is not None:
         pos, valid, tvals = _ell_values_sample(
             key, graph, starts, degs, frontier_state, k, with_replacement,

@@ -7,6 +7,9 @@ up to the last ulp of ``log``):
 
 * :func:`floyd_sample` — exact uniform k-subset of ``[0, deg)`` per node by
   Floyd's algorithm, O(k^2) compares, independent of degree;
+* :func:`floyd_hop` — one hop of it over a graph's frontier, with the edge
+  pointers and neighbor ids: on a CUDA tensor one launch of the
+  hand-written kernel ``csrc/floyd.cu`` (:func:`floyd_hop_cuda`);
 * :func:`uniform_lane_topk` — one uniform per ELL lane, top ``k`` among the
   lanes ``< deg``;
 * :func:`replacement_positions` — ``k`` independent ``randint`` draws;
@@ -29,6 +32,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..ops import _build
+from ..utils.metrics import trace_span
 from . import rng
 
 NEG_INF = float("-inf")
@@ -63,6 +68,95 @@ def floyd_sample(key: torch.Tensor, deg: torch.Tensor, k: int,
     positions = torch.where(take_all, iota.expand_as(chosen), chosen)
     valid = torch.where(take_all, iota < deg[..., None], deg[..., None] > 0)
     return torch.where(valid, positions, 0), valid
+
+
+def floyd_hop(key: torch.Tensor, graph, frontier: torch.Tensor,
+              frontier_valid: torch.Tensor, k: int, row0: int = 0, *,
+              window_table: bool = False):
+    """Uniform k-subset without replacement of each frontier node's
+    in-edges, by :func:`floyd_sample` under ``key``, on a graph with no ELL
+    table: ``(deg (B,), pos (B, k), valid (B, k), eptr (B, k), neighbor
+    (B, k))``.  ``row0``: the frontier's first row in a larger frontier
+    whose draws it takes a block of; ``window_table``: the neighbor ids as
+    the graph's aligned-window table gathers them, when it has one (they
+    differ from ``indices[eptr]`` on invalid slots only).
+
+    On a CPU tensor the plain version (:func:`floyd_hop_plain`); on a CUDA
+    tensor one launch of the kernel (:func:`floyd_hop_cuda`), in one
+    ``rng_bits`` span: the launch draws the hop's bits and derives their
+    keys.  The two give the same integers."""
+    if frontier.device.type == "cpu":
+        return floyd_hop_plain(key, graph, frontier, frontier_valid, k, row0,
+                               window_table=window_table)
+    with trace_span("rng_bits"):
+        return floyd_hop_cuda(key, graph, frontier, frontier_valid, k, row0,
+                              window_table=window_table)
+
+
+def floyd_hop_plain(key: torch.Tensor, graph, frontier: torch.Tensor,
+                    frontier_valid: torch.Tensor, k: int, row0: int = 0, *,
+                    window_table: bool = False):
+    """:func:`floyd_hop` as torch ops on any device: the plain version."""
+    node = frontier.clamp(0, graph.num_ptr_nodes - 1)
+    starts, ends = graph.neighbors_range(node)
+    deg = torch.where(frontier_valid, ends - starts, 0)
+    pos, valid = floyd_sample(key, deg, k, row0)
+    eptr = (starts.long()[:, None] + pos).clamp(0, max(graph.num_edges - 1,
+                                                       0))
+    if window_table and graph.indices_win is not None:
+        win, off = graph.gather_neighbor_windows_rows(starts)
+        neighbor = torch.gather(win, -1, off[..., None] + pos).long()
+    else:
+        neighbor = graph.gather_neighbors(eptr)
+    return deg, pos, valid, eptr, neighbor
+
+
+def floyd_hop_cuda(key: torch.Tensor, graph, frontier: torch.Tensor,
+                   frontier_valid: torch.Tensor, k: int, row0: int = 0, *,
+                   window_table: bool = False):
+    """:func:`floyd_hop` as one launch of ``tgt_floyd_hop`` on the current
+    stream of the frontier's CUDA device; counts its launches in
+    ``floyd_hop_cuda.launches``.  The key goes to the kernel as its two
+    words; nothing is copied to the card."""
+    dev = frontier.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA device, got {dev}")
+    k, row0 = int(k), int(row0)
+    if k < 0 or not 0 <= row0 < 2 ** 64:
+        raise ValueError(f"k={k} and row0={row0} must be >= 0")
+    B = frontier.shape[0]
+    deg = torch.empty((B,), dtype=torch.int64, device=dev)
+    pos, eptr, neighbor = (torch.empty((B, k), dtype=torch.int64, device=dev)
+                           for _ in range(3))
+    valid = torch.empty((B, k), dtype=torch.bool, device=dev)
+    if B == 0:
+        return deg, pos, valid, eptr, neighbor
+    indptr, indices = graph.indptr, graph.indices
+    if indptr.dtype != torch.int64 or indices.dtype != torch.int64:
+        raise ValueError("the graph's indptr and indices must be int64")
+    if frontier.dtype != torch.int64 or not frontier.is_contiguous():
+        frontier = frontier.to(torch.int64).contiguous()
+    if (frontier_valid.dtype != torch.bool
+            or not frontier_valid.is_contiguous()):
+        frontier_valid = frontier_valid.to(torch.bool).contiguous()
+    # the aligned-window table (int32 rows of WINDOW_LANES), whose gather
+    # the neighbor ids follow, or none: indices[eptr]
+    win = graph.indices_win if window_table else None
+    win_rows, win_lanes = (0, 0) if win is None else win.shape
+    if win is not None and win.dtype != torch.int32:
+        raise ValueError("the graph's window table must be int32")
+    k0, k1 = rng._words(key)
+    _build.launch("floyd", "tgt_floyd_hop", dev, indptr.data_ptr(),
+                  indices.data_ptr(), None if win is None else win.data_ptr(),
+                  frontier.data_ptr(), frontier_valid.data_ptr(),
+                  graph.num_ptr_nodes, graph.num_edges, win_rows, win_lanes,
+                  B, k, row0, k0, k1, deg.data_ptr(), pos.data_ptr(),
+                  valid.data_ptr(), eptr.data_ptr(), neighbor.data_ptr())
+    floyd_hop_cuda.launches += 1
+    return deg, pos, valid, eptr, neighbor
+
+
+floyd_hop_cuda.launches = 0
 
 
 def top_k(vals: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

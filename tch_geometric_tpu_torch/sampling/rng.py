@@ -40,7 +40,6 @@ CPU has no uint32 ``<<``.  Products of two 32-bit words are split into
 """
 from __future__ import annotations
 
-import contextlib
 import threading
 from typing import Optional, Sequence, Tuple, Union
 
@@ -170,20 +169,10 @@ def _launch_threefry(keys: Optional[torch.Tensor], k: Tuple[int, int],
         keys = keys.to(torch.int64).contiguous()
     if data is not None:
         data = data.to(torch.int64).contiguous()
-    lib = _build.load("threefry")
-    # entering the device's context costs a launch's time: only off it
-    current = torch.cuda.current_device()
-    index = current if dev.index is None else dev.index
-    with (contextlib.nullcontext() if index == current
-          else torch.cuda.device(index)):
-        rc = lib.tgt_threefry(
-            None if keys is None else keys.data_ptr(), k[0], k[1],
-            None if data is None else data.data_ptr(), offset, rows, n,
-            int(words), out.data_ptr(),
-            torch.cuda.current_stream(index).cuda_stream)
-    if rc != 0:
-        msg = lib.tgt_cuda_error_string(rc).decode()
-        raise RuntimeError(f"tgt_threefry launch failed: {msg} ({rc})")
+    _build.launch("threefry", "tgt_threefry", dev,
+                  None if keys is None else keys.data_ptr(), k[0], k[1],
+                  None if data is None else data.data_ptr(), offset, rows, n,
+                  int(words), out.data_ptr())
     threefry_cuda.launches += 1
     return out
 

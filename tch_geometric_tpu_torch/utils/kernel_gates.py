@@ -17,7 +17,9 @@ B4 and B6 again on the cases that reach their kernels' other paths (B6
 also with every row block on its looped path) —
 :func:`run_attend_mode_gates` — B10 and B8 likewise —
 :func:`run_weighted_mode_gates` — and B3 and B9 likewise —
-:func:`run_gat_mode_gates`.  Each
+:func:`run_gat_mode_gates` — and, bit for bit, the threefry kernel T1
+(:func:`run_rng_gates`) and the Floyd hop kernel F1
+(:func:`run_floyd_gates`).  Each
 kernel runs on the given device and is compared with its plain version
 (``spmm_blocked``, ``gat_attend_blocked_packed``, ``sddmm_blocked``, ...)
 on the same inputs, computed on the same device.  On a CPU device both sides are the plain
@@ -967,4 +969,144 @@ def run_rng_gates(device="cuda", mask_shapes=RNG_MASK_SHAPES
         torch.cuda.synchronize()
         errs["launches"] = abs(rng.threefry_cuda.launches - before
                                - launched)
+    return errs
+
+
+# The hop kernel's k: the sampler's fanouts, a wider one, and one past the
+# draws a block of the kernel stages in shared memory (``csrc/floyd.cu``:
+# kStage = 1,024), which stages them in its pos output instead.
+FLOYD_KS = (1, 5, 10, 15, 40)
+FLOYD_STAGE_K = 1100
+
+
+def floyd_gate_graph(n: int = 4096, hubs=(6000, 3000, 2000, 1200),
+                     max_degree: int = 800, edges_mod_64: int = -1,
+                     seed: int = 29):
+    """``(indptr, indices)`` of a CSC graph for the hop kernel's gate:
+    power-law in-degrees (most rows a few edges, many none, at most
+    ``max_degree``), the ``hubs`` rows first, then one row of each degree
+    k - 1, k and k + 1 for every gated k that fits ``max_degree``, and the
+    last three rows empty (their window starts at the edge count).  Each
+    row's neighbor ids are sorted.  ``edges_mod_64`` >= 0: the largest
+    ordinary row is trimmed so the edge count leaves that remainder mod 64
+    (the window table's padding)."""
+    r = np.random.default_rng(seed)
+    deg = np.minimum((r.pareto(1.1, n) * 3).astype(np.int64), max_degree)
+    deg[:len(hubs)] = hubs
+    special = sorted({d for k in FLOYD_KS + (FLOYD_STAGE_K,)
+                      for d in (k - 1, k, k + 1) if d <= max_degree})
+    deg[len(hubs):len(hubs) + len(special)] = special
+    deg[-3:] = 0
+    if edges_mod_64 >= 0:
+        big = int(np.argmax(deg[len(hubs) + len(special):])) + len(hubs) \
+            + len(special)
+        deg[big] -= (int(deg.sum()) - edges_mod_64) % 64
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    rows = np.repeat(np.arange(n), deg)
+    vals = r.integers(0, n, int(deg.sum()))
+    return indptr, vals[np.lexsort((vals, rows))]
+
+
+def run_floyd_gates(device="cuda", ks=FLOYD_KS, stage_k=FLOYD_STAGE_K
+                    ) -> Dict[str, int]:
+    """``{case/side: mismatched elements}`` of the hop kernel
+    (``primitives.floyd_hop_cuda``, F1) against the plain version
+    (``floyd_hop_plain``) on ``device`` (``/plain``) and on CPU copies of
+    the same inputs (``/cpu``), summed over its five outputs (deg, pos,
+    valid, eptr, neighbor); bit-equal passes, so every entry must be 0.
+
+    Cases, on :func:`floyd_gate_graph` (hubs of thousands of in-edges, rows
+    of degree below, at and above each k, empty rows) under a hop key whose
+    words have their top bit set: every node, ids past both ends of the
+    node range and a tenth of the rows invalid, at each k of ``ks`` (and at
+    k = 10 with int32 ids), and at ``stage_k`` (past the kernel's
+    shared-memory stage; ``None`` skips it) on the hub rows and the
+    special-degree rows; at k = 15 a second key
+    (``rng.key``), and blocks of the frontier from row ``row0`` > 0
+    (``block``, also against the whole frontier's rows: ``/whole``, and
+    counters that cross 2**32); the window table's gather
+    (``window_table=True``) on two graphs of degree <= 400 whose edge counts
+    are and are not multiples of 64; and ``sample_neighbors`` at fanouts
+    [15, 10, 5] from 64 seeds, the tree's every field against the CPU's.
+    ``launches`` counts the kernel launches that are missing on a CUDA
+    device (0 on the CPU)."""
+    from ..data.graph import make_graph
+    from ..sampling import neighbor, primitives, rng
+
+    dev = torch.device(device)
+    cpu = torch.device("cpu")
+    g = np.random.default_rng(31)
+    top = torch.tensor([0x9E3779B9, 0xDEADBEEF], dtype=torch.int64)
+
+    def graphs(ip, ix, window):
+        kw = dict(num_src=len(ip) - 1, num_dst=len(ip) - 1, ell_table=False,
+                  window_table=window)
+        return (make_graph(ip, ix, device=dev, **kw),
+                make_graph(ip, ix, device=cpu, **kw))
+
+    ip, ix = floyd_gate_graph()
+    n = len(ip) - 1
+    main = graphs(ip, ix, False)
+    frontier = np.concatenate([g.permutation(n), [-5, n, n + 9, 0, 1, 2]])
+    fvalid = g.random(len(frontier)) > 0.1
+    specials = np.concatenate([np.arange(40), [n - 1, n - 2]])
+    # name: (graphs, key, frontier, valid, k, row0, window_table)
+    cases = {f"k={k}": (main, top, frontier, fvalid, k, 0, False)
+             for k in ks}
+    if stage_k is not None:
+        cases[f"k={stage_k}"] = (main, top, specials,
+                                 np.ones(len(specials), bool), stage_k, 0,
+                                 False)
+    cases["k=15/key(7)"] = (main, rng.key(7), frontier, fvalid, 15, 0, False)
+    cases["k=10/int32"] = (main, top, frontier.astype(np.int32), fvalid, 10,
+                           0, False)
+    cases["k=15/block[1000:1700]"] = (main, top, frontier[1000:1700],
+                                      fvalid[1000:1700], 15, 1000, False)
+    cases["k=5/block_cross_2**32"] = (main, top, frontier[:300],
+                                      fvalid[:300], 5, 2**32 - 150, False)
+    for mod in (0, 37):
+        wg = graphs(*floyd_gate_graph(1024, hubs=(400, 399), max_degree=400,
+                                      edges_mod_64=mod, seed=30 + mod), True)
+        wf = np.concatenate([g.permutation(1024), [-1, 1024, 1023, 1022]])
+        wv = g.random(len(wf)) > 0.1
+        for k in (5, 15):
+            cases[f"window[E%64={mod}]/k={k}"] = (wg, top, wf, wv, k, 0,
+                                                  True)
+    errs: Dict[str, int] = {}
+    before = primitives.floyd_hop_cuda.launches
+    launched = 0
+    for name, (gs, key, f, v, k, row0, win) in cases.items():
+        tf, tv = torch.from_numpy(f), torch.from_numpy(v)
+        got = primitives.floyd_hop(key, gs[0], tf.to(dev), tv.to(dev), k,
+                                   row0, window_table=win)
+        launched += int(len(f) > 0)
+        for side, gr, d in (("plain", gs[0], dev), ("cpu", gs[1], cpu)):
+            want = primitives.floyd_hop_plain(key, gr, tf.to(d), tv.to(d), k,
+                                              row0, window_table=win)
+            errs[f"{name}/{side}"] = sum(_mismatches(a, b)
+                                         for a, b in zip(got, want))
+    # a block equals those rows of the whole frontier's draw
+    whole = primitives.floyd_hop(top, main[0], torch.from_numpy(
+        frontier).to(dev), torch.from_numpy(fvalid).to(dev), 15)
+    block = primitives.floyd_hop(top, main[0], torch.from_numpy(
+        frontier[1000:1700]).to(dev), torch.from_numpy(
+            fvalid[1000:1700]).to(dev), 15, 1000)
+    errs["k=15/block[1000:1700]/whole"] = sum(
+        _mismatches(a, b[1000:1700]) for a, b in zip(block, whole))
+    launched += 2
+    seeds = g.choice(n, 64, replace=False)
+    seeds[:4] = [0, 1, 2, 3]                       # hubs
+    trees = [neighbor.sample_neighbors(gr, seeds, [15, 10, 5], key=top)
+             for gr in main]
+    errs["sample_neighbors[15,10,5]/cpu"] = sum(
+        _mismatches(getattr(trees[0], f), getattr(trees[1], f))
+        for f in ("nodes", "node_valid", "rows", "cols", "eptr",
+                  "edge_valid"))
+    launched += 3
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        errs["launches"] = abs(primitives.floyd_hop_cuda.launches - before
+                               - launched)
+    else:
+        errs["launches"] = primitives.floyd_hop_cuda.launches - before
     return errs

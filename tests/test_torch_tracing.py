@@ -19,7 +19,7 @@ from tch_geometric_tpu_torch.data.storage import to_csc
 from tch_geometric_tpu_torch.models.sage import GraphSAGE
 from tch_geometric_tpu_torch.ops import build_blocked
 from tch_geometric_tpu_torch.parallel import make_gnn_trainer
-from tch_geometric_tpu_torch.sampling import rng
+from tch_geometric_tpu_torch.sampling import primitives, rng
 from tch_geometric_tpu_torch.utils import metrics
 from tch_geometric_tpu_torch.utils.metrics import (RING, SPANS, profile,
                                                    span_ms, span_records,
@@ -263,10 +263,12 @@ def test_train_step_records_and_results_with_and_without_profiler(
 
 @pytest.mark.card
 def test_train_step_launches_the_threefry_kernel_once_a_draw(karate, card):
-    """On the card every draw of a train step is one launch of the
-    threefry kernel: randint's two draws per Floyd draw and one a mask,
-    the formula the ``rng_bits`` spans follow (11 at fanouts [3, 2] with
-    2 layers; 62 at [15, 10, 5] with 3)."""
+    """On the card every draw of a train step is one launch: each hop of
+    the Floyd sampler one of the hop kernel (``floyd_hop_cuda``), which
+    derives its draws' keys itself, and each mask one of the threefry
+    kernel; the ``rng_bits`` spans count both (3 at fanouts [3, 2] with 2
+    layers; 5 at [15, 10, 5] with 3), and inside ``sample`` the only
+    ``rng_keys`` span is each hop's fold."""
     fanouts, L = [3, 2], 2
     seeds = np.array([0, 1, 4, 5, 9, 33])
     graph = make_graph(karate["cp"], karate["ri"], num_src=34, num_dst=34,
@@ -277,13 +279,26 @@ def test_train_step_launches_the_threefry_kernel_once_a_draw(karate, card):
     state = trainer.init_fn()
     x = karate["x"].to(card)
     before = rng.threefry_cuda.launches
+    hops_before = primitives.floyd_hop_cuda.launches
     state, loss, _ = trainer.train_step(state, rng.key(5), graph, x, seeds,
                                         karate["y"][seeds])
     torch.cuda.synchronize()
     launches = rng.threefry_cuda.launches - before
-    assert launches == sum(2 * k for k in fanouts) + (L - 1) == 11
+    hops = primitives.floyd_hop_cuda.launches - hops_before
+    assert launches == L - 1 == 1
+    assert hops == len(fanouts) == 2
     rec = span_records("step")[-1]
-    assert launches == _names(rec).count("rng_bits")
+    assert launches + hops == _names(rec).count("rng_bits") == 3
+
+    def inside_sample(i):
+        while i is not None:
+            if rec.spans[i].name == "sample":
+                return True
+            i = rec.spans[i].parent
+        return False
+
+    assert sum(s.name == "rng_keys" and inside_sample(s.parent)
+               for s in rec.spans) == len(fanouts)
     assert torch.isfinite(loss)
 
 
